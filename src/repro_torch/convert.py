@@ -3,8 +3,12 @@
 The reference keeps parameters as a nested dict pytree (``{"l0": {"w": ..,
 "b": ..}, ..}``); the port as a flat dict with dotted names
 (``{"l0.w": .., "l0.b": ..}``), in the reference's leaf order (keys sorted
-at every level).  Both sides meet as numpy arrays, so this module imports
-neither JAX nor the reference package.
+at every level).  A zoo transformer's parameters are the exception: the
+reference stacks ``blocks`` over layers on axis 0, the port's
+:class:`~repro_torch.models.transformer.Transformer` keeps a list of
+per-layer trees (:func:`transformer_params_from_numpy`).  Both sides meet
+as numpy arrays, so this module imports neither JAX nor the reference
+package.
 """
 from __future__ import annotations
 
@@ -77,3 +81,59 @@ def state_to_numpy(state: DepositumState) -> dict:
     out["t"] = np.asarray(state.t, np.int32)
     out["comm"] = ()
     return out
+
+
+def transformer_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
+    """The reference's transformer params (nested dict of numpy arrays,
+    ``blocks`` stacked over layers on axis 0) -> the port's params tree
+    (``blocks`` a list of per-layer dicts) of ``cfg.torch_dtype`` tensors
+    on ``device``, ready for ``Transformer(cfg, params)``.
+
+    Every leaf is checked against the shapes the port builds for ``cfg``;
+    a missing leaf, a leaf left over, or a shape that differs raises.
+    """
+    from repro_torch.models.transformer import init_params
+
+    dev = resolve_device(device)
+    want, _ = init_params(cfg, device="meta")
+    if not isinstance(tree, Mapping) or "blocks" not in tree:
+        raise ValueError("expected the reference's params dict with a "
+                         "'blocks' entry")
+
+    def leaf(path, v, shape):
+        a = np.asarray(v)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {a.shape} != {tuple(shape)} "
+                             f"for {cfg.name}")
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+        return t.to(device=dev, dtype=cfg.torch_dtype)
+
+    def walk(path, src, ref, layer=None):
+        if not isinstance(src, Mapping):
+            raise ValueError(f"{path}: expected a dict, got "
+                             f"{type(src).__name__}")
+        extra = sorted(set(src) - set(ref))
+        missing = sorted(set(ref) - set(src))
+        if extra or missing:
+            raise ValueError(f"{path}: leaves left over {extra}, missing "
+                             f"{missing}")
+        out = {}
+        for k, r in ref.items():
+            p = f"{path}/{k}"
+            if isinstance(r, Mapping):
+                out[k] = walk(p, src[k], r, layer)
+            elif layer is None:
+                out[k] = leaf(p, src[k], r.shape)
+            else:
+                a = np.asarray(src[k])
+                if a.ndim == 0 or a.shape[0] != cfg.n_layers:
+                    raise ValueError(f"{p}: not stacked over "
+                                     f"{cfg.n_layers} layers: {a.shape}")
+                out[k] = leaf(f"{p}[{layer}]", a[layer], r.shape)
+        return out
+
+    top = {k: v for k, v in want.items() if k != "blocks"}
+    params = walk("", {k: v for k, v in tree.items() if k != "blocks"}, top)
+    params["blocks"] = [walk("/blocks", tree["blocks"], want["blocks"][i], i)
+                        for i in range(cfg.n_layers)]
+    return params

@@ -1,12 +1,18 @@
-// Sweep-major DEPOSITUM update kernels for Hopper (sm_90a).
+// DEPOSITUM prox and update kernels for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels on the training path of the JAX
-// reference, src/repro/kernels/prox/kernel.py:
+// Replaces the four Pallas TPU kernels of the JAX reference's
+// src/repro/kernels/prox/kernel.py:
 //   * _fused_sweep_kernel    (via fused_update_sweep_pallas)
 //       nu' = gamma nu + (1 - gamma) y ;  x' = prox_{alpha h}(x - alpha nu')
 //       for h in l1 | mcp | scad (_prox_block);
 //   * _tracking_sweep_kernel (via fused_tracking_sweep_pallas)
-//       y' = y + beta (g_new - g_old), and when gated g_kept = live ? g_new : g_old.
+//       y' = y + beta (g_new - g_old), and when gated g_kept = live ? g_new : g_old;
+//   * _fused_kernel          (via fused_update_pallas): the one-config fused
+//       update, which is fused_update_kernel's ungated instantiation on a
+//       (1, 1, n) view with a (1, 5) table (entry point prox_sweep_update);
+//   * _prox_kernel           (via prox_pallas): the standalone prox of any
+//       leaf, prox_kernel below (entry point prox_apply).  It reads x and
+//       writes out, 8 B an element in fp32, ~8 flops: a byte-bound stream.
 //
 // Layout: every operand is a contiguous (S, C, d) view (S stacked configs,
 // C clients, d elements of one parameter leaf).  The grid is 2-D: grid.y
@@ -173,6 +179,28 @@ fused_update_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+// Standalone prox of a flat leaf of n elements; params is a 5-wide table
+// row [lam, theta, alpha, gamma, beta] of which lam, theta, alpha are read.
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+prox_kernel(const T* __restrict__ x, const float* __restrict__ params,
+            T* __restrict__ out, long long n) {
+  const UpdateConsts c = load_consts(params);
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (VEC) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long i = tid; i < n / 4; i += stride) {
+      const float4 a = x4[i];
+      o4[i] = make_float4(prox<K>(a.x, c), prox<K>(a.y, c), prox<K>(a.z, c),
+                          prox<K>(a.w, c));
+    }
+  } else {
+    for (long long i = tid; i < n; i += stride) out[i] = from_f<T>(prox<K>(to_f(x[i]), c));
+  }
+}
+
 template <typename T, bool GATED, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 tracking_kernel(const T* __restrict__ y, const T* __restrict__ gn,
@@ -312,6 +340,35 @@ int tracking_dispatch(int vec, const void* y, const void* gn, const void* go,
               : tracking_vec<T, false>(vec, y, gn, go, params, mask, yo, gk, S, C, d, st);
 }
 
+template <typename T, int K, bool VEC>
+int launch_prox(const void* x, const void* params, void* out, long long n,
+                cudaStream_t stream) {
+  prox_kernel<T, K, VEC><<<grid_for(1, 1, n, VEC), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(params),
+      static_cast<T*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int K>
+int prox_vec(int vec, const void* x, const void* params, void* out,
+             long long n, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) return launch_prox<T, K, true>(x, params, out, n, st);
+  }
+  return launch_prox<T, K, false>(x, params, out, n, st);
+}
+
+template <typename T>
+int prox_kind(int kind, int vec, const void* x, const void* params, void* out,
+              long long n, cudaStream_t st) {
+  switch (kind) {
+    case kL1: return prox_vec<T, kL1>(vec, x, params, out, n, st);
+    case kMcp: return prox_vec<T, kMcp>(vec, x, params, out, n, st);
+    case kScad: return prox_vec<T, kScad>(vec, x, params, out, n, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -340,6 +397,16 @@ int prox_sweep_tracking(const void* y, const void* gn, const void* go,
     return tracking_dispatch<float>(vec, y, gn, go, params, mask, yo, gk, S, C, d, st);
   if (dtype == 1 && !vec)
     return tracking_dispatch<__nv_bfloat16>(0, y, gn, go, params, mask, yo, gk, S, C, d, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Standalone prox of n elements.  vec = 1 only for float32 with n % 4 == 0
+// and 16-byte-aligned pointers.
+int prox_apply(const void* x, const void* params, void* out, long long n,
+               int kind, int dtype, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return prox_kind<float>(kind, vec, x, params, out, n, st);
+  if (dtype == 1 && !vec) return prox_kind<__nv_bfloat16>(kind, 0, x, params, out, n, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,6 @@
-"""Sweep-major DEPOSITUM update kernels: CUDA for Hopper, plain PyTorch beside.
+"""DEPOSITUM prox and update kernels: CUDA for Hopper, plain PyTorch beside.
 
-Port of the sweep-major half of ``repro/kernels/prox/kernel.py``:
+Port of ``repro/kernels/prox/kernel.py``.  The sweep-major pair:
 
 * :func:`fused_update_sweep_cuda` replaces ``fused_update_sweep_pallas``
   (``_fused_sweep_kernel``): ``nu' = gamma nu + (1 - gamma) y`` and
@@ -9,7 +9,19 @@ Port of the sweep-major half of ``repro/kernels/prox/kernel.py``:
   (``_tracking_sweep_kernel``): ``y' = y + beta (g_new - g_old)``, and when
   gated ``g_kept = where(live, g_new, g_old)``.
 
-Operands are ``(S, C, *p)`` tensors (S stacked configs, C clients), the
+and the one-config pair:
+
+* :func:`prox_cuda` replaces ``prox_pallas`` (``_prox_kernel``): the
+  standalone elementwise prox of a leaf of any shape;
+* :func:`fused_update_cuda` replaces ``fused_update_pallas``
+  (``_fused_kernel``): the fused momentum + prox update of one config,
+  which is the sweep kernel's ungated instantiation on a ``(1, 1, n)``
+  view.  Both take ``lam, theta, alpha[, gamma]`` as Python floats or 0-d
+  tensors; they travel to the kernel as a (1, 5) table row on the
+  operand's device, so a new value never rebuilds and a device tensor is
+  never read back.
+
+Sweep operands are ``(S, C, *p)`` tensors (S stacked configs, C clients), the
 hyperparameters an ``(S, 5)`` float32 table ``[lam, theta, alpha, gamma,
 beta]`` on the operands' device, the optional cohort gate an ``(S, C)``
 float32 mask whose rows ``<= 0`` come back bit for bit unchanged.
@@ -26,16 +38,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.prox.ref import fused_update_ref
+from repro_torch.kernels import _build
+from repro_torch.kernels.prox.ref import fused_update_ref, prox_ref
 
 # params-table column order (shared with ops.py / depositum.step)
 PARAM_COLS = ("lam", "theta", "alpha", "gamma", "beta")
@@ -43,15 +52,15 @@ PARAM_COLS = ("lam", "theta", "alpha", "gamma", "beta")
 KINDS = {"l1": 0, "mcp": 1, "scad": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches, keyed "fused_sweep" / "tracking_sweep"; a count rises
-#: only where a wrapper launches its CUDA kernel (never on the plain path)
+#: kernel launches, keyed "fused_sweep" / "tracking_sweep" / "prox" /
+#: "fused_update"; a count rises only where a wrapper launches its CUDA
+#: kernel (never on the plain path)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 SOURCE = Path(__file__).parent / "csrc" / "prox_sweep.cu"
 BUILD_DIR = Path(__file__).parent / "build"
 # -fmad=false: one rounding per operation, as in the plain version
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
 
 
 def reset_launch_counts() -> None:
@@ -72,36 +81,10 @@ def sweep_params_table(lam, theta, alpha, gamma, beta=0.0, *,
 # Build and bind
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    # PyTorch's own lookup of the toolkit (CUDA_HOME, CUDA_PATH, defaults)
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    path = Path(CUDA_HOME or "") / "bin" / "nvcc"
-    if not CUDA_HOME or not path.exists():
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                           "CUDA kernels cannot be built")
-    return str(path)
-
-
 def build_library() -> Path:
     """Compile ``csrc/prox_sweep.cu`` (once per source and flags) and
     return the shared library's path."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libprox_sweep_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a torn file
-    return out
+    return _build.build_library(SOURCE, BUILD_DIR, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +95,8 @@ def _lib() -> ctypes.CDLL:
     lib.prox_sweep_update.restype = i
     lib.prox_sweep_tracking.argtypes = [p] * 7 + [i, i, ll, i, i, p]
     lib.prox_sweep_tracking.restype = i
+    lib.prox_apply.argtypes = [p] * 3 + [ll, i, i, i, p]
+    lib.prox_apply.restype = i
     return lib
 
 
@@ -279,3 +264,124 @@ def fused_tracking_sweep_cuda(y, g_new, g_old, params, mask=None):
             f"prox_sweep_tracking launch failed: CUDA error {err}")
     LAUNCH_COUNTS["tracking_sweep"] += 1
     return yo, gk
+
+
+# ---------------------------------------------------------------------------
+# One-config kernels: standalone prox and fused update
+# ---------------------------------------------------------------------------
+
+def hyper_row(like: torch.Tensor, lam, theta, alpha, gamma=0.0) -> torch.Tensor:
+    """(1, 5) float32 row [lam, theta, alpha, gamma, 0] on ``like``'s device.
+
+    Python numbers go over in one copy from pinned memory that does not
+    block the host; 0-d tensors are stacked on the device (never read back
+    to the host).
+    """
+    vals = (lam, theta, alpha, gamma, 0.0)
+    if not any(isinstance(v, torch.Tensor) for v in vals):
+        row = torch.tensor([vals], dtype=torch.float32)
+        if like.device.type == "cuda":
+            return row.pin_memory().to(like.device, non_blocking=True)
+        return row.to(like.device)
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=like.device).reshape(())
+                        for v in vals])[None]
+
+
+def _check_leaf(name, operands):
+    a = operands[0]
+    for o in operands:
+        if o.shape != a.shape or o.dtype != a.dtype or o.device != a.device:
+            raise ValueError(f"{name}: operands differ in shape, dtype or "
+                             "device")
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {a.dtype} not in "
+                        f"{sorted(map(str, _DTYPES))}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {a.device}")
+
+
+def _check_kind(kind):
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
+
+
+def prox_plain(x, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
+    """Plain PyTorch version of :func:`prox_cuda`: ``ref.py``'s prox in
+    float32 on the table row's values, cast back once."""
+    _check_leaf("prox", (x,))
+    _check_kind(kind)
+    row = hyper_row(x, lam, theta, alpha)[0]
+    out = prox_ref(x.to(torch.float32), kind, row[0], row[1], row[2])
+    return out.to(x.dtype)
+
+
+def prox_cuda(x, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
+    """prox_{alpha h}(x) for h in l1 | mcp | scad, any shape, fp32 or bf16.
+
+    CUDA tensors launch the kernel, CPU tensors run :func:`prox_plain`.
+    """
+    if x.device.type != "cuda":
+        return prox_plain(x, kind=kind, lam=lam, theta=theta, alpha=alpha)
+    _check_leaf("prox", (x,))
+    _check_kind(kind)
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    n = xc.numel()
+    if n == 0:
+        return out
+    row = hyper_row(xc, lam, theta, alpha)
+    lib = _lib()
+    with torch.cuda.device(xc.device):
+        err = lib.prox_apply(xc.data_ptr(), row.data_ptr(), out.data_ptr(),
+                             n, KINDS[kind], _DTYPES[xc.dtype],
+                             _vec_ok(n, xc, out), _stream_ptr(xc.device))
+    if err != 0:
+        raise RuntimeError(f"prox_apply launch failed: CUDA error {err}")
+    LAUNCH_COUNTS["prox"] += 1
+    return out
+
+
+def fused_update_plain(x, y, nu, *, kind="l1", lam=1e-4, theta=4.0,
+                       alpha=0.1, gamma=0.8):
+    """Plain PyTorch version of :func:`fused_update_cuda`.  Returns
+    (x', nu')."""
+    _check_leaf("fused_update", (x, y, nu))
+    _check_kind(kind)
+    row = hyper_row(x, lam, theta, alpha, gamma)[0]
+    f = lambda t: t.to(torch.float32)
+    x_next, nu_next = fused_update_ref(f(x), f(y), f(nu), row[0], row[2],
+                                       row[3], prox_kind=kind, theta=row[1])
+    return x_next.to(x.dtype), nu_next.to(nu.dtype)
+
+
+def fused_update_cuda(x, y, nu, *, kind="l1", lam=1e-4, theta=4.0,
+                      alpha=0.1, gamma=0.8):
+    """Fused momentum + prox of one config, any shape.  Returns (x', nu').
+
+    CUDA tensors launch the sweep update kernel, ungated, on a (1, 1, n)
+    view with a (1, 5) table; CPU tensors run :func:`fused_update_plain`.
+    """
+    if x.device.type != "cuda":
+        return fused_update_plain(x, y, nu, kind=kind, lam=lam, theta=theta,
+                                  alpha=alpha, gamma=gamma)
+    _check_leaf("fused_update", (x, y, nu))
+    _check_kind(kind)
+    xc, yc, nc = (t.contiguous() for t in (x, y, nu))
+    xo, nuo = torch.empty_like(xc), torch.empty_like(nc)
+    n = xc.numel()
+    if n == 0:
+        return xo, nuo
+    row = hyper_row(xc, lam, theta, alpha, gamma)
+    lib = _lib()
+    with torch.cuda.device(xc.device):
+        err = lib.prox_sweep_update(
+            xc.data_ptr(), yc.data_ptr(), nc.data_ptr(), row.data_ptr(), None,
+            xo.data_ptr(), nuo.data_ptr(), 1, 1, n, KINDS[kind],
+            _DTYPES[xc.dtype], _vec_ok(n, xc, yc, nc, xo, nuo),
+            _stream_ptr(xc.device))
+    if err != 0:
+        raise RuntimeError(f"prox_sweep_update launch failed: CUDA error "
+                           f"{err}")
+    LAUNCH_COUNTS["fused_update"] += 1
+    return xo, nuo

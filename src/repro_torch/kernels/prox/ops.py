@@ -1,7 +1,9 @@
-"""Dict-of-tensors wrappers for the sweep-major kernels.
+"""Dict-of-tensors wrappers for the prox kernels.
 
 Port of ``repro/kernels/prox/ops.py``:
 
+* :func:`prox_tree` / :func:`fused_update_tree` apply the one-config
+  kernels leafwise over dicts of tensors of any shape;
 * ``fused_update_sweep_tree`` / ``fused_tracking_sweep_tree`` apply a
   kernel leafwise over dicts of explicit ``(S, C, ...)`` leaves;
 * :func:`fused_local_update` / :func:`fused_tracking` are the round
@@ -17,9 +19,28 @@ import torch
 
 from repro_torch.kernels.prox.kernel import (
     fused_tracking_sweep_cuda,
+    fused_update_cuda,
     fused_update_sweep_cuda,
+    prox_cuda,
 )
 from repro_torch.obs.trace import annotate
+
+
+def prox_tree(tree, *, kind: str, lam, alpha, theta=4.0):
+    """Apply the prox kernel leafwise over a dict of tensors."""
+    return {k: prox_cuda(v, kind=kind, lam=lam, theta=theta, alpha=alpha)
+            for k, v in tree.items()}
+
+
+def fused_update_tree(x_tree, y_tree, nu_tree, *, kind: str, lam, alpha,
+                      gamma, theta=4.0):
+    """Fused DEPOSITUM local update over dicts.  Returns (x', nu')."""
+    xs, nus = {}, {}
+    for k in x_tree:
+        xs[k], nus[k] = fused_update_cuda(
+            x_tree[k], y_tree[k], nu_tree[k], kind=kind, lam=lam,
+            theta=theta, alpha=alpha, gamma=gamma)
+    return xs, nus
 
 
 def fused_update_sweep_tree(x_tree, y_tree, nu_tree, params, mask=None, *,

@@ -1,0 +1,170 @@
+"""Shared model-building blocks: parameter specs with logical axes, norms,
+embeddings, RoPE (port of ``repro/models/common.py``).
+
+Parameters are nested dicts of tensors while they are built.  Every leaf
+starts as a :class:`ParamSpec` carrying its logical axis names;
+:func:`split_params` separates the value tree from the axes tree, which the
+sharding slice will map onto a device mesh.  :class:`ParamTree` turns a
+value tree into an ``nn.Module`` whose leaves are ``nn.Parameter``\\ s and
+which indexes like the dict it came from, so the functions of
+``attention.py`` / ``mlp.py`` take either.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class ParamSpec:
+    value: torch.Tensor
+    axes: tuple[Optional[str], ...]
+
+    def __post_init__(self):
+        if len(self.axes) != self.value.ndim:
+            raise ValueError(
+                f"axes {self.axes} rank != value rank {tuple(self.value.shape)}")
+
+
+def split_params(tree) -> tuple[Any, Any]:
+    """(ParamSpec tree) -> (values tree, axes tree); lists stay lists."""
+    if isinstance(tree, ParamSpec):
+        return tree.value, tuple(tree.axes)
+    if isinstance(tree, Mapping):
+        pairs = {k: split_params(v) for k, v in tree.items()}
+        return ({k: p[0] for k, p in pairs.items()},
+                {k: p[1] for k, p in pairs.items()})
+    if isinstance(tree, (list, tuple)):
+        pairs = [split_params(v) for v in tree]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    raise TypeError(f"not a parameter tree node: {type(tree).__name__}")
+
+
+class Initializer:
+    """Parameter factory on an explicit ``torch.Generator``.
+
+    Scales follow the reference: ``normal`` draws N(0, 1) times
+    ``1/sqrt(fan_in)`` (fan_in = first dim of a matrix) unless a scale is
+    given.  The draws cannot match JAX's; parity tests carry the
+    reference's parameters across with :mod:`repro_torch.convert`.  With
+    ``generator=None`` every leaf is an uninitialised tensor on ``device``
+    (``"meta"`` gives shapes without memory).
+    """
+
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype=torch.float32, device=None):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = torch.device(
+            device if device is not None
+            else (generator.device if generator is not None else "cpu"))
+
+    def normal(self, shape, axes, scale=None):
+        fan_in = shape[0] if len(shape) > 1 else shape[-1]
+        if scale is None:
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        if self.generator is None:
+            v = torch.empty(shape, dtype=self.dtype, device=self.device)
+        else:
+            v = torch.randn(shape, generator=self.generator,
+                            dtype=self.dtype, device=self.device) * scale
+        return ParamSpec(v, axes)
+
+    def zeros(self, shape, axes):
+        return ParamSpec(torch.zeros(shape, dtype=self.dtype,
+                                     device=self.device), axes)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as an ``nn.Module``.
+
+    Tensor leaves become ``nn.Parameter``\\ s, sub-dicts ``ParamTree``
+    children, so ``state_dict`` names follow the dict's paths
+    (``attn.wq``).  ``tree[key]`` returns the parameter or child.
+    """
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            elif isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    k, v if isinstance(v, nn.Parameter) else nn.Parameter(
+                        v, requires_grad=v.is_floating_point()))
+            else:
+                raise TypeError(f"{k}: not a tensor or dict "
+                                f"({type(v).__name__})")
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMS norm in fp32 with a zero-centred scale (``1 + weight``)."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.to(torch.float32))).to(dtype)
+
+
+def init_rms_norm(ini: Initializer, dim: int):
+    # stored as zero-centered scale (weight = 1 + w), friendlier to l1-prox
+    return {"scale": ini.zeros((dim,), ("embed",))}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    """1 / theta^(2i / head_dim) in fp32, computed on ``device``.
+
+    ``theta`` stays a Python number (a scalar operand of the kernel): a
+    tensor made from it on the card would be a host-to-device copy, which
+    blocks the host on every layer's call.
+    """
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (float(theta) ** exps)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
+
+    Split halves (not interleaved), computed in fp32.
+    """
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs     # (..., seq, hd/2)
+    angles = angles[..., None, :]                                # (..., seq, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(ini: Initializer, vocab: int, d_model: int):
+    return {"table": ini.normal((vocab, d_model), ("vocab", "embed"),
+                                scale=0.02)}
+
+
+def embed(params, tokens):
+    return params["table"][tokens]
+
+
+def pad_vocab(vocab: int, multiple: int = 256) -> int:
+    return ((vocab + multiple - 1) // multiple) * multiple

@@ -1,0 +1,46 @@
+"""The port stands alone: every ``repro_torch`` module imports with ``jax``
+and ``repro`` made unimportable, and neither lands in ``sys.modules``."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print(len(names), " ".join(names))
+'''
+
+
+def test_every_port_module_imports_without_jax_or_the_reference():
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], capture_output=True, text=True,
+        timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr
+    count, names = proc.stdout.split(" ", 1)
+    names = names.split()
+    for mod in ("repro_torch.configs.qwen3_1_7b",
+                "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.models.transformer",
+                "repro_torch.serving.serve", "repro_torch.launch.serve",
+                "repro_torch.kernels.prox.ops", "repro_torch.quickstart"):
+        assert mod in names
+    assert int(count) == len(names) >= 30

@@ -1,10 +1,13 @@
-"""Port parity: the sweep-major kernels' plain versions and their wrappers.
+"""Port parity: the prox kernels' plain versions and their wrappers.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; it is held
 against the reference's Pallas kernels (interpret mode, as
 ``tests/test_fused_sweep.py`` runs them) and the ``ref.py`` oracle at
 atol = rtol = 1e-6: the same fp32 operations, though XLA may contract a
 multiply-add.  Frozen rows of the cohort gate must come back bit for bit.
+The one-config kernels (``prox_cuda``, ``fused_update_cuda``) are held
+against ``prox_pallas`` / ``fused_update_pallas`` at the reference's own
+``tests/test_kernels.py`` tolerances: 1e-6 in fp32, 1.5e-2 in bf16.
 The CUDA kernels themselves are held to the plain versions by
 ``tests/test_torch_kernels_gpu.py``, which skips without a card.
 """
@@ -16,7 +19,9 @@ import torch
 from repro.kernels.prox import ops as jops
 from repro.kernels.prox.kernel import (
     fused_tracking_sweep_pallas,
+    fused_update_pallas,
     fused_update_sweep_pallas,
+    prox_pallas,
     sweep_params_table as j_table,
 )
 from repro.kernels.prox.ref import fused_update_ref as j_ref
@@ -192,3 +197,97 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="kind"):
         tk.fused_update_sweep_cuda(x, y, nu, tt, kind="box")
     assert tk.LAUNCH_COUNTS["fused_sweep"] == 0  # the plain path never counts
+
+
+# ---------------------------------------------------------------------------
+# One-config kernels: standalone prox and fused update
+# ---------------------------------------------------------------------------
+
+ONE_SHAPES = [(64,), (1000,), (8, 333), (4, 128, 130)]
+ONE_DTYPES = [torch.float32, torch.bfloat16]
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _one_tol(dtype):
+    return 1e-6 if dtype == torch.float32 else 1.5e-2
+
+
+def _leaf(seed, shape, dtype):
+    a = (np.random.default_rng(seed).standard_normal(shape) * 0.01
+         ).astype(np.float32)
+    return torch.from_numpy(a).to(dtype), jnp.asarray(a, _JDT[dtype])
+
+
+def _assert_leaf(t, j, dtype):
+    assert t.dtype == dtype and tuple(t.shape) == tuple(j.shape)
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=_one_tol(dtype), rtol=_one_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", ONE_SHAPES)
+@pytest.mark.parametrize("dtype", ONE_DTYPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_prox_plain_matches_pallas(kind, dtype, shape):
+    t, j = _leaf(ONE_SHAPES.index(shape) + 7 * KINDS.index(kind), shape,
+                 dtype)
+    hp = dict(lam=1e-3, theta=4.0, alpha=0.1)
+    out = tk.prox_cuda(t, kind=kind, **hp)
+    _assert_leaf(out, prox_pallas(j, kind=kind, **hp), dtype)
+    assert torch.equal(out, tk.prox_plain(t, kind=kind, **hp))
+
+
+@pytest.mark.parametrize("shape", [(1000,), (4, 128, 130)])
+@pytest.mark.parametrize("dtype", ONE_DTYPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_update_plain_matches_pallas(kind, dtype, shape):
+    (tx, jx), (ty, jy), (tn, jn) = (
+        _leaf(i + 3 * KINDS.index(kind), shape, dtype) for i in range(3))
+    hp = dict(lam=1e-3, theta=4.0, alpha=0.1, gamma=0.8)
+    xo, nuo = tk.fused_update_cuda(tx, ty, tn, kind=kind, **hp)
+    jxo, jnuo = fused_update_pallas(jx, jy, jn, kind=kind, **hp)
+    _assert_leaf(xo, jxo, dtype)
+    _assert_leaf(nuo, jnuo, dtype)
+
+
+def test_one_config_kernels_take_tensor_hyperparameters():
+    """0-d tensors give the same result as floats (no rebuild, no readback)."""
+    x, _ = _leaf(1, (5, 33), torch.float32)
+    y, _ = _leaf(2, (5, 33), torch.float32)
+    hp = dict(lam=2e-3, theta=3.5, alpha=0.2)
+    as_t = {k: torch.tensor(v) for k, v in hp.items()}
+    assert torch.equal(tk.prox_cuda(x, kind="scad", **hp),
+                       tk.prox_cuda(x, kind="scad", **as_t))
+    a = tk.fused_update_cuda(x, y, x, kind="mcp", gamma=0.5, **hp)
+    b = tk.fused_update_cuda(x, y, x, kind="mcp", gamma=torch.tensor(0.5),
+                             **as_t)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    row = tk.hyper_row(x, **as_t)
+    assert row.shape == (1, 5) and row.dtype == torch.float32
+    with pytest.raises(ValueError, match="kind"):
+        tk.prox_cuda(x, kind="box")
+    with pytest.raises(TypeError):
+        tk.prox_cuda(x.double())
+    with pytest.raises(ValueError, match="differ"):
+        tk.fused_update_cuda(x, y[:2], x)
+    assert tk.LAUNCH_COUNTS["prox"] == tk.LAUNCH_COUNTS["fused_update"] == 0
+
+
+def test_prox_tree_and_fused_update_tree_match_reference():
+    rng = np.random.default_rng(8)
+    shapes = {"w": (8, 16), "b": (16,), "s": ()}
+    trees = [{k: (rng.standard_normal(s) * 0.05).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    tt = [{k: torch.from_numpy(np.asarray(v)) for k, v in t.items()}
+          for t in trees]
+    jt = [{k: jnp.asarray(v) for k, v in t.items()} for t in trees]
+    hp = dict(kind="mcp", lam=0.02, alpha=0.5, theta=4.0)
+    got, want = tops.prox_tree(tt[0], **hp), jops.prox_tree(jt[0], **hp)
+    assert set(got) == set(shapes)
+    for k in shapes:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **TOL)
+    (gx, gn) = tops.fused_update_tree(*tt, gamma=0.5, **hp)
+    (wx, wn) = jops.fused_update_tree(*jt, gamma=0.5, **hp)
+    for k in shapes:
+        assert gx[k].shape == shapes[k]
+        np.testing.assert_allclose(gx[k].numpy(), np.asarray(wx[k]), **TOL)
+        np.testing.assert_allclose(gn[k].numpy(), np.asarray(wn[k]), **TOL)

@@ -7,9 +7,10 @@ also runs on a machine that has only PyTorch and the CUDA toolkit::
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu \\
         tests/test_torch_kernels_gpu.py
 
-Tolerance: kernel and plain version do the same fp32 operations in the
-same order (the kernels are built with -fmad=false), held at atol = rtol =
-1e-6; frozen rows of the cohort gate are held bit for bit.
+Tolerance: the prox kernels and their plain versions do the same fp32
+operations in the same order (built with -fmad=false), held at atol = rtol
+= 1e-6; frozen rows of the cohort gate are held bit for bit.  The flash
+kernel sums its online softmax blockwise: fp32 at 2e-5, bf16 at 3e-2.
 """
 import numpy as np
 import pytest
@@ -111,3 +112,85 @@ def test_round_on_the_card_matches_the_cpu():
         for key, v in getattr(out["cuda"], f).items():
             torch.testing.assert_close(v.cpu(), getattr(out["cpu"], f)[key],
                                        rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["l1", "mcp", "scad"])
+def test_one_config_kernels_match_plain_versions(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    hp = dict(lam=1e-3, theta=4.0, alpha=0.1)
+    before = dict(tk.LAUNCH_COUNTS)
+    for shape, dtype in (((1001,), torch.float32), ((64, 130), torch.float32),
+                         ((3, 333), torch.bfloat16), ((), torch.float32)):
+        x, y, nu = ((torch.randn(shape, generator=g, device="cuda") * 0.01)
+                    .to(dtype) for _ in range(3))
+        out = tk.prox_cuda(x, kind=kind, **hp)
+        ref = tk.prox_plain(x, kind=kind, **hp)
+        assert out.shape == x.shape and out.dtype == dtype
+        torch.testing.assert_close(out, ref, **TOL)
+        for a, b in zip(tk.fused_update_cuda(x, y, nu, kind=kind, gamma=0.8,
+                                             **hp),
+                        tk.fused_update_plain(x, y, nu, kind=kind, gamma=0.8,
+                                              **hp)):
+            torch.testing.assert_close(a, b, **TOL)
+    torch.cuda.synchronize()
+    assert tk.LAUNCH_COUNTS["prox"] == before.get("prox", 0) + 4
+    assert tk.LAUNCH_COUNTS["fused_update"] == before.get("fused_update", 0) + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_kernel_matches_plain_version(D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device="cuda").manual_seed(D)
+    fk.reset_launch_counts()
+    cases = 0
+    for B, Lq, Lk, H, KV in ((2, 17, 17, 4, 2), (1, 200, 200, 8, 1),
+                             (1, 40, 17, 4, 4), (1, 1, 1, 2, 2)):
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+            q = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn((B, Lk, KV, D), generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                out = fk.flash_attention(q, k, v, causal=causal, window=window)
+                ref = fk.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+                torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+                cases += 1
+    torch.cuda.synchronize()
+    assert fk.LAUNCH_COUNTS["flash_fwd"] == cases
+
+
+@pytest.mark.gpu
+def test_reduced_server_on_the_card_matches_the_cpu():
+    """Greedy tokens of reduced starcoder2 (window 64, prompt 80, ring cache)
+    on the card equal the CPU's; prefill logits within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    cfg = get_config("starcoder2-7b", reduced=True)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 80)))
+    toks, logits = {}, {}
+    fk.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device="cpu")
+        params, _ = model.init(seed=0)
+        model = build_model(cfg, device=dev)
+        srv = BatchedServer(model, params.to(dev), ServeConfig(
+            max_new_tokens=6, cache_capacity=64))
+        toks[dev] = srv.generate(prompts).cpu()
+        with torch.inference_mode():
+            logits[dev] = srv.prefill(prompts.to(dev))[0].cpu()
+    assert fk.LAUNCH_COUNTS["flash_fwd"] == 2 * cfg.n_layers
+    assert torch.equal(toks["cpu"], toks["cuda"])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
