@@ -7,9 +7,13 @@ Phases, each of which must pass (any failure exits non-zero before the
 final line):
 
 1. build the CUDA kernels from the repo's sources with ``nvcc`` (into
-   each kernel's ``build/``): ``kernels/prox/csrc/prox_sweep.cu`` and
-   ``kernels/flash_attention/csrc/flash_fwd.cu``, both ``nvcc`` runs started
-   together;
+   each kernel's ``build/``): ``kernels/prox/csrc/prox_sweep.cu``,
+   ``kernels/flash_attention/csrc/flash_fwd.cu`` (fp32) and
+   ``kernels/flash_attention/csrc/flash_fwd_sm90.cu`` (bf16), the three
+   ``nvcc`` runs started together; print what ``-Xptxas -v`` says of the
+   bf16 flash kernel (registers, shared memory, spills) and fail if its
+   D = 128 instantiation spills, or if its SASS (``cuobjdump -sass``) lacks
+   the wgmma of Q K^T (A from shared memory) or of P V (A from registers);
 2. hold each kernel against its plain PyTorch version on the card:
    * the sweep-major pair: all three prox kinds, gated and ungated, S = 3
      configs x C = 10 clients, an odd d (scalar loads) and a d that is a
@@ -19,7 +23,8 @@ final line):
      0-d leaves, fp32 within ``ATOL`` / ``RTOL`` and bf16;
    * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 128 / 256, GQA
      groups 1 / 2 / 8, causal with window 0 and 128 and non-causal,
-     L = 1 / 17 / 200 / 1024, within ``FLASH_TOL``;
+     L = 1 / 17 / 200 / 1024, within ``FLASH_TOL``; every bf16 case
+     launches the tensor-core kernel and every fp32 case the fp32 one;
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
@@ -34,21 +39,23 @@ final line):
 5. the served path at full width: ``qwen3-1.7b`` (28 layers, d 2048, 16/8
    heads of 128, d_ff 6144, vocab 151936, bf16, untied; random weights from
    a seeded generator on the card) through ``BatchedServer`` with B = 4,
-   a 1024-token prompt, 32 greedy tokens and a 2048-slot cache: flash
-   launches exactly once per layer, every logit is finite, and the prefill
+   a 1024-token prompt, 32 greedy tokens and a 2048-slot cache: the bf16
+   flash kernel launches exactly once per layer, every logit is finite, and
+   the prefill
    logits match the same prefill with ``flash_attention_plain`` swapped in
    within ``SERVE_LOGIT_ATOL`` / ``SERVE_LOGIT_RTOL``; prints prefill ms,
    decode ms a token, tokens/s and the peak memory of the ``generate``
    call (``torch.cuda.max_memory_allocated``);
 6. card against CPU: reduced ``qwen3-1.7b`` and reduced ``starcoder2-7b``,
    fp32, identical weights, served on the card and on the CPU (plain
-   versions there): identical greedy tokens, logits within 1e-4;
+   versions there; the fp32 flash kernel on the card): identical greedy
+   tokens, logits within 1e-4;
 7. time each kernel (CUDA events) against its plain version, its bound and
    (flash) ``scaled_dot_product_attention``, at its path's shapes and at a
    larger one, and the DEPOSITUM round wall time fused and unfused.
 
-Before each path (phases 3, 4, 5) every launch count is set to 0; it is
-read just after.  Prints JSON lines per phase, then the card's name and
+Before each path (phases 3, 4, 5, 6) every launch count is set to 0; it
+is read just after.  Prints JSON lines per phase, then the card's name and
 power limit (from ``nvidia-smi``), then one ``{"kernels": [...]}`` line,
 then as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
 with no result when CUDA is unavailable or the port's sources are not
@@ -82,8 +89,13 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32, outside the tensor cores
 # flops per element: update = momentum (3) + shift (2) + prox chain (<= 8)
 UPDATE_FLOPS, TRACKING_FLOPS = 13, 3
 KERNEL_SOURCE = "src/repro_torch/kernels/prox/csrc/prox_sweep.cu"
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
+FLASH_SOURCES = {
+    "bfloat16": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
+    "float32": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"}
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:34"
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, tensor cores
+# the bf16 flash kernel's instantiation on the served path must not spill
+FLASH_NO_SPILL = "flash_fwd_sm90_kernelILi128E"
 # flash kernel vs plain: blockwise online softmax sums in another order
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # full-width prefill, flash vs plain attention: both compute the attention
@@ -121,22 +133,79 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _ptxas(log: str) -> dict:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its registers,
+    shared memory, spill bytes and ptxas's other notes on it."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            cur = ln.split("'")[1]
+            out[cur] = {"notes": []}
+        elif cur is None:
+            continue
+        elif "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[cur]["stack_bytes"], out[cur]["spill_store_bytes"], \
+                out[cur]["spill_load_bytes"] = nums[:3]
+        elif "Used" in ln and "registers" in ln:
+            out[cur]["usage"] = ln.split(":", 1)[-1].strip()
+        elif "warning" in ln or "wgmma" in ln or "setmaxnreg" in ln:
+            out[cur]["notes"].append(ln.strip())
+    return out
+
+
+def _sass_wgmma(lib) -> dict:
+    """The wgmma (SASS ``HGMMA``) instructions of the bf16 flash kernel's
+    D = 128 instantiation in ``lib``, by shape and by where A comes from
+    (``ss``: shared memory, Q K^T; ``rs``: registers, P V)."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, inside = {}, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = FLASH_NO_SPILL in ln
+        m = re.search(r"HGMMA\.(\w+)\.F32\.BF16 R\d+, (\S+)", ln) if inside \
+            else None
+        if m:
+            key = f"{m.group(1)} {'ss' if 'desc' in m.group(2) else 'rs'}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
 def phase_build() -> dict:
-    """Both nvcc runs started together (one thread each), then loaded."""
+    """The three nvcc runs started together (one thread each), then
+    loaded; the bf16 flash kernel's ptxas report, and its spill check."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.prox import kernel as prox
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        paths = list(pool.map(lambda m: m.build_library(), (prox, flash)))
+    jobs = (prox.build_library, lambda: flash.build_library("flash_fwd"),
+            lambda: flash.build_library("flash_fwd_sm90"))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: job(), jobs))
     prox._lib()
-    flash._lib()
-    ptxas = [ln.split(":", 1)[-1].strip()
-             for ln in paths[1].with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    for name in flash.SOURCES:
+        flash._kernel(name)
+    sm90 = _ptxas(paths[2].with_suffix(".log").read_text())
+    fp32 = _ptxas(paths[1].with_suffix(".log").read_text())
+    spilling = [name for name, p in sm90.items() if FLASH_NO_SPILL in name
+                and (p["spill_store_bytes"] or p["spill_load_bytes"])]
+    if spilling or not any(FLASH_NO_SPILL in name for name in sm90):
+        raise AssertionError(f"bf16 flash kernel, D = 128: spills or is "
+                             f"missing: {spilling or sorted(sm90)}")
+    wgmma = _sass_wgmma(paths[2])
+    if not any(k.endswith(" ss") for k in wgmma) \
+            or not any(k.endswith(" rs") for k in wgmma):
+        raise AssertionError(f"bf16 flash kernel, D = 128: no wgmma for "
+                             f"Q K^T or for P V in its SASS: {wgmma}")
     return {"phase": "build",
             "libraries": [str(p.relative_to(ROOT)) for p in paths],
-            "seconds": time.perf_counter() - t0, "flash_ptxas": ptxas}
+            "seconds": time.perf_counter() - t0, "flash_sm90_wgmma": wgmma,
+            "flash_sm90_ptxas": sm90,
+            "flash_fp32_ptxas": {k: v.get("usage") for k, v in fp32.items()}}
 
 
 def _modules():
@@ -157,11 +226,19 @@ def read_counts() -> dict:
             "fused_tracking_sweep": prox.LAUNCH_COUNTS["tracking_sweep"],
             "prox": prox.LAUNCH_COUNTS["prox"],
             "fused_update": prox.LAUNCH_COUNTS["fused_update"],
-            "flash_attention": flash.LAUNCH_COUNTS["flash_fwd"]}
+            "flash_attention": flash.LAUNCH_COUNTS["flash_fwd_sm90"],
+            "flash_attention_fp32": flash.LAUNCH_COUNTS["flash_fwd_fp32"]}
 
 
 def expect_counts(path: str, counts: dict, want: dict) -> None:
-    """Each kernel launched exactly ``want[name]`` times (0 if absent)."""
+    """Each kernel launched exactly ``want[name]`` times (0 if absent), and
+    the flash wrapper's total is the sum of its two routes."""
+    _, flash = _modules()
+    total = counts["flash_attention"] + counts["flash_attention_fp32"]
+    if flash.LAUNCH_COUNTS["flash_fwd"] != total:
+        raise AssertionError(f"{path}: flash_fwd counted "
+                             f"{flash.LAUNCH_COUNTS['flash_fwd']} launches, "
+                             f"its routes {total}")
     for name, n in counts.items():
         if n != want.get(name, 0):
             raise AssertionError(f"{path}: {name} launched {n} times, want "
@@ -298,8 +375,14 @@ def phase_check_flash() -> dict:
                     name = str(dtype).split(".")[-1]
                     for causal, window in ((True, 0), (True, 128),
                                            (False, 0)):
+                        before = read_counts()
                         out = F.flash_attention_cuda(q, k, v, causal=causal,
                                                      window=window)
+                        route = ("flash_attention" if dtype == torch.bfloat16
+                                 else "flash_attention_fp32")
+                        expect_counts(f"flash D={D} group={group} L={L} "
+                                      f"{name}", read_counts(),
+                                      {**before, route: before[route] + 1})
                         ref = F.flash_attention_plain(q, k, v, causal=causal,
                                                       window=window)
                         torch.cuda.synchronize()
@@ -313,7 +396,7 @@ def phase_check_flash() -> dict:
                             (out.float() - ref.float()).abs().max()))
                         cases += 1
     return {"phase": "check_flash", "cases": cases, "max_abs_err": worst,
-            "tol": FLASH_TOL}
+            "tol": FLASH_TOL, "launches": read_counts()}
 
 
 def phase_main_path():
@@ -540,8 +623,9 @@ def phase_card_vs_cpu() -> dict:
                 max_new_tokens=8, cache_capacity=cap)).generate(prompts).cpu()
             logits[dev] = _teacher_forced_logits(
                 model, p, prompts.to(dev), toks[dev].to(dev), cap).cpu()
-        expect_counts(f"{arch} card vs cpu", read_counts(),
-                      {"flash_attention": 2 * cfg.n_layers})
+        launches = read_counts()
+        expect_counts(f"{arch} card vs cpu", launches,
+                      {"flash_attention_fp32": 2 * cfg.n_layers})
         if not torch.equal(toks["cpu"], toks["cuda"]):
             raise AssertionError(f"{arch}: greedy tokens differ card vs cpu: "
                                  f"{toks['cuda'].tolist()} vs "
@@ -550,7 +634,7 @@ def phase_card_vs_cpu() -> dict:
                                    atol=CPU_ATOL, rtol=CPU_RTOL,
                                    msg=lambda m: f"{arch} logits: {m}")
         out[arch] = {"prompt": list(prompts.shape), "cache": cap,
-                     "window": cfg.sliding_window,
+                     "window": cfg.sliding_window, "launches": launches,
                      "tokens": toks["cuda"][0].tolist(),
                      "max_abs_logit_diff": float(
                          (logits["cuda"] - logits["cpu"]).abs().max())}
@@ -711,29 +795,35 @@ def phase_timing_prox(state) -> dict:
 
 def _flash_bound_ms(B, L, H, KV, D, bytes_per_elem):
     """Causal, no window: 4 D flops a visible (i, j) pair and head (QK^T
-    and PV), L (L + 1) / 2 pairs; q, k, v read once and o written once."""
+    and PV), L (L + 1) / 2 pairs; q, k, v read once and o written once.
+    bf16 on the tensor cores, fp32 on the CUDA cores."""
     flops = 4.0 * B * H * D * L * (L + 1) / 2
     nbytes = (2 * B * L * H * D + 2 * B * L * KV * D) * bytes_per_elem
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if bytes_per_elem == 2 else FP32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), flops
 
 
 def phase_timing_flash() -> dict:
-    """Flash kernel vs its plain version vs scaled_dot_product_attention
-    (enable_gqa), bf16 causal, at the served shape and at L = 8192."""
+    """Flash kernels vs the plain version vs scaled_dot_product_attention
+    (enable_gqa), causal: bf16 (the tensor-core kernel) at the served shape
+    and at L = 8192, fp32 (the CUDA-core kernel) at the served shape."""
     import torch
     import torch.nn.functional as TF
     from repro_torch.kernels.flash_attention import kernel as F
     out = {}
     g = torch.Generator(device="cuda").manual_seed(31)
-    for label, (B, L, H, KV, D), iters in (
-            ("served", (SERVE["batch"], SERVE["prompt"], 16, 8, 128), 20),
-            ("long", (1, 8192, 16, 8, 128), 5)):
-        q = torch.randn((B, L, H, D), generator=g, device="cuda").bfloat16()
+    served = (SERVE["batch"], SERVE["prompt"], 16, 8, 128)
+    for label, (B, L, H, KV, D), dtype, iters in (
+            ("served", served, torch.bfloat16, 20),
+            ("long", (1, 8192, 16, 8, 128), torch.bfloat16, 5),
+            ("served_fp32", served, torch.float32, 20)):
+        q = torch.randn((B, L, H, D), generator=g, device="cuda").to(dtype)
         k, v = (torch.randn((B, L, KV, D), generator=g, device="cuda")
-                .bfloat16() for _ in range(2))
+                .to(dtype) for _ in range(2))
+        tname = str(dtype).split(".")[-1]
         kern = lambda: F.flash_attention_cuda(q, k, v, causal=True)
         plain = lambda: F.flash_attention_plain(q, k, v, causal=True)
         sdpa = lambda: TF.scaled_dot_product_attention(
@@ -741,7 +831,7 @@ def phase_timing_flash() -> dict:
             is_causal=True, enable_gqa=True).transpose(1, 2)
         a, b, c = kern(), plain(), sdpa()
         torch.cuda.synchronize()
-        tol = FLASH_TOL["bfloat16"]
+        tol = FLASH_TOL[tname]
         for name, o in (("plain", b), ("sdpa", c)):
             torch.testing.assert_close(
                 a, o, atol=tol, rtol=tol,
@@ -753,14 +843,18 @@ def phase_timing_flash() -> dict:
                          ("library_ms", sdpa), ("library_ms", sdpa),
                          ("ms", kern), ("plain_ms", plain)):
             times[name].append(time_ms(fn, iters=iters, warmup=2))
-        bound, by, flops = _flash_bound_ms(B, L, H, KV, D, 2)
+        bound, by, flops = _flash_bound_ms(B, L, H, KV, D, q.element_size())
+        ms = min(times["ms"])
         out[label] = {"shape": {"B": B, "L": L, "H": H, "KV": KV, "D": D,
-                                "dtype": "bfloat16", "causal": True},
-                      "ms": min(times["ms"]),
-                      "plain_ms": min(times["plain_ms"]),
+                                "dtype": tname, "causal": True},
+                      "ms": ms, "plain_ms": min(times["plain_ms"]),
                       "library_ms": min(times["library_ms"]),
                       "all_ms": times, "bound_ms": bound, "bound_by": by,
-                      "tflops_per_s": flops / min(times["ms"]) / 1e9,
+                      "share_of_bound": bound / ms,
+                      "tflops_per_s": flops / ms / 1e9,
+                      "library_tflops_per_s":
+                          flops / min(times["library_ms"]) / 1e9,
+                      "vs_library": ms / min(times["library_ms"]),
                       "max_abs_err": err}
         del q, k, v
         torch.cuda.empty_cache()
@@ -822,7 +916,8 @@ def main() -> int:
     serve_launches, serve = phase_serve()
     emit(serve)
     torch.cuda.empty_cache()
-    emit(phase_card_vs_cpu())
+    card_vs_cpu = phase_card_vs_cpu()
+    emit(card_vs_cpu)
     timing = phase_timing()
     emit(timing)
     timing_prox = phase_timing_prox(state)
@@ -855,15 +950,22 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
-    t = timing_flash["served"]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": serve_launches["flash_attention"],
-        "max_abs_err": max(max(check_flash["max_abs_err"].values()),
-                           t["max_abs_err"]),
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # bf16 on the served path; fp32 on the card-vs-CPU path
+    fp32_launches = sum(card_vs_cpu[arch]["launches"]["flash_attention_fp32"]
+                        for arch in ("qwen3-1.7b", "starcoder2-7b"))
+    for name, dtype, launched, t in (
+            ("flash_attention", "bfloat16", serve_launches["flash_attention"],
+             timing_flash["served"]),
+            ("flash_attention_fp32", "float32", fp32_launches,
+             timing_flash["served_fp32"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCES[dtype],
+            "replaces": FLASH_REPLACES, "launches": launched,
+            "max_abs_err": max(check_flash["max_abs_err"][dtype],
+                               t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -1,4 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 math on CUDA cores.
+// Flash-attention forward for Hopper (sm_90a), fp32 on the CUDA cores.
+//
+// This kernel serves fp32 inputs only: it is the exact path the fp32
+// models rely on.  bf16 inputs go to the tensor-core kernel in
+// flash_fwd_sm90.cu beside this file.
 //
 // Replaces the Pallas TPU kernel of the JAX reference,
 // src/repro/kernels/flash_attention/kernel.py::_fa_kernel (via
@@ -7,14 +11,13 @@
 // causal mask, and a sliding window that applies only when causal.
 //
 // Layout: q and o are contiguous (B, Lq, H, D), k and v (B, Lk, KV, D), in
-// float32 or bfloat16; D is a template parameter (64, 128 or 256).  Rows
+// float32; D is a template parameter (64, 128 or 256).  Rows
 // and columns both index from 0, as in the reference.  Lq and Lk are
 // arbitrary: the ragged tails of the last tiles are masked, with no
 // divisibility rule.
 //
-// Design (simple and right first; tensor cores, wgmma and TMA are later
-// work).  One CTA per (q tile of kBQ = 32 rows, head, batch) with 8 warps;
-// warp w owns query rows 4w .. 4w+3 of the tile.  The Q tile is loaded once
+// Design (simple and right first).  One CTA per (q tile of kBQ = 32 rows,
+// head, batch) with 8 warps; warp w owns query rows 4w .. 4w+3 of the tile.  The Q tile is loaded once
 // into shared memory as fp32; the CTA then walks the K/V tiles of kBK = 32
 // keys that intersect the causal / window band (tiles wholly outside it are
 // skipped: the result is the same function), loading each into shared
@@ -32,17 +35,14 @@
 // max(l, 1e-30), so a row with no visible key comes out 0.  expf, not the
 // fast-math intrinsics.
 //
-// Bound on an H100: 4 B Lq_eff H D flops (QK^T and PV over the visible
-// pairs) against 989 TFLOP/s bf16 on the tensor cores, or the bytes of q,
-// k, v and o against 3.35 TB/s; at serving shapes the flops bound it.  This
-// kernel runs on the CUDA cores (67 TFLOP/s fp32) and reads shared memory
-// twice per multiply-add in the QK^T loop, so it sits far above that
-// bound; the tensor-core rewrite is the lever.
+// Bound on an H100: 4 D flops per visible (query, key) pair and head (QK^T
+// and PV) against 67 TFLOP/s fp32 on the CUDA cores, or the bytes of q, k,
+// v and o against 3.35 TB/s.  The kernel reads shared memory twice per
+// multiply-add in the QK^T loop, so it sits well above that bound.
 //
 // C interface: launches on the given stream, allocates nothing, returns
 // cudaGetLastError() (or the error of setting the shared-memory limit).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,13 +56,9 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -254,17 +250,13 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  The wrapper checks shapes, H % KV == 0,
-// contiguity and that B and H fit the grid.
+// float32 only.  The wrapper checks shapes, H % KV == 0, contiguity and
+// that B and H fit the grid.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
-              int Lq, int Lk, int H, int KV, int D, int dtype, float scale,
-              int causal, int window, void* stream) {
+              int Lq, int Lk, int H, int KV, int D, float scale, int causal,
+              int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d<float>(D, q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
 }
 
 }  // extern "C"

@@ -1,0 +1,597 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 on the tensor cores.
+//
+// Replaces the Pallas TPU kernel of the JAX reference for bfloat16 inputs:
+// src/repro/kernels/flash_attention/kernel.py:34 (_fa_kernel, reached
+// through flash_attention).  Blockwise online-softmax attention, forward
+// only, with GQA (query head h reads kv head h / (H / KV); K and V are never
+// repeated), a causal mask, and a sliding window that applies only when
+// causal.  fp32 inputs go to flash_fwd.cu beside this file.
+//
+// Layout: q and o are contiguous (B, Lq, H, D) bfloat16, k and v
+// (B, Lk, KV, D); D is a template parameter (64, 128 or 256).  Rows and
+// columns both index from 0, as in the reference.  Lq and Lk are arbitrary:
+// no divisibility rule.
+//
+// Bound on an H100 SXM: 4 D flops per visible (query, key) pair and head
+// (Q K^T and P V) against 989 TFLOP/s bf16 on the tensor cores; the bytes
+// of q, k, v and o against 3.35 TB/s bound it only at short lengths.
+//
+// Design.  One CTA per (q tile of 128 rows, head, batch), three
+// warpgroups:
+//   * warpgroup 0 is the producer: after setmaxnreg drops it to 40
+//     registers, one thread issues every load with TMA.  q, k and v are
+//     described to TMA as 4-D tensors (D, heads, L, B), so a box
+//     {64, 1, rows, 1} is one head's rows of 64 columns (128 bytes, the
+//     widest box the 128-byte swizzle allows); a tile of D columns is D / 64
+//     boxes, the GQA kv head is a coordinate, and rows past Lq or Lk arrive
+//     as zeros.  The Q tile is loaded once; K and V tiles go into a ring of
+//     kStages shared-memory stages, each with its own "full" mbarrier
+//     (transaction bytes) for K and for V, and one "empty" mbarrier on which
+//     every consumer thread arrives when its P V product on the stage has
+//     retired.
+//   * warpgroups 1 and 2 are the consumers (setmaxnreg raises them to 232
+//     registers); each owns 64 query rows.  Per K/V tile:
+//       S = Q K^T by wgmma m64nBNk16, A = the Q tile and B = the K tile,
+//         both from shared memory, K-major, 128-byte swizzle descriptors;
+//       the online softmax in registers: the m64nN fp32 accumulator gives
+//         each thread two rows (r and r + 8) and 2 of every 8 columns, so a
+//         row's max needs two quad shuffles; the sum stays a per-thread
+//         partial until the end;
+//       P = exp2(S scale log2(e) - m) un-normalised, rounded to bf16 in
+//         registers: the accumulator layout of S, 16 columns at a time, is
+//         the A-register fragment of the next wgmma;
+//       O += P V by wgmma m64nDk16 with A from registers and B = the V tile
+//         in shared memory, which is MN-major (D contiguous): the
+//         instruction's transpose bit for B, no copy.
+//     BN = 128 keys a tile for D <= 128 and 64 for D = 256, so S, O and P
+//     fit the 232 registers.
+// Only K tiles that meet the causal / window band are loaded, and only the
+// tiles a band edge (or the ragged end of Lk) crosses are masked.  The grid
+// is one dimension with the q tile slowest and reversed, so the CTAs with
+// the most K tiles (the last q tiles of a causal band) launch first and the
+// tail of the grid is short tiles.
+//
+// Masking keeps the reference's guards in an equivalent form: a masked
+// score is -inf, so exp2 gives p = 0 for it exactly; the running max starts
+// at -inf, and while it is -inf the rescale factor alpha is 0 and the
+// exponent's offset is 0; the denominator is max(l, 1e-30), so a row with
+// no visible key comes out 0.  P is rounded to bf16 before P V (the
+// reference oracle rounds the normalised probabilities to bf16 there too);
+// l sums the unrounded fp32 p.  exp2 of scores pre-scaled by scale log2(e)
+// (ex2.approx) stands for exp.
+//
+// C interface: launches on the given stream, allocates nothing, returns 0,
+// a CUDA error code, or 1000 + the CUresult of cuTensorMapEncodeTiled.
+// The driver entry point is looked up through the runtime, so the library
+// links nothing beyond the runtime.
+
+#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <climits>
+
+namespace {
+
+constexpr int kConsumers = 2;                     // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);  // + the producer
+constexpr int kBM = 64 * kConsumers;              // query rows per CTA
+constexpr int kStages = 2;                        // K/V ring depth
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int D>
+struct Tile {
+  static constexpr int BN = D <= 128 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kBoxes = D / 64;           // 64-column swizzle boxes
+  static constexpr uint32_t kQBytes = kBM * D * 2;
+  static constexpr uint32_t kKVBytes = BN * D * 2;  // one K or V tile
+  static constexpr uint32_t kOffK = kQBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kKVBytes;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kKVBytes;
+  // full_q, full_k[kStages], full_v[kStages], empty[kStages]
+  static constexpr uint32_t kBars = 1 + 3 * kStages;
+  // + slack to align the base to the 1024 bytes of a swizzle atom; and at
+  // least 116 KB, so that no two CTAs share an SM: setmaxnreg's budget
+  // (40 + 2 x 232 registers per thread slot) takes the whole register file
+  static constexpr uint32_t kNeed = kOffBar + 8 * kBars + 1024;
+  static constexpr uint32_t kSmem = kNeed > 116 * 1024 ? kNeed : 116 * 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor for a tile in the 128-byte swizzle layout
+// that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes, atoms of
+// 8 rows (1024 bytes, the stride byte offset).  The leading byte offset is
+// unused for K-major operands; for the MN-major V it is the distance
+// between two 64-column boxes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (m64nNk16, fp32) = A (bf16) B (bf16) [+ D].  _ss: A and B from shared
+// memory, both K-major; _rs: A from registers, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_m64n64k16(d, a, b, scale_d);
+  else wgmma_ss_m64n128k16(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, b);
+  else wgmma_rs_m64n256k16(d, a, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ o, int Lq, int Lk, int H,
+                      int KV, int B, int n_qt, float scale_log2, int causal,
+                      int window) {
+  using T = Tile<D>;
+  constexpr int BN = T::BN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + T::kOffK, sV = base + T::kOffV;
+  const uint32_t bar_q = base + T::kOffBar;
+  auto bar_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
+  auto bar_e = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
+
+  // q tile slowest and reversed: the longest causal tiles launch first
+  const int bh = blockIdx.x % (B * H);
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / (B * H));
+  const int h = bh % H, b = bh / H;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * kBM;
+
+  // the K tiles that meet this q tile's causal / window band
+  int kt_begin = 0, kt_end = (Lk + BN - 1) / BN;
+  if (causal) {
+    const int last_row = min(q0 + kBM, Lq) - 1;
+    kt_end = min(kt_end, last_row / BN + 1);
+    if (window > 0) {
+      const int first_key = q0 - window + 1;
+      if (first_key > 0) kt_begin = first_key / BN;
+    }
+  }
+  const int n_tiles = max(kt_end - kt_begin, 0);
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_e(s), 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      mbar_expect_tx(bar_q, T::kQBytes);
+      for (int x = 0; x < T::kBoxes; ++x)
+        tma_load_4d(sQ + x * kBM * 128, &tm_q, bar_q, 64 * x, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t ph = (it / kStages) & 1;
+        const int k0 = (kt_begin + it) * BN;
+        mbar_wait(bar_e(s), ph ^ 1);  // the stage's last readers are done
+        const uint32_t dk = sK + s * T::kKVBytes, dv = sV + s * T::kKVBytes;
+        mbar_expect_tx(bar_k(s), T::kKVBytes);
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_4d(dk + x * BN * 128, &tm_k, bar_k(s), 64 * x, kvh, k0, b);
+        mbar_expect_tx(bar_v(s), T::kKVBytes);
+        for (int x = 0; x < T::kBoxes; ++x)
+          tma_load_4d(dv + x * BN * 128, &tm_v, bar_v(s), 64 * x, kvh, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    constexpr int kS = BN / 2;  // S accumulator floats per thread
+    constexpr int kO = D / 2;   // O accumulator floats per thread
+    const int cw = wg - 1;
+    const int warp = tid / 32, lane = tid % 32;
+    const int row_wg = q0 + 64 * cw;                  // first row of the warpgroup
+    const int row0 = row_wg + 16 * warp + lane / 4;   // this thread's rows: row0, row0 + 8
+    const int col0 = 2 * (lane % 4);                  // its first column of each 8
+    const uint32_t sQw = sQ + cw * 64 * 128;
+
+    float acc[kO];
+#pragma unroll
+    for (int i = 0; i < kO; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
+
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int k0 = (kt_begin + it) * BN;
+
+      // S = Q K^T
+      float sc[kS];
+      const uint32_t sKs = sK + s * T::kKVBytes;
+      mbar_wait(bar_k(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;  // bytes into the box row
+        mma_ss<BN>(sc, sw128_desc(sQw + (kk / 4) * kBM * 128 + col, 16),
+                   sw128_desc(sKs + (kk / 4) * BN * 128 + col, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence<kS>(sc);
+
+      // masks only where a band edge or the end of Lk crosses the tile
+      const bool edge =
+          k0 + BN > Lk ||
+          (causal && (k0 + BN - 1 > row_wg ||
+                      (window > 0 && k0 <= row_wg + 63 - window)));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 8 * (e >> 1);
+            const int j = k0 + 8 * i + col0 + (e & 1);
+            bool ok = j < Lk;
+            if (causal) {
+              ok = ok && j <= row;
+              if (window > 0) ok = ok && j > row - window;
+            }
+            if (!ok) sc[4 * i + e] = -INFINITY;
+          }
+        }
+      }
+
+      // online softmax: rows row0 (r = 0) and row0 + 8 (r = 1)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        mu[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+        alpha[r] = ex2(m[r] * scale_log2 - mu[r]);  // 0 while m is -inf
+        m[r] = mx[r];
+      }
+
+      // P = exp2(S scale log2(e) - mu), bf16, in the A fragment of P V:
+      // k-slice kk (16 keys) is 8-column chunks 2kk and 2kk + 1; register t
+      // holds chunk 2kk + t / 2 of row r = t % 2
+      uint32_t pa[BN / 16][4];
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int i = 2 * kk + (t >> 1), r = t & 1;
+          const float p0 = ex2(fmaf(sc[4 * i + 2 * r], scale_log2, -mu[r]));
+          const float p1 = ex2(fmaf(sc[4 * i + 2 * r + 1], scale_log2, -mu[r]));
+          ls[r] += p0 + p1;
+          pa[kk][t] = pack_bf16(p0, p1);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[4 * i] *= alpha[0];
+        acc[4 * i + 1] *= alpha[0];
+        acc[4 * i + 2] *= alpha[1];
+        acc[4 * i + 3] *= alpha[1];
+      }
+
+      // O += P V
+      const uint32_t sVs = sV + s * T::kKVBytes;
+      mbar_wait(bar_v(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        mma_rs<D>(acc, pa[kk], sw128_desc(sVs + kk * 16 * 128, BN * 128));
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence<kO>(acc);
+      mbar_arrive(bar_e(s));  // K and V of this stage are free
+    }
+
+    // O / max(l, 1e-30), written as bf16 pairs
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= Lq) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow =
+          o + ((static_cast<long long>(b) * Lq + row) * H + h) * D + col0;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            pack_bf16(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (D, heads, L, B) bf16, contiguous; boxes of {64, 1, rows, 1}, 128-byte
+// swizzle, zeros past the end of every dimension.
+int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
+             int heads, int L, int B, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row_bytes, row_bytes * heads,
+                                 row_bytes * heads * static_cast<cuuint64_t>(L)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Lq,
+           int Lk, int H, int KV, float scale, int causal, int window,
+           cudaStream_t stream) {
+  using T = Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tq, tk, tv;
+  int err = make_map(encode, &tq, q, D, H, Lq, B, kBM);
+  if (!err) err = make_map(encode, &tk, k, D, KV, Lk, B, T::BN);
+  if (!err) err = make_map(encode, &tv, v, D, KV, Lk, B, T::BN);
+  if (err) return err;
+  const long long n_qt = (Lq + kBM - 1) / kBM;
+  const long long blocks = n_qt * B * H;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(T::kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_sm90_kernel<D><<<static_cast<unsigned>(blocks), kThreads, T::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Lq, Lk, H, KV, B,
+      static_cast<int>(n_qt), scale * 1.4426950408889634f, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 only.  The wrapper checks shapes, H % KV == 0, contiguity and
+// 16-byte alignment of q, k, v (TMA's rule), and passes B, Lq, Lk, H >= 1
+// (a tensor map has no empty dimension).
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                   int Lq, int Lk, int H, int KV, int D, float scale, int causal,
+                   int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
+    case 128: return launch<128>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
+    case 256: return launch<256>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

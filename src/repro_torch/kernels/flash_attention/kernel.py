@@ -1,19 +1,28 @@
-"""Flash-attention forward: a CUDA kernel for Hopper, plain PyTorch beside.
+"""Flash-attention forward: CUDA kernels for Hopper, plain PyTorch beside.
 
-Port of ``repro/kernels/flash_attention/kernel.py``:
-:func:`flash_attention_cuda` replaces ``flash_attention`` (``_fa_kernel``),
-blockwise online-softmax attention with GQA (query head ``h`` reads kv head
-``h // (H / KV)``), a causal mask, and a sliding window that applies only
-when causal.  q is ``(B, Lq, H, D)``, k and v ``(B, Lk, KV, D)``, fp32 or
-bf16 (fp32 inside), D in {64, 128, 256}.  Unlike the Pallas wrapper there
-is no ``Lq % block`` rule: any Lq and Lk.
+Port of ``repro/kernels/flash_attention/kernel.py``: :func:`flash_attention`
+replaces ``flash_attention`` (``_fa_kernel``), blockwise online-softmax
+attention with GQA (query head ``h`` reads kv head ``h // (H / KV)``), a
+causal mask, and a sliding window that applies only when causal.  q is
+``(B, Lq, H, D)``, k and v ``(B, Lk, KV, D)``, fp32 or bf16, D in
+{64, 128, 256}.  Unlike the Pallas wrapper there is no ``Lq % block``
+rule: any Lq and Lk.
 
-:func:`flash_attention` dispatches: a CUDA tensor launches the kernel in
-``csrc/flash_fwd.cu`` (built with ``nvcc`` at first use into ``build/``
-next to this file, loaded with ``ctypes``) or raises; a CPU tensor runs
-:func:`flash_attention_plain`.  Each launch adds one to
-``LAUNCH_COUNTS["flash_fwd"]``.  The source's header note gives the design
-and the bound on the card.
+:func:`flash_attention` dispatches by device and dtype, with no fallback
+from one route to another:
+
+* bf16 on CUDA: ``csrc/flash_fwd_sm90.cu``, the tensor-core kernel (wgmma,
+  TMA loads into a ring of shared-memory stages);
+* fp32 on CUDA: ``csrc/flash_fwd.cu``, fp32 on the CUDA cores, the exact
+  path the fp32 models rely on;
+* CPU: :func:`flash_attention_plain`;
+* anything else raises.
+
+Each source is built with ``nvcc`` at first use into ``build/`` next to
+this file and loaded with ``ctypes``.  Every launch adds one to
+``LAUNCH_COUNTS["flash_fwd"]``, and one to the route's own count
+(``"flash_fwd_sm90"`` or ``"flash_fwd_fp32"``).  The sources' header notes
+give the designs and the bounds on the card.
 """
 from __future__ import annotations
 
@@ -29,14 +38,18 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 
-#: kernel launches, keyed "flash_fwd"; a count rises only where the wrapper
-#: launches its CUDA kernel (never on the plain path)
+#: kernel launches: "flash_fwd" counts every launch, "flash_fwd_sm90" and
+#: "flash_fwd_fp32" those of each route; a count rises only where the
+#: wrapper launches a CUDA kernel (never on the plain path)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
-SOURCE = Path(__file__).parent / "csrc" / "flash_fwd.cu"
+#: the CUDA source of each route, keyed by the C function it exports
+SOURCES = {"flash_fwd": Path(__file__).parent / "csrc" / "flash_fwd.cu",
+           "flash_fwd_sm90": Path(__file__).parent / "csrc"
+           / "flash_fwd_sm90.cu"}
 BUILD_DIR = Path(__file__).parent / "build"
 # -Xptxas -v: registers, shared memory and spills per instantiation, kept
 # in the build log
@@ -47,19 +60,21 @@ def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
 
 
-def build_library() -> Path:
-    """Compile ``csrc/flash_fwd.cu`` (once per source and flags) and return
-    the shared library's path."""
-    return _build.build_library(SOURCE, BUILD_DIR, NVCC_FLAGS)
+def build_library(name: str) -> Path:
+    """Compile ``SOURCES[name]`` (once per source and flags) and return the
+    shared library's path."""
+    return _build.build_library(SOURCES[name], BUILD_DIR, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+def _kernel(name: str):
+    """The C function ``name`` of its built library; both sources export
+    the same signature."""
+    fn = getattr(ctypes.CDLL(str(build_library(name))), name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd.argtypes = [p] * 4 + [i] * 7 + [f, i, i, p]
-    lib.flash_fwd.restype = i
-    return lib
+    fn.argtypes = [p] * 4 + [i] * 6 + [f, i, i, p]
+    fn.restype = i
+    return fn
 
 
 def _check(q, k, v):
@@ -87,8 +102,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain PyTorch version of :func:`flash_attention_cuda`.
 
     ``ref.py::attention_ref``'s operations, computed in fp32 whatever the
-    storage type (as the kernel, and ``_fa_kernel`` before it, do: the ref
-    rounds the probabilities to bf16 before P V), cast back once.  A row
+    storage type (as ``_fa_kernel`` and the fp32 kernel do; the ref rounds
+    the probabilities to bf16 before P V, the bf16 kernel its un-normalised
+    probabilities), cast back once.  A row
     with no visible key comes out 0, as the kernels' fully-masked-row
     guards make it (the ref would average V over it); such rows exist only
     when ``causal`` and ``Lq > Lk + window - 1`` with a window.
@@ -114,7 +130,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
-    """The CUDA kernel on contiguous CUDA tensors; see the module note."""
+    """The CUDA kernel of q's dtype on contiguous CUDA tensors: bf16 runs
+    ``flash_fwd_sm90.cu`` (tensor cores), fp32 ``flash_fwd.cu``."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: tensors on {q.device}, "
@@ -128,21 +145,34 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {D} not in "
                          f"{HEAD_DIMS}")
-    if B > _GRID_LIMIT or H > _GRID_LIMIT:
-        raise ValueError(f"flash_attention_cuda: B = {B} or H = {H} exceeds "
-                         f"the grid limit {_GRID_LIMIT}")
+    if q.dtype == torch.bfloat16:
+        # TMA reads from 16-byte aligned addresses only
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_cuda: {name} is not "
+                                 "16-byte aligned")
+        fn_name, route = "flash_fwd_sm90", "flash_fwd_sm90"
+    else:
+        if B > _GRID_LIMIT or H > _GRID_LIMIT:
+            raise ValueError(f"flash_attention_cuda: B = {B} or H = {H} "
+                             f"exceeds the grid limit {_GRID_LIMIT}")
+        fn_name, route = "flash_fwd", "flash_fwd_fp32"
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    if Lk == 0:  # no key: every row is 0, nothing to launch
+        return out.zero_()
+    fn = _kernel(fn_name)
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Lq,
-            Lk, H, KV, D, _DTYPES[q.dtype], 1.0 / math.sqrt(D), int(causal),
-            int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 Lq, Lk, H, KV, D, 1.0 / math.sqrt(D), int(causal),
+                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed: error {err} (a CUDA "
+                           "error, or 1000 + a CUresult of the TMA "
+                           "descriptor)")
     LAUNCH_COUNTS["flash_fwd"] += 1
+    LAUNCH_COUNTS[route] += 1
     return out
 
 

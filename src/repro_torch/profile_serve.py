@@ -32,7 +32,8 @@ from repro_torch.models import build_model
 
 # cuBLAS / CUTLASS matrix-product kernels on Hopper (nvjet is cuBLAS's own)
 GEMM = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|splitk", re.I)
-FLASH = "flash_fwd_kernel"
+# the flash kernels: flash_fwd_sm90_kernel (bf16), flash_fwd_kernel (fp32)
+FLASH = re.compile(r"flash_fwd(_sm90)?_kernel")
 
 
 def _device_us(evt) -> float:
@@ -53,9 +54,9 @@ def _window(fn, reps: int, on_card: bool, top: int) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_device_us(e) for e in kernels)
-    flash = sum(_device_us(e) for e in kernels if FLASH in e.key)
+    flash = sum(_device_us(e) for e in kernels if FLASH.search(e.key))
     gemm = sum(_device_us(e) for e in kernels
-               if FLASH not in e.key and GEMM.search(e.key))
+               if not FLASH.search(e.key) and GEMM.search(e.key))
     kernels.sort(key=_device_us, reverse=True)
     per = lambda us: us / reps / 1e3
     return {

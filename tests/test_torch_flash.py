@@ -5,12 +5,17 @@ against the reference's Pallas kernel (interpret mode, as
 ``tests/test_kernels.py`` runs it, on the same shapes and masks) and against
 ``attention_ref``.  Tolerances: fp32 atol = rtol = 2e-5 (blockwise online
 softmax vs one softmax: the sums run in another order), bf16 3e-2 (the ref
-rounds the probabilities to bf16 before P V; the kernels do not).  Ragged
-lengths and ``Lq != Lk``, which the Pallas wrapper's divisibility assert
-refuses, are held against ``attention_ref`` only.  The CUDA kernel itself
-is held to the plain version by ``tests/test_torch_kernels_gpu.py`` and
-``chip_smoke.py`` on the card.
+rounds the normalised probabilities to bf16 before P V, the bf16 CUDA
+kernel its un-normalised ones, the plain version and the fp32 kernel
+neither).  Ragged lengths and ``Lq != Lk``, which the Pallas wrapper's
+divisibility assert refuses, are held against ``attention_ref`` only.  The
+CUDA kernels themselves are held to the plain version by
+``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py`` on the card;
+``_sm90_model`` below repeats the bf16 kernel's arithmetic on the CPU, so
+that its rounding is held to the reference here as well.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,6 +106,67 @@ def test_rows_with_no_visible_key_are_zero_as_in_the_pallas_kernel():
                                **F32)
 
 
+def _sm90_model(q, k, v, *, causal, window, block_k=128):
+    """The arithmetic of ``csrc/flash_fwd_sm90.cu`` in fp32 on the CPU.
+
+    Per tile of ``block_k`` keys: scores in fp32, masked scores -inf, the
+    running max m, p = exp2(s scale log2(e) - m) un-normalised and rounded
+    to bf16 before P V (l sums the unrounded p), the fp32 accumulator
+    rescaled by alpha = exp2(m_old - m_new) (0 while m is -inf), and
+    acc / max(l, 1e-30) at the end, rounded to bf16.
+    """
+    B, Lq, H, D = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    sl = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    qg = q.float().reshape(B, Lq, KV, H // KV, D)
+    m = torch.full((B, KV, H // KV, Lq), -math.inf)
+    l = torch.zeros((B, KV, H // KV, Lq))
+    acc = torch.zeros((B, KV, H // KV, Lq, D))
+    rows = torch.arange(Lq)[:, None]
+    for k0 in range(0, Lk, block_k):
+        kt, vt = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        s = torch.einsum("bikgd,bjkd->bkgij", qg, kt)
+        cols = k0 + torch.arange(kt.shape[1])[None, :]
+        ok = torch.ones((Lq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            ok = ok & (cols <= rows)
+            if window > 0:
+                ok = ok & (cols > rows - window)
+        s = torch.where(ok, s, -math.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        mu = torch.where(mx == -math.inf, 0.0, mx * sl)
+        alpha = torch.exp2(m * sl - mu)
+        p = torch.exp2(s * sl - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bkgij,bjkd->bkgid",
+                          p.to(torch.bfloat16).float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = mx
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("L", [128, 1000])
+@pytest.mark.parametrize("window", [0, 96])
+def test_sm90_rounding_model_matches_pallas_and_ref(L, window):
+    """Rounding P to bf16 per key tile, as the bf16 CUDA kernel does, keeps
+    the result within the bf16 tolerance the card holds the kernel to."""
+    q, k, v = _qkv(L + window, 1, L, 4, 2, 128)
+    tq, tk_, tv = _t(q, k, v, dtype=torch.bfloat16)
+    out = _sm90_model(tq, tk_, tv, causal=True, window=window)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    block = 128 if L % 128 == 0 else 200
+    for want in (j_flash(jq, jk, jv, causal=True, window=window,
+                         block_q=block, block_k=block),
+                 j_ref(jq, jk, jv, causal=True, window=window)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32), **BF16)
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        fk.flash_attention_plain(tq, tk_, tv, causal=True, window=window)
+        .float().numpy(), **BF16)
+
+
 def test_ref_matches_the_reference_oracle():
     q, k, v = _qkv(4, 2, 48, 4, 2, 64)
     for causal, window in ((True, 0), (True, 16), (False, 0)):
@@ -114,7 +180,10 @@ def test_dispatch_and_checks():
     q, k, v = _t(*_qkv(5, 1, 8, 4, 2, 64))
     fk.reset_launch_counts()
     fk.flash_attention(q, k, v)
-    assert fk.LAUNCH_COUNTS["flash_fwd"] == 0  # the plain path never counts
+    fk.flash_attention(*(t.bfloat16() for t in (q, k, v)))
+    # the plain path never counts
+    assert fk.LAUNCH_COUNTS["flash_fwd"] == 0
+    assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == 0
     with pytest.raises(ValueError, match="no kernel for device"):
         fk.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     with pytest.raises(ValueError, match="not a CUDA device"):

@@ -10,7 +10,8 @@ also runs on a machine that has only PyTorch and the CUDA toolkit::
 Tolerance: the prox kernels and their plain versions do the same fp32
 operations in the same order (built with -fmad=false), held at atol = rtol
 = 1e-6; frozen rows of the cohort gate are held bit for bit.  The flash
-kernel sums its online softmax blockwise: fp32 at 2e-5, bf16 at 3e-2.
+kernels sum their online softmax blockwise: fp32 (``flash_fwd.cu``) at
+2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2.
 """
 import numpy as np
 import pytest
@@ -143,26 +144,66 @@ def test_one_config_kernels_match_plain_versions(kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_kernel_matches_plain_version(D):
+    """fp32 runs flash_fwd.cu and bf16 flash_fwd_sm90.cu; each case checks
+    which of the two it launched.  The bf16 lengths sit on the tile edges of
+    the tensor-core kernel (64 rows a warpgroup, 128 a CTA, 64 or 128 keys
+    a tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
     from repro_torch.kernels.flash_attention import kernel as fk
     g = torch.Generator(device="cuda").manual_seed(D)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
     fk.reset_launch_counts()
-    cases = 0
+    cases = {torch.float32: 0, torch.bfloat16: 0}
+
+    def qkv(B, Lq, Lk, H, KV, dtype):
+        q = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((B, Lk, KV, D), generator=g, device="cuda")
+                .to(dtype) for _ in range(2))
+        return q, k, v
+
+    def check(q, k, v, causal, window):
+        before = dict(fk.LAUNCH_COUNTS)
+        out = fk.flash_attention(q, k, v, causal=causal, window=window)
+        ref = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+        tol = tols[q.dtype]
+        torch.testing.assert_close(
+            out, ref, atol=tol, rtol=tol,
+            msg=lambda m: (f"{q.dtype} q {tuple(q.shape)} k {tuple(k.shape)} "
+                           f"causal={causal} window={window}: {m}"))
+        bf16 = q.dtype == torch.bfloat16
+        assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == before.get(
+            "flash_fwd_sm90", 0) + bf16
+        assert fk.LAUNCH_COUNTS["flash_fwd_fp32"] == before.get(
+            "flash_fwd_fp32", 0) + (not bf16)
+        cases[q.dtype] += 1
+        return out
+
     for B, Lq, Lk, H, KV in ((2, 17, 17, 4, 2), (1, 200, 200, 8, 1),
                              (1, 40, 17, 4, 4), (1, 1, 1, 2, 2)):
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
-            q = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
-            k, v = (torch.randn((B, Lk, KV, D), generator=g, device="cuda")
-                    .to(dtype) for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(B, Lq, Lk, H, KV, dtype)
             for causal, window in ((True, 0), (True, 64), (False, 0)):
-                out = fk.flash_attention(q, k, v, causal=causal, window=window)
-                ref = fk.flash_attention_plain(q, k, v, causal=causal,
-                                               window=window)
-                torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
-                cases += 1
+                check(q, k, v, causal, window)
+    lengths = [(L, L) for L in (1, 63, 64, 65, 127, 128, 129, 1000)]
+    for Lq, Lk in lengths + [(40, 17), (17, 200)]:
+        for group in (1, 2, 8):
+            q, k, v = qkv(2 if Lq < 1000 else 1, Lq, Lk, 8, 8 // group,
+                          torch.bfloat16)
+            for causal, window in ((True, 0), (True, 64), (True, 4096),
+                                   (False, 0)):
+                check(q, k, v, causal, window)
+    # causal, window 64, Lq 256 > Lk 64 + 63: rows 127.. see no key
+    q, k, v = qkv(1, 256, 64, 4, 2, torch.bfloat16)
+    out = check(q, k, v, True, 64)
+    assert torch.count_nonzero(out[:, 127:]) == 0
+    assert torch.count_nonzero(out[:, :127]) > 0
+    # no key at all: zeros, and no launch
+    q, k, v = qkv(1, 5, 0, 4, 2, torch.bfloat16)
+    assert torch.count_nonzero(fk.flash_attention(q, k, v)) == 0
     torch.cuda.synchronize()
-    assert fk.LAUNCH_COUNTS["flash_fwd"] == cases
+    assert fk.LAUNCH_COUNTS["flash_fwd"] == sum(cases.values())
+    assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == cases[torch.bfloat16]
 
 
 @pytest.mark.gpu
