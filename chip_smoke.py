@@ -18,7 +18,10 @@ final line):
    * the sweep-major pair: all three prox kinds, gated and ungated, S = 3
      configs x C = 10 clients, an odd d (scalar loads) and a d that is a
      multiple of 4 (float4 loads), plus bf16 storage; frozen rows bit for
-     bit, live rows within ``ATOL`` / ``RTOL``;
+     bit, live rows within ``ATOL`` / ``RTOL``; and the grouped launch over
+     whole trees (the MLP's six leaves and a ragged tree of 0-D to 2-D
+     leaves, one launch a call): fp32 bit for bit, bf16 within
+     ``BF16_ATOL`` / ``BF16_RTOL``, frozen rows bit for bit;
    * ``prox_cuda`` and ``fused_update_cuda``: three kinds, odd, float4 and
      0-d leaves, fp32 within ``ATOL`` / ``RTOL`` and bf16;
    * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 128 / 256, GQA
@@ -28,7 +31,8 @@ final line):
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
-   sweep kernel launches exactly rounds x T0 x 6 leaves times, stationarity
+   sweep kernel launches exactly rounds x T0 times (one grouped launch a
+   step for the six leaves), stationarity
    falls from round 1, and the run matches the same run with
    ``fused="off"``: one round within ``STEP_ATOL`` / ``STEP_RTOL``, all
    rounds within ``STATE_REL`` (model, relative norm) and ``LOSS_RTOL`` /
@@ -50,9 +54,16 @@ final line):
    fp32, identical weights, served on the card and on the CPU (plain
    versions there; the fp32 flash kernel on the card): identical greedy
    tokens, logits within 1e-4;
-7. time each kernel (CUDA events) against its plain version, its bound and
+7. one DEPOSITUM step's two grouped calls (``ops.fused_local_update``,
+   ``ops.fused_tracking``) captured in a ``torch.cuda.CUDAGraph`` on static
+   inputs, gated and ungated: each replay equals the eager calls bit for
+   bit, also after new values are copied into the inputs;
+8. time each kernel (CUDA events) against its plain version, its bound and
    (flash) ``scaled_dot_product_attention``, at its path's shapes and at a
-   larger one, and the DEPOSITUM round wall time fused and unfused.
+   larger one (the sweep pair's step both as one grouped launch and as six
+   single-leaf launches, in turns, with the grouped kernels' device time
+   from ``torch.profiler``), and the DEPOSITUM round wall time fused and
+   unfused.
 
 Before each path (phases 3, 4, 5, 6) every launch count is set to 0; it
 is read just after.  Prints JSON lines per phase, then the card's name and
@@ -73,7 +84,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ROUNDS = 30
-LEAVES = 6                     # l0.w l0.b l1.w l1.b l2.w l2.b
+# a client's leaves: the Fig. 4 MLP (l0.w l0.b l1.w l1.b l2.w l2.b), and a
+# ragged tree (0-D to 2-D, odd and float4-able sizes)
+MLP_LEAVES = ((123, 64), (64,), (64, 32), (32,), (32, 10), (10,))
+RAGGED_LEAVES = ((), (3,), (10,), (8, 8), (123, 64), (1001,))
+LEAVES = len(MLP_LEAVES)
 ATOL, RTOL = 1e-6, 1e-6        # kernel vs plain, fp32: same ops, same order
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2   # one bf16 rounding of an fp32 result
 # Fused vs unfused on the card.  Per step the two differ by about an ulp:
@@ -314,7 +329,54 @@ def phase_check() -> dict:
                     assert bits_equal(yo[frozen], y[frozen])
                     assert bits_equal(gk[frozen], x[frozen])
                 cases += 1
-    return {"phase": "check", "cases": cases,
+
+    def grouped_equal(name, outs, refs, ins, m, dtype):
+        """fp32 bit for bit, bf16 within its tolerance; frozen rows as
+        the inputs ``ins``, bit for bit."""
+        for out, ref, inp in zip(outs, refs, ins):
+            for a, b, i in zip(out, ref, inp):
+                if a.shape != i.shape or a.dtype != dtype \
+                        or not a.is_contiguous():
+                    raise AssertionError(f"{name}: output {tuple(a.shape)} "
+                                         f"{a.dtype} for {tuple(i.shape)}")
+                if dtype == torch.float32 and not bits_equal(a, b):
+                    raise AssertionError(f"{name}: not bit-equal to plain")
+                close(name, a, b, dtype)
+                if m is not None and not bits_equal(a[m <= 0], i[m <= 0]):
+                    raise AssertionError(f"{name}: a frozen row changed")
+
+    grouped_cases = 0
+    for label, leaves in (("mlp", MLP_LEAVES), ("ragged", RAGGED_LEAVES)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(len(label))
+            x, y, nu = ([(torch.randn((S, C) + s, generator=g, device="cuda")
+                          * 0.1).to(dtype) for s in leaves] for _ in range(3))
+            for m in (None, mask):
+                for kind in ("l1", "mcp", "scad"):
+                    before = read_counts()
+                    out = K.fused_update_sweep_grouped(x, y, nu, params, m,
+                                                       kind=kind)
+                    expect_counts(f"grouped {label}", read_counts(), {
+                        **before, "fused_update_sweep":
+                            before["fused_update_sweep"] + 1})
+                    ref = K.fused_update_sweep_grouped_plain(
+                        x, y, nu, params, m, kind=kind)
+                    torch.cuda.synchronize()
+                    grouped_equal("fused_update_sweep", out, ref, (x, nu), m,
+                                  dtype)
+                    grouped_cases += 1
+                before = read_counts()
+                out = K.fused_tracking_sweep_grouped(y, nu, x, params, m)
+                expect_counts(f"grouped {label}", read_counts(), {
+                    **before, "fused_tracking_sweep":
+                        before["fused_tracking_sweep"] + 1})
+                ref = K.fused_tracking_sweep_grouped_plain(y, nu, x, params,
+                                                           m)
+                torch.cuda.synchronize()
+                grouped_equal("fused_tracking_sweep", out, ref, (y, x), m,
+                              dtype)
+                grouped_cases += 1
+    return {"phase": "check", "cases": cases, "grouped_cases": grouped_cases,
             "max_abs_err": worst, "atol": ATOL, "rtol": RTOL,
             "bf16_atol": BF16_ATOL, "bf16_rtol": BF16_RTOL}
 
@@ -409,7 +471,7 @@ def phase_main_path():
     state, curves = run_depositum(cfg, metrics_every=ROUNDS, device="cuda")
     torch.cuda.synchronize()
     launches = read_counts()
-    want = ROUNDS * cfg.depositum.comm_period * LEAVES
+    want = ROUNDS * cfg.depositum.comm_period      # one launch a step
     expect_counts("depositum path", launches, {"fused_update_sweep": want,
                                                "fused_tracking_sweep": want})
 
@@ -681,61 +743,178 @@ def _time_pair(fn_kernel, fn_plain, outs_equal):
     return min(k1, k2), min(p1, p2), outs_equal()
 
 
+def _device_ms(fn, names, iters: int = 50):
+    """Device time a call of ``fn()`` spends in the kernels whose names
+    hold one of ``names``, from ``torch.profiler``; None where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.key for n in names))
+    return us / iters / 1e3 if us > 0 else None
+
+
+def phase_graph() -> dict:
+    """One DEPOSITUM step's two grouped calls (``ops.fused_local_update``,
+    ``ops.fused_tracking``, the Fig. 4 MLP's six (10, ...) leaves) captured
+    in a CUDA graph on static inputs, ungated and gated; each replay,
+    after the outputs are set to NaN and, the second time, new values are
+    copied into the inputs, equals the eager calls bit for bit."""
+    import torch
+    from repro_torch.kernels.prox import ops
+    C = 10
+    g = torch.Generator(device="cuda").manual_seed(37)
+
+    def tree():
+        return {f"l{i}": torch.randn((C,) + s, generator=g, device="cuda")
+                * 0.1 for i, s in enumerate(MLP_LEAVES)}
+
+    x, y, nu, gn, go = (tree() for _ in range(5))
+    hp = torch.tensor([1e-4, 4.0, 0.05, 0.8, 0.5], device="cuda")
+    gate = (torch.arange(C, device="cuda") % 3 != 1).to(torch.float32)
+    out = {}
+    for label, mask in (("ungated", None), ("gated", gate)):
+        def step():
+            xo, nuo = ops.fused_local_update(x, y, nu, hp, mask, kind="mcp")
+            yo, gk = ops.fused_tracking(y, gn, go, hp, mask)
+            return [xo, nuo, yo, gk]
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = read_counts()
+        with torch.cuda.graph(graph):
+            static = step()
+        after = read_counts()
+        captured = {k: after[k] - before[k] for k in after}
+        if captured != {**{k: 0 for k in after}, "fused_update_sweep": 1,
+                        "fused_tracking_sweep": 1}:
+            raise AssertionError(f"graph {label}: captured {captured}")
+        written = static[:3] + ([static[3]] if mask is not None else [])
+        for replay in range(2):
+            if replay:
+                for t in (x, y, nu, gn, go):
+                    for v in t.values():
+                        v.copy_(torch.randn(v.shape, generator=g,
+                                            device="cuda") * 0.1)
+            for t in written:
+                for v in t.values():
+                    v.fill_(float("nan"))
+            graph.replay()
+            eager = step()
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(static, eager)):
+                for k in a:
+                    if not bits_equal(a[k], b[k]):
+                        raise AssertionError(f"graph {label}, replay "
+                                             f"{replay}: output {i} {k} "
+                                             "differs from the eager call")
+        out[label] = {"captured_launches": captured, "replays": 2}
+        del graph, static
+    return {"phase": "graph", **out}
+
+
 def phase_timing() -> dict:
     """Kernel vs plain times at the main path's shapes (one step: the six
-    leaves, S = 1, C = 10) and at a bandwidth-bound shape."""
+    leaves, S = 1, C = 10) and at a bandwidth-bound shape (one leaf).  Each
+    sweep kernel's step is timed as one grouped launch (``ms``) and as six
+    single-leaf launches (``per_leaf_ms``, the first version's route), in
+    turns with the plain version (the least of four timings each); ``device_ms`` is the grouped kernel's own
+    time from the profiler, ``entry_ms`` (main path) the round program's
+    entry point (``ops.fused_local_update`` / ``ops.fused_tracking`` on
+    dicts of (10, ...) leaves)."""
     import torch
     from repro_torch.kernels.prox import kernel as K
-    from repro_torch.models.classifier import MLP
+    from repro_torch.kernels.prox import ops
 
     out = {}
-    shapes = {"main_path_step": [(1, 10, p.numel()) for _, p in
-                                 sorted(MLP(123, 10).named_parameters())],
+    shapes = {"main_path_step": [(1, 10) + s for s in MLP_LEAVES],
               "bandwidth": [(4, 16, 1 << 20)]}
     for label, leaf_shapes in shapes.items():
         S = leaf_shapes[0][0]
         params = _table(S) if S <= 3 else K.sweep_params_table(
             1e-4, 4.0, 0.05, 0.8, 0.5, device="cuda").expand(S, 5).contiguous()
-        leaves = [_operands(*s, torch.float32, seed=i)
-                  for i, s in enumerate(leaf_shapes)]
-        n_elem = sum(s[0] * s[1] * s[2] for s in leaf_shapes)
-
-        def run(fn):
-            return [fn(x, y, nu) for x, y, nu in leaves]
-
-        upd_k = lambda: run(lambda x, y, nu: K.fused_update_sweep_cuda(
-            x, y, nu, params, kind="mcp"))
-        upd_p = lambda: run(lambda x, y, nu: K.fused_update_sweep_plain(
-            x, y, nu, params, kind="mcp"))
-        trk_k = lambda: run(lambda x, y, nu: K.fused_tracking_sweep_cuda(
-            x, y, nu, params))
-        trk_p = lambda: run(lambda x, y, nu: K.fused_tracking_sweep_plain(
-            x, y, nu, params))
-
-        def max_err(fk, fp):
-            """Worst |kernel - plain| at these shapes, held to ATOL / RTOL."""
-            def err():
-                a, b = fk(), fp()
-                for pa, pb in zip(a, b):
-                    for u, v in zip(pa, pb):
+        g = torch.Generator(device="cuda").manual_seed(len(label))
+        a, b, c = ([torch.randn(s, generator=g, device="cuda") * 0.1
+                    for s in leaf_shapes] for _ in range(3))
+        n_elem = sum(t.numel() for t in a)
+        leaves = list(zip(a, b, c))
+        fns = {
+            "fused_update_sweep": {
+                "ms": lambda: K.fused_update_sweep_grouped(
+                    a, b, c, params, kind="mcp"),
+                "per_leaf_ms": lambda: tuple(zip(*(
+                    K.fused_update_sweep_cuda(x, y, nu, params, kind="mcp")
+                    for x, y, nu in leaves))),
+                "plain_ms": lambda: K.fused_update_sweep_grouped_plain(
+                    a, b, c, params, kind="mcp")},
+            "fused_tracking_sweep": {
+                "ms": lambda: K.fused_tracking_sweep_grouped(a, b, c, params),
+                "per_leaf_ms": lambda: tuple(zip(*(
+                    K.fused_tracking_sweep_cuda(y, gn, go, params)
+                    for y, gn, go in leaves))),
+                "plain_ms": lambda: K.fused_tracking_sweep_grouped_plain(
+                    a, b, c, params)}}
+        if label == "main_path_step":
+            hp = params[0].contiguous()
+            trees = [{str(i): t[0] for i, t in enumerate(ts)}
+                     for ts in (a, b, c)]
+            fns["fused_update_sweep"]["entry_ms"] = \
+                lambda: ops.fused_local_update(*trees, hp, kind="mcp")
+            fns["fused_tracking_sweep"]["entry_ms"] = \
+                lambda: ops.fused_tracking(*trees, hp)
+        entry = {"leaf_shapes": leaf_shapes,
+                 "launches_per_call": {"ms": 1, "per_leaf_ms":
+                                       len(leaf_shapes)}}
+        for name, fn in fns.items():
+            # every route against the plain version, at ATOL / RTOL
+            ref = fn["plain_ms"]()
+            err = 0.0
+            for route in ("ms", "per_leaf_ms"):
+                for u_list, v_list in zip(fn[route](), ref):
+                    for u, v in zip(u_list, v_list):
                         torch.testing.assert_close(
                             u, v, atol=ATOL, rtol=RTOL,
-                            msg=lambda m: f"{label} timing shapes: {m}")
-                return max(float((u - v).abs().max())
-                           for pa, pb in zip(a, b) for u, v in zip(pa, pb))
-            return err
-
-        uk, up, ue = _time_pair(upd_k, upd_p, max_err(upd_k, upd_p))
-        tk, tp, te = _time_pair(trk_k, trk_p, max_err(trk_k, trk_p))
-        ub, uby = _bound_ms(n_elem, 5 * 4, UPDATE_FLOPS)
-        tb, tby = _bound_ms(n_elem, 4 * 4, TRACKING_FLOPS)
-        out[label] = {
-            "leaf_shapes": leaf_shapes, "launches_per_call": len(leaf_shapes),
-            "fused_update_sweep": {"ms": uk, "plain_ms": up, "bound_ms": ub,
-                                   "bound_by": uby, "max_abs_err": ue},
-            "fused_tracking_sweep": {"ms": tk, "plain_ms": tp,
-                                     "bound_ms": tb, "bound_by": tby,
-                                     "max_abs_err": te}}
+                            msg=lambda m: f"{label} {name} {route}: {m}")
+                        err = max(err, float((u - v).abs().max()))
+            del ref
+            # in turns, twice over: the host's speed drifts within a run
+            times = {k: [] for k in fn}
+            order = ["plain_ms", "ms", "per_leaf_ms", *(
+                ["entry_ms"] if "entry_ms" in fn else [])]
+            for key in (order + order[::-1]) * 2:
+                times[key].append(time_ms(fn[key]))
+            bpe = 5 * 4 if name == "fused_update_sweep" else 4 * 4
+            fpe = UPDATE_FLOPS if name == "fused_update_sweep" \
+                else TRACKING_FLOPS
+            bound, by = _bound_ms(n_elem, bpe, fpe)
+            kernel = ("fused_update_kernel" if name == "fused_update_sweep"
+                      else "tracking_kernel")
+            ms = min(times["ms"])
+            entry[name] = {
+                **{k: min(v) for k, v in times.items()}, "all_ms": times,
+                "device_ms": _device_ms(fn["ms"], (kernel,)),
+                "bound_ms": bound, "bound_by": by,
+                "share_of_bound": bound / ms,
+                "per_leaf_over_grouped": min(times["per_leaf_ms"]) / ms,
+                "max_abs_err": err}
+        out[label] = entry
+        del a, b, c, leaves
+        torch.cuda.empty_cache()
     return {"phase": "timing", **out}
 
 
@@ -909,6 +1088,7 @@ def main() -> int:
     emit(check_prox)
     check_flash = phase_check_flash()
     emit(check_flash)
+    emit(phase_graph())
     state, launches, main_path = phase_main_path()
     emit(main_path)
     tree_launches, tree = phase_tree_path(state)

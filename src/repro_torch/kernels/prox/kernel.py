@@ -1,13 +1,18 @@
 """DEPOSITUM prox and update kernels: CUDA for Hopper, plain PyTorch beside.
 
-Port of ``repro/kernels/prox/kernel.py``.  The sweep-major pair:
+Port of ``repro/kernels/prox/kernel.py``.  The sweep-major pair, each one
+grouped launch over every leaf of a tree:
 
-* :func:`fused_update_sweep_cuda` replaces ``fused_update_sweep_pallas``
-  (``_fused_sweep_kernel``): ``nu' = gamma nu + (1 - gamma) y`` and
-  ``x' = prox_{alpha h}(x - alpha nu')`` for h in l1 | mcp | scad;
-* :func:`fused_tracking_sweep_cuda` replaces ``fused_tracking_sweep_pallas``
-  (``_tracking_sweep_kernel``): ``y' = y + beta (g_new - g_old)``, and when
-  gated ``g_kept = where(live, g_new, g_old)``.
+* :func:`fused_update_sweep_grouped` replaces ``fused_update_sweep_pallas``
+  (``_fused_sweep_kernel``), which the reference calls once a leaf:
+  ``nu' = gamma nu + (1 - gamma) y`` and ``x' = prox_{alpha h}(x - alpha
+  nu')`` for h in l1 | mcp | scad;
+* :func:`fused_tracking_sweep_grouped` replaces
+  ``fused_tracking_sweep_pallas`` (``_tracking_sweep_kernel``): ``y' = y +
+  beta (g_new - g_old)``, and when gated ``g_kept = where(live, g_new,
+  g_old)``;
+* :func:`fused_update_sweep_cuda` / :func:`fused_tracking_sweep_cuda` are
+  the same launches over a tree of one leaf.
 
 and the one-config pair:
 
@@ -15,9 +20,9 @@ and the one-config pair:
   standalone elementwise prox of a leaf of any shape;
 * :func:`fused_update_cuda` replaces ``fused_update_pallas``
   (``_fused_kernel``): the fused momentum + prox update of one config,
-  which is the sweep kernel's ungated instantiation on a ``(1, 1, n)``
-  view.  Both take ``lam, theta, alpha[, gamma]`` as Python floats or 0-d
-  tensors; they travel to the kernel as a (1, 5) table row on the
+  which is the sweep update kernel's ungated instantiation on one leaf of
+  one row.  Both take ``lam, theta, alpha[, gamma]`` as Python floats or
+  0-d tensors; they travel to the kernel as a (1, 5) table row on the
   operand's device, so a new value never rebuilds and a device tensor is
   never read back.
 
@@ -32,13 +37,24 @@ A CUDA tensor launches the kernel in ``csrc/prox_sweep.cu`` (built with
 (``*_plain``) of the same function.  The source's header note gives the
 design and the bound on the card.  Each launch adds one to
 ``LAUNCH_COUNTS``.
+
+A grouped call on the card checks the whole tree in one pass, allocates one
+buffer per output variable (leaf-major, each leaf at a 16-byte boundary)
+and returns contiguous views of it in the inputs' shapes; it packs the leaf
+table (:func:`leaf_tables`, a pure function of shapes, dtypes and
+pointers) into a reused host buffer and makes one ``ctypes`` call per
+launch (one per dtype and per ``MAX_LEAVES`` leaves).  It reads nothing
+back from the device, so a CUDA graph can capture it.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
+import struct
+import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -61,6 +77,13 @@ SOURCE = Path(__file__).parent / "csrc" / "prox_sweep.cu"
 BUILD_DIR = Path(__file__).parent / "build"
 # -fmad=false: one rounding per operation, as in the plain version
 NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
+
+# The grouped launch's leaf table, as prox_sweep.cu reads it
+TILE = 1024        # elements of one (s, c) row a block takes (kTile)
+MAX_LEAVES = 48    # leaves in one launch's table (kMaxLeaves)
+LEAF_WORDS = 8     # int64 words a leaf: 5 pointers, d, first block, vec
+ALIGN = 16         # bytes: each leaf's place in an output buffer, float4
+_MAX_BLOCKS = 2**31 - 1
 
 
 def reset_launch_counts() -> None:
@@ -91,10 +114,10 @@ def build_library() -> Path:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.prox_sweep_update.argtypes = [p] * 7 + [i, i, ll, i, i, i, p]
-    lib.prox_sweep_update.restype = i
-    lib.prox_sweep_tracking.argtypes = [p] * 7 + [i, i, ll, i, i, p]
-    lib.prox_sweep_tracking.restype = i
+    lib.prox_sweep_update_grouped.argtypes = [p, i, p, p, i, ll, i, i, p]
+    lib.prox_sweep_update_grouped.restype = i
+    lib.prox_sweep_tracking_grouped.argtypes = [p, i, p, p, i, ll, i, p]
+    lib.prox_sweep_tracking_grouped.restype = i
     lib.prox_apply.argtypes = [p] * 3 + [ll, i, i, i, p]
     lib.prox_apply.restype = i
     return lib
@@ -103,6 +126,21 @@ def _lib() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # Checks shared by the kernel and its plain version
 # ---------------------------------------------------------------------------
+
+def _check_aux(name, params, mask, S, C, device):
+    for label, t, shape in (("params", params, (S, 5)),
+                            ("mask", mask, (S, C))):
+        if t is None:
+            continue
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {label} must be a contiguous float32 {shape} "
+                f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+
 
 def _check(name, operands, params, mask):
     a = operands[0]
@@ -119,25 +157,54 @@ def _check(name, operands, params, mask):
         raise TypeError(f"{name}: dtype {a.dtype} not in "
                         f"{sorted(map(str, _DTYPES))}")
     S, C = a.shape[:2]
-    for label, t, shape in (("params", params, (S, 5)),
-                            ("mask", mask, (S, C))):
-        if t is None:
-            continue
-        if (t.shape != shape or t.dtype != torch.float32
-                or t.device != a.device or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: {label} must be a contiguous float32 {shape} "
-                f"tensor on {a.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {a.device}")
+    _check_aux(name, params, mask, S, C, a.device)
 
 
-def _leaf_size(a: torch.Tensor) -> int:
-    d = 1
-    for n in a.shape[2:]:
-        d *= int(n)
-    return d
+def _check_group(name, leaves, params, mask, lead):
+    """:func:`_check` over a whole tree in one pass.
+
+    ``leaves`` holds each leaf's three operands.  Every leaf's operands
+    agree in shape and dtype and are contiguous, all leaves lie on one
+    device and share their first ``lead`` axes: ``(S, C)`` for lead 2,
+    ``(C,)`` of one config (S = 1) for lead 1, one row for lead 0.
+    Returns (S, C, elements a row of each leaf, each leaf's dtype).
+    """
+    a0 = leaves[0][0]
+    if a0.ndim < lead:
+        raise ValueError(f"{name}: operands must be (S, C, ...), got "
+                         f"{tuple(a0.shape)}")
+    head, device = a0.shape[:lead], a0.device
+    rows = 1
+    for n in head:
+        rows *= n
+    ds, dts = [], []
+    for a, b, c in leaves:
+        shape, dtype = a.shape, a.dtype
+        if (a.device != device or b.shape != shape or c.shape != shape
+                or b.dtype != dtype or c.dtype != dtype
+                or b.device != device or c.device != device):
+            raise ValueError(f"{name}: operands differ in shape, dtype or "
+                             "device")
+        if not (a.is_contiguous() and b.is_contiguous()
+                and c.is_contiguous()):
+            raise ValueError(f"{name}: operands must be contiguous")
+        if dtype not in _DTYPES:
+            raise TypeError(f"{name}: dtype {dtype} not in "
+                            f"{sorted(map(str, _DTYPES))}")
+        if shape[:lead] != head:
+            raise ValueError(f"{name}: leaves differ in their leading "
+                             f"axes: {tuple(shape)} against {tuple(head)}")
+        ds.append(a.numel() // rows if rows else 0)
+        dts.append(dtype)
+    S, C = ((head[0], head[1]) if lead == 2
+            else (1, head[0]) if lead == 1 else (1, 1))
+    _check_aux(name, params, mask, S, C, device)
+    return S, C, ds, dts
+
+
+def _check_kind(kind):
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
 
 
 def _vec_ok(d: int, *tensors) -> int:
@@ -160,6 +227,158 @@ def _stream_ptr(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The grouped launch: leaf table, output layout, one call per launch
+# ---------------------------------------------------------------------------
+
+class Launch(NamedTuple):
+    """One grouped launch: entries ``[start, stop)`` of the leaf table."""
+    dtype: torch.dtype
+    start: int
+    stop: int
+    blocks: int
+
+
+def output_layout(nbytes) -> tuple[list[int], int]:
+    """Byte offsets of leaves of ``nbytes`` bytes laid out leaf-major in one
+    buffer, each rounded up to ``ALIGN``, and the buffer's size."""
+    offsets, total = [], 0
+    for n in nbytes:
+        offsets.append(total)
+        total += -(-n // ALIGN) * ALIGN
+    return offsets, total
+
+
+def leaf_tables(rows: int, ds, dtypes, ptrs):
+    """The leaf tables of one grouped call, from shapes, dtypes and pointers.
+
+    ``rows`` is S * C, ``ds[i]`` leaf i's elements a row, ``dtypes[i]`` its
+    dtype and ``ptrs[i]`` its five pointers as ints (three operands, two
+    outputs; 0 for an output the kernel does not write).  Leaves without an
+    element are skipped; the rest are grouped by dtype, in order of first
+    appearance, and cut into launches of at most ``MAX_LEAVES``.  A leaf's
+    entry holds its pointers, d, its first block in its launch and its vec
+    flag (float4 loads: fp32, d % 4 == 0, all five pointers 16-byte
+    aligned).  Returns ``(words, launches)``: the entries as one flat list
+    of ints, ``LEAF_WORDS`` a leaf, and one :class:`Launch` per launch over
+    entries ``[start, stop)``.
+    """
+    groups: dict = {}
+    for i, (d, dt) in enumerate(zip(ds, dtypes)):
+        if d and rows:
+            groups.setdefault(dt, []).append(i)
+    words, launches, n = [], [], 0
+    for dt, idx in groups.items():
+        fp32 = dt == torch.float32
+        for k in range(0, len(idx), MAX_LEAVES):
+            chunk, start, first = idx[k:k + MAX_LEAVES], n, 0
+            for i in chunk:
+                p, d = ptrs[i], ds[i]
+                aligned = (p[0] | p[1] | p[2] | p[3] | p[4]) % ALIGN == 0
+                words += p
+                words += (d, first, int(fp32 and d % 4 == 0 and aligned))
+                first += rows * -(-d // TILE)
+            if first > _MAX_BLOCKS:
+                raise ValueError(f"grouped launch of {first} blocks exceeds "
+                                 f"the grid's {_MAX_BLOCKS}")
+            n += len(chunk)
+            launches.append(Launch(dt, start, n, first))
+    return words, launches
+
+
+_HOST = threading.local()   # each thread's reused leaf-table buffer
+
+
+@functools.lru_cache(maxsize=None)
+def _int64s(n: int):
+    return struct.Struct(f"{n}q").pack_into
+
+
+def _packed(words) -> int:
+    """``words`` as int64 in this thread's reused ``ctypes`` buffer (grown
+    when too small); returns the buffer's address.  The kernel takes its
+    table by value, so the buffer is free again once the call returns."""
+    buf = getattr(_HOST, "table", None)
+    if buf is None or len(buf) < len(words):
+        buf = (ctypes.c_int64 * max(len(words), MAX_LEAVES * LEAF_WORDS))()
+        _HOST.table, _HOST.addr = buf, ctypes.addressof(buf)
+    _int64s(len(words))(buf, 0, *words)
+    return _HOST.addr
+
+
+def _buffer(nbytes, dtypes, device):
+    """One allocation of ``nbytes`` viewed as each of ``dtypes`` (typed
+    directly when there is one), and its address."""
+    kinds = set(dtypes)
+    if len(kinds) == 1:
+        (dt,) = kinds
+        buf = torch.empty(nbytes // dt.itemsize, dtype=dt, device=device)
+        return {dt: buf}, buf.data_ptr()
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return {dt: buf.view(dt) for dt in kinds}, buf.data_ptr()
+
+
+def _launch_grouped(name, key, leaves, params, mask, lead, kind=None):
+    """Check, allocate and launch one grouped call on the card.
+
+    ``leaves`` holds each leaf's (a, b, c) operands; ``kind`` None is the
+    tracking axpy.  Returns the two outputs' lists of leaves; ungated
+    tracking returns the ``b`` leaves (g_new) themselves as the second.
+    """
+    S, C, ds, dts = _check_group(name, leaves, params, mask, lead)
+    tracking, gated = kind is None, mask is not None
+    if not tracking:
+        _check_kind(kind)
+    device, rows = leaves[0][0].device, S * C
+    offsets, total = output_layout(
+        [rows * d * dt.itemsize for d, dt in zip(ds, dts)])
+    views, base0 = _buffer(total, dts, device)
+    first = [views[dt].as_strided(a.shape, a.stride(), off // dt.itemsize)
+             for (a, _, _), off, dt in zip(leaves, offsets, dts)]
+    if gated or not tracking:            # a second output to write
+        views, base1 = _buffer(total, dts, device)
+        second = [views[dt].as_strided(a.shape, a.stride(),
+                                       off // dt.itemsize)
+                  for (a, _, _), off, dt in zip(leaves, offsets, dts)]
+        ptrs = [(a.data_ptr(), b.data_ptr(), c.data_ptr(), base0 + off,
+                 base1 + off) for (a, b, c), off in zip(leaves, offsets)]
+    else:
+        second = [b for _, b, _ in leaves]      # g_kept is g_new itself
+        ptrs = [(a.data_ptr(), b.data_ptr(), c.data_ptr(), base0 + off, 0)
+                for (a, b, c), off in zip(leaves, offsets)]
+    outs = (first, second)
+    words, launches = leaf_tables(rows, ds, dts, ptrs)
+    if not launches:
+        return outs
+    addr = _packed(words)
+    lib = _lib()
+    fn = (lib.prox_sweep_tracking_grouped if tracking
+          else lib.prox_sweep_update_grouped)
+    extra = () if tracking else (KINDS[kind],)
+    p_ptr, m_ptr = params.data_ptr(), mask.data_ptr() if gated else None
+    with torch.cuda.device(device):
+        stream = _stream_ptr(device)
+        for ln in launches:
+            err = fn(addr + ln.start * LEAF_WORDS * 8, ln.stop - ln.start,
+                     p_ptr, m_ptr, C, ln.blocks, *extra, _DTYPES[ln.dtype],
+                     stream)
+            if err != 0:
+                raise RuntimeError(f"{name} grouped launch failed: CUDA "
+                                   f"error {err}")
+            LAUNCH_COUNTS[key] += 1
+    return outs
+
+
+def _plain_leaf(fn, ops, lead, *args, **kw):
+    """A sweep plain version on one leaf whose first ``lead`` axes are its
+    rows: (S, C, ...) as it is, (C, ...) and any shape as (1, ...) views."""
+    if lead == 2:
+        return fn(*ops, *args, **kw)
+    pad = (1,) * (2 - lead)
+    outs = fn(*(o.reshape(pad + tuple(o.shape)) for o in ops), *args, **kw)
+    return tuple(o.reshape(ops[0].shape) for o in outs)
+
+
+# ---------------------------------------------------------------------------
 # Fused momentum + prox update
 # ---------------------------------------------------------------------------
 
@@ -170,8 +389,7 @@ def fused_update_sweep_plain(x, y, nu, params, mask=None, *, kind="l1"):
     kernel does.  Returns (x', nu').
     """
     _check("fused_update_sweep", (x, y, nu), params, mask)
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
+    _check_kind(kind)
     f = lambda t: t.to(torch.float32)
     nd = x.ndim
     lam, theta, alpha, gamma = (_col(params, j, nd) for j in range(4))
@@ -185,8 +403,44 @@ def fused_update_sweep_plain(x, y, nu, params, mask=None, *, kind="l1"):
     return x_next, nu_next
 
 
+def fused_update_sweep_grouped_plain(xs, ys, nus, params, mask=None, *,
+                                     kind="l1", lead=2):
+    """Plain PyTorch version of :func:`fused_update_sweep_grouped`:
+    :func:`fused_update_sweep_plain` leaf by leaf."""
+    leaves = list(zip(xs, ys, nus))
+    if not leaves:
+        return [], []
+    _check_group("fused_update_sweep", leaves, params, mask, lead)
+    _check_kind(kind)
+    outs = [_plain_leaf(fused_update_sweep_plain, ops, lead, params, mask,
+                        kind=kind) for ops in leaves]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def fused_update_sweep_grouped(xs, ys, nus, params, mask=None, *,
+                               kind="l1", lead=2):
+    """Sweep-major fused momentum + prox update of every leaf of a tree.
+
+    ``xs``/``ys``/``nus``: sequences of contiguous leaves, fp32 or bf16,
+    ``(S, C, *p)`` for ``lead`` 2, or ``(C, *p)`` leaves of one config for
+    ``lead`` 1 (then ``params`` is (1, 5) and ``mask`` (1, C)); ``params``:
+    the (S, 5) table; ``mask``: optional (S, C) gate.  On the card one
+    launch per dtype (and per ``MAX_LEAVES`` leaves); x' and nu' are views
+    of one allocation each.  CPU tensors run
+    :func:`fused_update_sweep_grouped_plain`.  Returns (x' leaves, nu'
+    leaves) as lists.
+    """
+    leaves = list(zip(xs, ys, nus))
+    if not leaves or leaves[0][0].device.type != "cuda":
+        return fused_update_sweep_grouped_plain(xs, ys, nus, params, mask,
+                                                kind=kind, lead=lead)
+    return _launch_grouped("fused_update_sweep", "fused_sweep", leaves,
+                           params, mask, lead, kind)
+
+
 def fused_update_sweep_cuda(x, y, nu, params, mask=None, *, kind="l1"):
-    """Sweep-major fused momentum + prox update.  Returns (x', nu').
+    """Sweep-major fused momentum + prox update of one leaf: the grouped
+    launch over a tree of one leaf.  Returns (x', nu').
 
     ``x``/``y``/``nu``: contiguous (S, C, *p) fp32 or bf16; ``params``: the
     (S, 5) table; ``mask``: optional (S, C) gate.  CUDA tensors launch the
@@ -194,26 +448,9 @@ def fused_update_sweep_cuda(x, y, nu, params, mask=None, *, kind="l1"):
     """
     if x.device.type != "cuda":
         return fused_update_sweep_plain(x, y, nu, params, mask, kind=kind)
-    _check("fused_update_sweep", (x, y, nu), params, mask)
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
-    xo, nuo = torch.empty_like(x), torch.empty_like(nu)
-    S, C = x.shape[:2]
-    d = _leaf_size(x)
-    if xo.numel() == 0:
-        return xo, nuo
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.prox_sweep_update(
-            x.data_ptr(), y.data_ptr(), nu.data_ptr(), params.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            xo.data_ptr(), nuo.data_ptr(), S, C, d, KINDS[kind],
-            _DTYPES[x.dtype], _vec_ok(d, x, y, nu, xo, nuo),
-            _stream_ptr(x.device))
-    if err != 0:
-        raise RuntimeError(f"prox_sweep_update launch failed: CUDA error {err}")
-    LAUNCH_COUNTS["fused_sweep"] += 1
-    return xo, nuo
+    xs, nus = _launch_grouped("fused_update_sweep", "fused_sweep",
+                              [(x, y, nu)], params, mask, 2, kind)
+    return xs[0], nus[0]
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +470,41 @@ def fused_tracking_sweep_plain(y, g_new, g_old, params, mask=None):
     return torch.where(live, y_next, y), torch.where(live, g_new, g_old)
 
 
+def fused_tracking_sweep_grouped_plain(ys, g_news, g_olds, params,
+                                       mask=None, *, lead=2):
+    """Plain PyTorch version of :func:`fused_tracking_sweep_grouped`:
+    :func:`fused_tracking_sweep_plain` leaf by leaf."""
+    leaves = list(zip(ys, g_news, g_olds))
+    if not leaves:
+        return [], []
+    _check_group("fused_tracking_sweep", leaves, params, mask, lead)
+    outs = [_plain_leaf(fused_tracking_sweep_plain, ops, lead, params, mask)
+            for ops in leaves]
+    kept = ([o[1] for o in outs] if mask is not None
+            else [ops[1] for ops in leaves])
+    return [o[0] for o in outs], kept
+
+
+def fused_tracking_sweep_grouped(ys, g_news, g_olds, params, mask=None, *,
+                                 lead=2):
+    """Sweep-major tracking axpy of every leaf of a tree.  Returns (y'
+    leaves, g_kept leaves).
+
+    Same layout contract as :func:`fused_update_sweep_grouped`; ``beta`` is
+    column 4 of the table.  Without a mask the ``g_kept`` leaves are the
+    ``g_news`` themselves (no copy).
+    """
+    leaves = list(zip(ys, g_news, g_olds))
+    if not leaves or leaves[0][0].device.type != "cuda":
+        return fused_tracking_sweep_grouped_plain(ys, g_news, g_olds, params,
+                                                  mask, lead=lead)
+    return _launch_grouped("fused_tracking_sweep", "tracking_sweep", leaves,
+                           params, mask, lead)
+
+
 def fused_tracking_sweep_cuda(y, g_new, g_old, params, mask=None):
-    """Sweep-major tracking axpy.  Returns (y', g_kept).
+    """Sweep-major tracking axpy of one leaf: the grouped launch over a
+    tree of one leaf.  Returns (y', g_kept).
 
     Same layout contract as :func:`fused_update_sweep_cuda`; ``beta`` is
     column 4 of the table.  Without a mask ``g_kept`` is ``g_new`` itself
@@ -242,28 +512,9 @@ def fused_tracking_sweep_cuda(y, g_new, g_old, params, mask=None):
     """
     if y.device.type != "cuda":
         return fused_tracking_sweep_plain(y, g_new, g_old, params, mask)
-    _check("fused_tracking_sweep", (y, g_new, g_old), params, mask)
-    gated = mask is not None
-    yo = torch.empty_like(y)
-    gk = torch.empty_like(g_new) if gated else g_new
-    S, C = y.shape[:2]
-    d = _leaf_size(y)
-    if yo.numel() == 0:
-        return yo, gk
-    outs = (yo, gk) if gated else (yo,)
-    lib = _lib()
-    with torch.cuda.device(y.device):
-        err = lib.prox_sweep_tracking(
-            y.data_ptr(), g_new.data_ptr(), g_old.data_ptr(),
-            params.data_ptr(), mask.data_ptr() if gated else None,
-            yo.data_ptr(), gk.data_ptr() if gated else None, S, C, d,
-            _DTYPES[y.dtype], _vec_ok(d, y, g_new, g_old, *outs),
-            _stream_ptr(y.device))
-    if err != 0:
-        raise RuntimeError(
-            f"prox_sweep_tracking launch failed: CUDA error {err}")
-    LAUNCH_COUNTS["tracking_sweep"] += 1
-    return yo, gk
+    ys, gs = _launch_grouped("fused_tracking_sweep", "tracking_sweep",
+                             [(y, g_new, g_old)], params, mask, 2)
+    return ys[0], gs[0]
 
 
 # ---------------------------------------------------------------------------
@@ -299,11 +550,6 @@ def _check_leaf(name, operands):
                         f"{sorted(map(str, _DTYPES))}")
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {a.device}")
-
-
-def _check_kind(kind):
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
 
 
 def prox_plain(x, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
@@ -359,29 +605,15 @@ def fused_update_cuda(x, y, nu, *, kind="l1", lam=1e-4, theta=4.0,
                       alpha=0.1, gamma=0.8):
     """Fused momentum + prox of one config, any shape.  Returns (x', nu').
 
-    CUDA tensors launch the sweep update kernel, ungated, on a (1, 1, n)
-    view with a (1, 5) table; CPU tensors run :func:`fused_update_plain`.
+    CUDA tensors launch the sweep update kernel, ungated, over one leaf of
+    one row with a (1, 5) table; CPU tensors run :func:`fused_update_plain`.
     """
     if x.device.type != "cuda":
         return fused_update_plain(x, y, nu, kind=kind, lam=lam, theta=theta,
                                   alpha=alpha, gamma=gamma)
-    _check_leaf("fused_update", (x, y, nu))
     _check_kind(kind)
     xc, yc, nc = (t.contiguous() for t in (x, y, nu))
-    xo, nuo = torch.empty_like(xc), torch.empty_like(nc)
-    n = xc.numel()
-    if n == 0:
-        return xo, nuo
     row = hyper_row(xc, lam, theta, alpha, gamma)
-    lib = _lib()
-    with torch.cuda.device(xc.device):
-        err = lib.prox_sweep_update(
-            xc.data_ptr(), yc.data_ptr(), nc.data_ptr(), row.data_ptr(), None,
-            xo.data_ptr(), nuo.data_ptr(), 1, 1, n, KINDS[kind],
-            _DTYPES[xc.dtype], _vec_ok(n, xc, yc, nc, xo, nuo),
-            _stream_ptr(xc.device))
-    if err != 0:
-        raise RuntimeError(f"prox_sweep_update launch failed: CUDA error "
-                           f"{err}")
-    LAUNCH_COUNTS["fused_update"] += 1
-    return xo, nuo
+    xs, nus = _launch_grouped("fused_update", "fused_update", [(xc, yc, nc)],
+                              row, None, 0, kind)
+    return xs[0], nus[0]

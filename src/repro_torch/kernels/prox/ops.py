@@ -4,23 +4,25 @@ Port of ``repro/kernels/prox/ops.py``:
 
 * :func:`prox_tree` / :func:`fused_update_tree` apply the one-config
   kernels leafwise over dicts of tensors of any shape;
-* ``fused_update_sweep_tree`` / ``fused_tracking_sweep_tree`` apply a
-  kernel leafwise over dicts of explicit ``(S, C, ...)`` leaves;
+* ``fused_update_sweep_tree`` / ``fused_tracking_sweep_tree`` run a sweep
+  kernel over dicts of explicit ``(S, C, ...)`` leaves: on the card one
+  grouped launch for every leaf (per dtype), where the reference launches
+  once a leaf;
 * :func:`fused_local_update` / :func:`fused_tracking` are the round
-  program's entry points.  They run one config's clients through the
-  sweep-major kernel with a single-config axis (S = 1), as the reference's
-  unbatched call does.  (The reference's ``custom_vmap`` rule, which maps a
-  stacked-Hyper sweep axis onto the kernel's config axis, comes with the
-  sweep slice: there the leaves carry ``S`` explicitly.)
+  program's entry points.  They run one config's ``(C, ...)`` leaves
+  through the same grouped launch with a single-config axis (S = 1), as the
+  reference's unbatched call does.  (The reference's ``custom_vmap`` rule,
+  which maps a stacked-Hyper sweep axis onto the kernel's config axis,
+  comes with the sweep slice: there the leaves carry ``S`` explicitly.)
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.prox.kernel import (
-    fused_tracking_sweep_cuda,
+    fused_tracking_sweep_grouped,
     fused_update_cuda,
-    fused_update_sweep_cuda,
+    fused_update_sweep_grouped,
     prox_cuda,
 )
 from repro_torch.obs.trace import annotate
@@ -50,21 +52,21 @@ def fused_update_sweep_tree(x_tree, y_tree, nu_tree, params, mask=None, *,
     ``params`` is the (S, 5) table, ``mask`` an optional (S, C) gate.
     Returns (x', nu').
     """
-    xs, nus = {}, {}
-    for k in x_tree:
-        xs[k], nus[k] = fused_update_sweep_cuda(
-            x_tree[k], y_tree[k], nu_tree[k], params, mask, kind=kind)
-    return xs, nus
+    keys = list(x_tree)
+    xs, nus = fused_update_sweep_grouped(
+        [x_tree[k] for k in keys], [y_tree[k] for k in keys],
+        [nu_tree[k] for k in keys], params, mask, kind=kind)
+    return dict(zip(keys, xs)), dict(zip(keys, nus))
 
 
 def fused_tracking_sweep_tree(y_tree, g_new_tree, g_old_tree, params,
                               mask=None):
     """Sweep-major tracking axpy over dicts.  Returns (y', g_kept)."""
-    ys, gs = {}, {}
-    for k in y_tree:
-        ys[k], gs[k] = fused_tracking_sweep_cuda(
-            y_tree[k], g_new_tree[k], g_old_tree[k], params, mask)
-    return ys, gs
+    keys = list(y_tree)
+    ys, gs = fused_tracking_sweep_grouped(
+        [y_tree[k] for k in keys], [g_new_tree[k] for k in keys],
+        [g_old_tree[k] for k in keys], params, mask)
+    return dict(zip(keys, ys)), dict(zip(keys, gs))
 
 
 def hyper_param_vec(hyper, *, device=None) -> torch.Tensor:
@@ -86,13 +88,8 @@ def hyper_param_vec(hyper, *, device=None) -> torch.Tensor:
     return vec.to(device)
 
 
-def _one(tree):
-    """(C, ...) leaves as contiguous (1, C, ...) sweep views."""
-    return {k: v.contiguous()[None] for k, v in tree.items()}
-
-
-def _drop(tree):
-    return {k: v[0] for k, v in tree.items()}
+def _leaves(tree, keys):
+    return [tree[k].contiguous() for k in keys]
 
 
 def _gate(mask):
@@ -108,17 +105,20 @@ def fused_local_update(x_tree, y_tree, nu_tree, hp_vec, mask=None, *,
     in-kernel.  Returns (x', nu').
     """
     with annotate("fused_kernel"):
-        xs, nus = fused_update_sweep_tree(
-            _one(x_tree), _one(y_tree), _one(nu_tree), hp_vec[None],
-            _gate(mask), kind=kind)
-    return _drop(xs), _drop(nus)
+        keys = list(x_tree)
+        xs, nus = fused_update_sweep_grouped(
+            _leaves(x_tree, keys), _leaves(y_tree, keys),
+            _leaves(nu_tree, keys), hp_vec[None], _gate(mask), kind=kind,
+            lead=1)
+    return dict(zip(keys, xs)), dict(zip(keys, nus))
 
 
 def fused_tracking(y_tree, g_new_tree, g_old_tree, hp_vec, mask=None):
     """Tracking axpy ``y' = y + beta (g_new - g_old)`` (+ in-kernel freeze
     when ``mask`` given) for one config's clients.  Returns (y', g_kept)."""
     with annotate("fused_kernel"):
-        ys, gs = fused_tracking_sweep_tree(
-            _one(y_tree), _one(g_new_tree), _one(g_old_tree), hp_vec[None],
-            _gate(mask))
-    return _drop(ys), _drop(gs)
+        keys = list(y_tree)
+        ys, gs = fused_tracking_sweep_grouped(
+            _leaves(y_tree, keys), _leaves(g_new_tree, keys),
+            _leaves(g_old_tree, keys), hp_vec[None], _gate(mask), lead=1)
+    return dict(zip(keys, ys)), dict(zip(keys, gs))

@@ -1,0 +1,462 @@
+"""The grouped sweep launches: tree functions, leaf table and host path.
+
+* The grouped tree functions' plain path (``ops.fused_update_sweep_tree`` /
+  ``fused_tracking_sweep_tree`` on CPU tensors) against the reference's
+  tree functions, whose Pallas kernels run in interpret mode as
+  ``tests/test_torch_kernels.py`` runs them, on a ragged tree made from a
+  numpy seed: fp32 at atol = rtol = 1e-6 (the same fp32 operations), bf16
+  at 1.5e-2 (the reference's own bf16 tolerance); frozen rows bit for bit.
+* :func:`leaf_tables` and :func:`output_layout`, pure functions of shapes,
+  dtypes and pointers: offsets, block prefixes, vec flags, chunking, empty
+  leaves, dtype groups.
+* The card's host path (``_launch_grouped``) on CPU memory, with the
+  ``ctypes`` library replaced by a Python model of the CUDA kernel that
+  walks the same blocks over the same table: outputs bit-equal to the
+  plain version, views of one buffer per output, one launch per dtype group
+  and per 48 leaves, ungated tracking handing back ``g_new`` itself.
+The CUDA kernels themselves are held to the plain versions by
+``tests/test_torch_kernels_gpu.py``, which skips without a card.
+"""
+import contextlib
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.prox import ops as jops
+from repro.kernels.prox.kernel import sweep_params_table as j_table
+from repro_torch.kernels.prox import kernel as tk
+from repro_torch.kernels.prox import ops as tops
+
+C = 3
+DS = (1, 3, 10, 64, 7872)            # ragged leaf sizes a client
+KINDS = ["l1", "mcp", "scad"]
+TOL = {torch.float32: 1e-6, torch.bfloat16: 1.5e-2}
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+TABLE = dict(lam=[1e-3, 1e-2], theta=4.0, alpha=[0.05, 0.2],
+             gamma=[0.5, 0.9], beta=[1.0, 1.5])
+MASK = np.array([[1, 0, 1], [0, 0, 0]], np.float32)   # config 1 all frozen
+# the paper's Fig. 4 MLP (123 -> 64 -> 32 -> 10) leaves, elements a client
+MLP_DS = (7872, 64, 2048, 32, 320, 10)
+
+
+def _shape(S, d):
+    """Leaf i of the ragged tree: 2-D, 1-D or 0-D after the (S, C) axes."""
+    return (S, C) + ({64: (8, 8), 7872: (123, 64), 1: ()}.get(d, (d,)))
+
+
+def _trees(seed, S, dtype, n=3):
+    rng = np.random.default_rng(seed)
+    trees = [{f"l{i}": (rng.standard_normal(_shape(S, d)) * 0.1
+                        ).astype(np.float32) for i, d in enumerate(DS)}
+             for _ in range(n)]
+    tt = [{k: torch.from_numpy(v).to(dtype) for k, v in t.items()}
+          for t in trees]
+    jt = [{k: jnp.asarray(v, _JDT[dtype]) for k, v in t.items()}
+          for t in trees]
+    return tt, jt
+
+
+def _tables(S):
+    cols = {k: (v[:S] if isinstance(v, list) else v) for k, v in TABLE.items()}
+    return (tk.sweep_params_table(**cols, device="cpu"),
+            j_table(**{k: jnp.asarray(v) for k, v in cols.items()}))
+
+
+def _masks(S, gated):
+    if not gated:
+        return None, None
+    return torch.from_numpy(MASK[:S]), jnp.asarray(MASK[:S])
+
+
+def _close(t, j, dtype):
+    assert t.dtype == dtype and tuple(t.shape) == tuple(j.shape)
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+def _assert_frozen(out, ref, mask):
+    """Rows with mask <= 0 come back bit for bit as ``ref``."""
+    if mask is None:
+        return
+    frozen = mask <= 0
+    for k in ref:
+        assert torch.equal(_bits(out[k][frozen]), _bits(ref[k][frozen]))
+
+
+# ---------------------------------------------------------------------------
+# Tree functions against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("kind", KINDS)
+def test_update_tree_matches_reference(kind, S, gated, dtype):
+    (x, y, nu), (jx, jy, jnu) = _trees(KINDS.index(kind) + 3 * S, S, dtype)
+    tt, jt = _tables(S)
+    tm, jm = _masks(S, gated)
+    xo, nuo = tops.fused_update_sweep_tree(x, y, nu, tt, tm, kind=kind)
+    jxo, jnuo = jops.fused_update_sweep_tree(jx, jy, jnu, jt, jm, kind=kind)
+    assert list(xo) == list(x) and list(nuo) == list(nu)
+    for k in x:
+        _close(xo[k], jxo[k], dtype)
+        _close(nuo[k], jnuo[k], dtype)
+    _assert_frozen(xo, x, tm)
+    _assert_frozen(nuo, nu, tm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("S", [1, 2])
+def test_tracking_tree_matches_reference(S, gated, dtype):
+    (y, gn, go), (jy, jgn, jgo) = _trees(20 + S, S, dtype)
+    tt, jt = _tables(S)
+    tm, jm = _masks(S, gated)
+    yo, gk = tops.fused_tracking_sweep_tree(y, gn, go, tt, tm)
+    jyo, jgk = jops.fused_tracking_sweep_tree(jy, jgn, jgo, jt, jm)
+    for k in y:
+        _close(yo[k], jyo[k], dtype)
+        _close(gk[k], jgk[k], dtype)
+        if not gated:
+            assert gk[k] is gn[k]        # no copy
+    _assert_frozen(yo, y, tm)
+    _assert_frozen(gk, go, tm)
+
+
+# ---------------------------------------------------------------------------
+# The leaf table, a pure function of shapes, dtypes and pointers
+# ---------------------------------------------------------------------------
+
+def _ptrs(n, base=1 << 20, step=1 << 16):
+    return [tuple(base + (5 * i + j) * step for j in range(5))
+            for i in range(n)]
+
+
+def _tables_of(*args):
+    """leaf_tables' flat words as an (n, LEAF_WORDS) array, and launches."""
+    words, launches = tk.leaf_tables(*args)
+    return np.array(words, np.int64).reshape(-1, tk.LEAF_WORDS), launches
+
+
+def test_output_offsets_are_16_byte_aligned():
+    offsets, total = tk.output_layout([4, 40, 0, 6, 16])
+    assert offsets == [0, 16, 64, 64, 80] and total == 96
+    assert all(o % tk.ALIGN == 0 for o in offsets)
+    assert tk.output_layout([]) == ([], 0)
+
+
+def test_block_prefixes_of_the_mlp_step():
+    """The Fig. 4 step: 8 + 1 + 2 + 1 + 1 + 1 tiles a row x 10 rows."""
+    f32 = torch.float32
+    table, launches = _tables_of(10, MLP_DS, [f32] * 6, _ptrs(6))
+    assert table.shape == (6, tk.LEAF_WORDS) and table.dtype == np.int64
+    assert table[:, 6].tolist() == [0, 80, 90, 110, 120, 130]
+    assert table[:, 5].tolist() == list(MLP_DS)
+    assert table[:, :5].tolist() == [list(p) for p in _ptrs(6)]
+    assert launches == [tk.Launch(f32, 0, 6, 140)]
+
+
+def test_vec_flags():
+    f32, bf16 = torch.float32, torch.bfloat16
+    p = _ptrs(4)
+    p[2] = p[2][:3] + (p[2][3] + 4,) + p[2][4:]     # one misaligned output
+    table, _ = _tables_of(2, (64, 10, 64, 64), [f32, f32, f32, bf16], p)
+    # d = 10, the misaligned pointer and bf16 all take scalar loads
+    assert table[:, 7].tolist() == [1, 0, 0, 0]
+    ungated = [q[:4] + (0,) for q in _ptrs(1)]      # g_kept not written
+    assert _tables_of(2, (8,), [f32], ungated)[0][0, 7] == 1
+
+
+def test_chunks_above_the_table_limit():
+    n = 2 * tk.MAX_LEAVES + 4
+    ds = [1 + (i % 3) * tk.TILE for i in range(n)]   # 1, 2 or 3 tiles
+    table, launches = _tables_of(5, ds, [torch.float32] * n, _ptrs(n))
+    assert [(ln.start, ln.stop) for ln in launches] == [
+        (0, 48), (48, 96), (96, n)]
+    assert table[:, 0].tolist() == [p[0] for p in _ptrs(n)]   # in order
+    for ln in launches:
+        tiles = [-(-d // tk.TILE) for d in ds[ln.start:ln.stop]]
+        firsts = np.cumsum([0] + [5 * t for t in tiles])
+        assert table[ln.start:ln.stop, 6].tolist() == firsts[:-1].tolist()
+        assert ln.blocks == firsts[-1]
+
+
+def test_empty_leaves_are_skipped():
+    f32 = torch.float32
+    table, launches = _tables_of(3, (0, 5, 0), [f32] * 3, _ptrs(3))
+    assert launches == [tk.Launch(f32, 0, 1, 3)]
+    assert table[:, 5].tolist() == [5]
+    assert table[:, :5].tolist() == [list(_ptrs(3)[1])]
+    assert _tables_of(0, (5, 6), [f32] * 2, _ptrs(2))[1] == []
+
+
+def test_mixed_dtypes_split_into_two_groups():
+    f32, bf16 = torch.float32, torch.bfloat16
+    dts = [bf16, f32, bf16, f32]
+    table, launches = _tables_of(2, (4, 2048, 8, 4), dts, _ptrs(4))
+    assert launches == [tk.Launch(bf16, 0, 2, 4), tk.Launch(f32, 2, 4, 6)]
+    p = _ptrs(4)                                    # leaves 0, 2 then 1, 3
+    assert table[:, 0].tolist() == [p[0][0], p[2][0], p[1][0], p[3][0]]
+    assert table[:, 6].tolist() == [0, 2, 0, 4]     # each launch from 0
+
+
+def test_table_is_packed_into_a_reused_buffer():
+    f32 = torch.float32
+    words, _ = tk.leaf_tables(4, (3, 9), [f32] * 2, _ptrs(2))
+    assert len(words) == 2 * tk.LEAF_WORDS
+    addr = tk._packed(words)
+    assert tk._packed(words) == addr
+
+    def at(a, n):
+        return np.frombuffer((ctypes.c_int64 * n).from_address(a),
+                             np.int64).tolist()
+
+    assert at(addr, len(words)) == words
+    n = tk.MAX_LEAVES + 2                     # more than the buffer holds
+    many, _ = tk.leaf_tables(4, (5,) * n, [f32] * n, _ptrs(n))
+    grown = tk._packed(many)
+    assert at(grown, len(many)) == many
+    assert tk._packed(words) == grown         # the grown buffer is kept
+
+
+# ---------------------------------------------------------------------------
+# The host path on CPU memory, against a Python model of the kernel
+# ---------------------------------------------------------------------------
+
+_CT = {0: (ctypes.c_float, torch.float32), 1: (ctypes.c_uint16,
+                                               torch.bfloat16)}
+
+
+def _at(addr, n, dtype_code):
+    """``n`` elements at ``addr`` as a tensor sharing that memory."""
+    ct, dt = _CT[dtype_code]
+    if n == 0:
+        return torch.empty(0, dtype=dt)
+    return torch.frombuffer((ct * n).from_address(addr), dtype=dt)
+
+
+class _ModelLib:
+    """The two grouped entry points of ``prox_sweep.cu``, block by block:
+    each block finds its leaf by the table's prefixes, then its row and
+    tile, and runs the plain version on that tile (frozen rows copied)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _run(self, addr, n, params, mask, C, blocks, dtype, tile_fn):
+        table = np.frombuffer((ctypes.c_int64 * (n * tk.LEAF_WORDS))
+                              .from_address(addr), np.int64)
+        table = table.reshape(n, tk.LEAF_WORDS).copy()
+        assert 1 <= n <= tk.MAX_LEAVES and table[0, 6] == 0
+        self.calls.append((n, blocks, dtype))
+        isz = 4 if dtype == 0 else 2
+        for b in range(blocks):
+            leaf = 0
+            while leaf + 1 < n and b >= table[leaf + 1, 6]:
+                leaf += 1
+            *p, d, first, vec = (int(v) for v in table[leaf])
+            if vec:
+                assert dtype == 0 and d % 4 == 0
+                assert all(q % 16 == 0 for q in p if q)
+            tiles = -(-d // tk.TILE)
+            row, t = divmod(b - first, tiles)
+            start = t * tk.TILE
+            cnt = min(tk.TILE, d - start)
+            off = (row * d + start) * isz
+            io = [_at(q + off, cnt, dtype) if q else None for q in p]
+            prow = _at(params + 20 * (row // C), 5, 0).reshape(1, 5)
+            live = mask is None or float(_at(mask + 4 * row, 1, 0)) > 0
+            tile_fn(io, prow, live, cnt)
+
+    def prox_sweep_update_grouped(self, addr, n, params, mask, C, blocks,
+                                  kind, dtype, stream):
+        name = {v: k for k, v in tk.KINDS.items()}[kind]
+
+        def tile(io, prow, live, cnt):
+            x, y, nu, xo, nuo = io
+            if live:
+                rx, rn = tk.fused_update_sweep_plain(
+                    *(t.reshape(1, 1, cnt) for t in (x, y, nu)), prow,
+                    kind=name)
+                xo.copy_(rx.reshape(-1))
+                nuo.copy_(rn.reshape(-1))
+            else:
+                xo.copy_(x)
+                nuo.copy_(nu)
+
+        self._run(addr, n, params, mask, C, blocks, dtype, tile)
+        return 0
+
+    def prox_sweep_tracking_grouped(self, addr, n, params, mask, C, blocks,
+                                    dtype, stream):
+        def tile(io, prow, live, cnt):
+            y, gn, go, yo, gk = io
+            assert (gk is None) == (mask is None)
+            if live:
+                ry, _ = tk.fused_tracking_sweep_plain(
+                    *(t.reshape(1, 1, cnt) for t in (y, gn, go)), prow)
+                yo.copy_(ry.reshape(-1))
+                if gk is not None:
+                    gk.copy_(gn)
+            else:
+                yo.copy_(y)
+                gk.copy_(go)
+
+        self._run(addr, n, params, mask, C, blocks, dtype, tile)
+        return 0
+
+
+@pytest.fixture
+def model_lib(monkeypatch):
+    """Route ``_launch_grouped`` to the model on CPU memory."""
+    lib = _ModelLib()
+    monkeypatch.setattr(tk, "_lib", lambda: lib)
+    monkeypatch.setattr(tk, "_stream_ptr", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    tk.reset_launch_counts()
+    yield lib
+    tk.reset_launch_counts()
+
+
+def _tree_leaves(seed, shapes, dtypes, n=3):
+    rng = np.random.default_rng(seed)
+    return [[torch.from_numpy((rng.standard_normal(s) * 0.1)
+                              .astype(np.float32)).to(dt)
+             for s, dt in zip(shapes, dtypes)] for _ in range(n)]
+
+
+def _assert_views_of_one_buffer(outs, ins):
+    storages = {o.untyped_storage().data_ptr() for o in outs}
+    assert len(storages) == 1
+    for o, a in zip(outs, ins):
+        assert o.shape == a.shape and o.dtype == a.dtype
+        assert o.is_contiguous() and o.data_ptr() % tk.ALIGN == 0
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("lead", [1, 2])
+def test_host_path_matches_plain_on_the_mlp_tree(model_lib, gated, lead):
+    head = (10,) if lead == 1 else (1, 10)
+    shapes = [head + s for s in ((123, 64), (64,), (64, 32), (32,),
+                                 (32, 10), (10,))]
+    x, y, nu = _tree_leaves(7, shapes, [torch.float32] * 6)
+    params, _ = _tables(1)
+    mask = (torch.tensor([[1, 0, 1, 1, 0, 1, 1, 1, 0, 1]], dtype=torch.float32)
+            if gated else None)
+    got = tk._launch_grouped("fused_update_sweep", "fused_sweep",
+                             list(zip(x, y, nu)), params, mask, lead, "mcp")
+    want = tk.fused_update_sweep_grouped_plain(x, y, nu, params, mask,
+                                               kind="mcp", lead=lead)
+    trk = tk._launch_grouped("fused_tracking_sweep", "tracking_sweep",
+                             list(zip(y, nu, x)), params, mask, lead)
+    trk_want = tk.fused_tracking_sweep_grouped_plain(y, nu, x, params, mask,
+                                                     lead=lead)
+    for outs, refs in ((got, want), (trk, trk_want)):
+        for o, r in zip(outs, refs):
+            for a, b in zip(o, r):
+                assert torch.equal(_bits(a), _bits(b))
+    assert model_lib.calls == [(6, 140, 0), (6, 140, 0)]
+    assert tk.LAUNCH_COUNTS == {"fused_sweep": 1, "tracking_sweep": 1}
+    for outs in got:
+        _assert_views_of_one_buffer(outs, x)
+    _assert_views_of_one_buffer(trk[0], y)
+    if gated:
+        _assert_views_of_one_buffer(trk[1], y)
+    else:
+        assert all(g is n_ for g, n_ in zip(trk[1], nu))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_host_path_mixed_dtypes_and_chunks(model_lib, kind):
+    """A ragged tree of 100 leaves, fp32 and bf16 mixed, S = 2 with one
+    all-frozen config: one launch per dtype and per 48 leaves."""
+    S, n = 2, 100
+    f32, bf16 = torch.float32, torch.bfloat16
+    dts = [bf16 if i % 3 == 0 else f32 for i in range(n)]
+    shapes = [_shape(S, DS[i % len(DS)]) if i % 7 else (S, C, 0)
+              for i in range(n)]
+    x, y, nu = _tree_leaves(11, shapes, dts)
+    params, _ = _tables(S)
+    mask = torch.from_numpy(MASK)
+    got = tk._launch_grouped("fused_update_sweep", "fused_sweep",
+                             list(zip(x, y, nu)), params, mask, 2, kind)
+    want = tk.fused_update_sweep_grouped_plain(x, y, nu, params, mask,
+                                               kind=kind)
+    for o, r in zip(got, want):
+        for a, b in zip(o, r):
+            assert torch.equal(_bits(a), _bits(b))
+    for out, ref in zip(got, (x, nu)):
+        _assert_frozen(dict(enumerate(out)), dict(enumerate(ref)), mask)
+    # leaves with elements: 85 (every 7th is empty), fp32 56 (the first
+    # group: leaf 0 is empty, leaf 1 fp32), bf16 29
+    assert [c[0] for c in model_lib.calls] == [48, 8, 29]
+    assert [c[2] for c in model_lib.calls] == [0, 0, 1]
+    assert tk.LAUNCH_COUNTS["fused_sweep"] == 3
+
+
+def test_host_path_skips_an_empty_tree(model_lib):
+    x = [torch.zeros((2, 3, 0))] * 2
+    params, _ = _tables(2)
+    xs, nus = tk._launch_grouped("fused_update_sweep", "fused_sweep",
+                                 [(a, a, a) for a in x], params, None, 2,
+                                 "l1")
+    assert [t.shape for t in xs + nus] == [(2, 3, 0)] * 4
+    assert model_lib.calls == [] and tk.LAUNCH_COUNTS["fused_sweep"] == 0
+
+
+@pytest.mark.parametrize("route", ["plain", "card"])
+def test_grouped_wrappers_check_their_inputs(model_lib, route):
+    """The inputs ``test_wrappers_check_their_inputs`` lists, as one-leaf
+    trees beside a good leaf, through the grouped plain path and through
+    the card's host path."""
+    x, y, nu = (a[0] for a in _tree_leaves(3, [(2, C, 10)],
+                                           [torch.float32]))
+    tt, _ = _tables(2)
+    good = (x, y, nu)
+
+    def upd(bad, params, mask=None, kind="l1"):
+        leaves = [good, bad]
+        if route == "plain":
+            return tk.fused_update_sweep_grouped(*zip(*leaves), params, mask,
+                                                 kind=kind)
+        return tk._launch_grouped("fused_update_sweep", "fused_sweep",
+                                  leaves, params, mask, 2, kind)
+
+    def trk(bad, params):
+        if route == "plain":
+            return tk.fused_tracking_sweep_grouped(*zip(good, bad), params)
+        return tk._launch_grouped("fused_tracking_sweep", "tracking_sweep",
+                                  [good, bad], params, None, 2)
+
+    with pytest.raises(ValueError, match="no kernel for device"):
+        meta = tuple(t.to("meta") for t in good)
+        if route == "plain":
+            tk.fused_update_sweep_grouped(*zip(meta), tt.to("meta"))
+        else:
+            tk._launch_grouped("fused_update_sweep", "fused_sweep", [meta],
+                               tt.to("meta"), None, 2, "l1")
+    with pytest.raises(ValueError, match="contiguous"):
+        upd(tuple(t.transpose(0, 1).contiguous().transpose(0, 1)
+                  for t in good), tt)
+    with pytest.raises(TypeError):
+        trk(tuple(t.double() for t in good), tt)
+    with pytest.raises(ValueError, match="params"):
+        trk(good, tt[:1])
+    with pytest.raises(ValueError, match="mask"):
+        upd(good, tt, torch.ones(2, C + 1))
+    with pytest.raises(ValueError, match="kind"):
+        upd(good, tt, kind="box")
+    with pytest.raises(ValueError, match="leading axes"):
+        upd(tuple(t[:1] for t in good), tt)
+    with pytest.raises(ValueError, match="differ"):
+        upd((x, y[..., :5].contiguous(), nu), tt)
+    assert model_lib.calls == [] and not tk.LAUNCH_COUNTS

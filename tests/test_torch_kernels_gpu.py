@@ -78,6 +78,122 @@ def test_bf16_kernels_match_plain_versions():
         assert torch.equal(a, b)
 
 
+# the Fig. 4 MLP's leaves a client, and a ragged tree: 2-D, 1-D and 0-D
+# leaves, odd and float4-able sizes
+MLP_SHAPES = ((123, 64), (64,), (64, 32), (32,), (32, 10), (10,))
+RAGGED_SHAPES = ((), (3,), (10,), (8, 8), (123, 64), (1001,))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _tree(shapes, dtypes, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [[(torch.randn((S, C) + s, generator=g, device="cuda") * 0.1)
+             .to(dt) for s, dt in zip(shapes, dtypes)] for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", [MLP_SHAPES, RAGGED_SHAPES],
+                         ids=["mlp", "ragged"])
+def test_grouped_kernels_match_plain_versions_bit_for_bit(shapes, dtype):
+    """One launch per call over every leaf; each output equals the plain
+    version bit for bit (fp32 math, one rounding to the storage type), and
+    frozen rows come back unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    x, y, nu = _tree(shapes, [dtype] * len(shapes), seed=len(shapes))
+    tt = tk.sweep_params_table(**TABLE, device="cuda")
+    mask = torch.from_numpy(MASK).cuda()
+    frozen = mask <= 0
+    for m in (None, mask):
+        for kind in ("l1", "mcp", "scad"):
+            before = tk.LAUNCH_COUNTS["fused_sweep"]
+            out = tk.fused_update_sweep_grouped(x, y, nu, tt, m, kind=kind)
+            assert tk.LAUNCH_COUNTS["fused_sweep"] == before + 1
+            ref = tk.fused_update_sweep_grouped_plain(x, y, nu, tt, m,
+                                                      kind=kind)
+            for outs, refs, ins in zip(out, ref, (x, nu)):
+                for a, b, i in zip(outs, refs, ins):
+                    assert a.shape == i.shape and a.dtype == dtype
+                    assert a.is_contiguous()
+                    assert torch.equal(_bits(a), _bits(b)), kind
+                    if m is not None:
+                        assert torch.equal(_bits(a[frozen]), _bits(i[frozen]))
+        before = tk.LAUNCH_COUNTS["tracking_sweep"]
+        yo, gk = tk.fused_tracking_sweep_grouped(y, nu, x, tt, m)
+        assert tk.LAUNCH_COUNTS["tracking_sweep"] == before + 1
+        ry, rg = tk.fused_tracking_sweep_grouped_plain(y, nu, x, tt, m)
+        for a, b in zip(yo + gk, ry + rg):
+            assert torch.equal(_bits(a), _bits(b))
+        if m is None:
+            assert all(g is n for g, n in zip(gk, nu))
+        else:
+            for a, i in zip(yo + gk, y + x):
+                assert torch.equal(_bits(a[frozen]), _bits(i[frozen]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_grouped_launches_per_dtype_and_per_table():
+    """A mixed fp32 / bf16 tree takes one launch per dtype; 99 leaves of
+    one dtype take ceil(99 / 48) = 3; empty leaves none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    tt = tk.sweep_params_table(**TABLE, device="cuda")
+    mask = torch.from_numpy(MASK).cuda()
+    dts = [torch.float32, torch.bfloat16] * 3
+    mixed = _tree(RAGGED_SHAPES, dts, seed=3)
+    many = _tree([(7,), (64,), ()] * 33 + [(0,)] * 2, [torch.float32] * 101,
+                 seed=4)
+    for tree, want in ((mixed, 2), (many, 3)):
+        for m in (None, mask):
+            before = dict(tk.LAUNCH_COUNTS)
+            out = tk.fused_update_sweep_grouped(*tree, tt, m, kind="scad")
+            ref = tk.fused_update_sweep_grouped_plain(*tree, tt, m,
+                                                      kind="scad")
+            yo = tk.fused_tracking_sweep_grouped(*tree, tt, m)
+            yr = tk.fused_tracking_sweep_grouped_plain(*tree, tt, m)
+            for a, b in zip(out[0] + out[1] + yo[0] + yo[1],
+                            ref[0] + ref[1] + yr[0] + yr[1]):
+                assert torch.equal(_bits(a), _bits(b))
+            assert tk.LAUNCH_COUNTS["fused_sweep"] == before.get(
+                "fused_sweep", 0) + want
+            assert tk.LAUNCH_COUNTS["tracking_sweep"] == before.get(
+                "tracking_sweep", 0) + want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_grouped_wrappers_check_their_inputs_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    x, y, nu = _tree([(10,), (4, 4)], [torch.float32] * 2, seed=5)
+    tt = tk.sweep_params_table(**TABLE, device="cuda")
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.fused_update_sweep_grouped(
+            [x[0], x[1].transpose(2, 3)], y, nu, tt)
+    with pytest.raises(TypeError):
+        tk.fused_tracking_sweep_grouped([t.double() for t in x],
+                                        [t.double() for t in y],
+                                        [t.double() for t in nu], tt)
+    with pytest.raises(ValueError, match="params"):
+        tk.fused_tracking_sweep_grouped(x, y, nu, tt[:2])
+    with pytest.raises(ValueError, match="params"):
+        tk.fused_tracking_sweep_grouped(x, y, nu, tt.cpu())
+    with pytest.raises(ValueError, match="mask"):
+        tk.fused_update_sweep_grouped(x, y, nu, tt,
+                                      torch.ones(S, C + 1, device="cuda"))
+    with pytest.raises(ValueError, match="kind"):
+        tk.fused_update_sweep_grouped(x, y, nu, tt, kind="box")
+    with pytest.raises(ValueError, match="differ"):
+        tk.fused_update_sweep_grouped(x, y, [nu[0].cpu(), nu[1]], tt)
+    assert not tk.LAUNCH_COUNTS
+
+
 @pytest.mark.gpu
 def test_round_on_the_card_matches_the_cpu():
     """One fused round of a small MLP: kernels on the card vs plain versions
@@ -107,8 +223,9 @@ def test_round_on_the_card_matches_the_cpu():
             state, {key: v.to(dev) for key, v in batches.items()},
             client_grad_fn(model.to(dev)), cfg, MixPlan.dense(W, device=dev))
     torch.cuda.synchronize()
-    assert tk.LAUNCH_COUNTS["fused_sweep"] == T0 * 6
-    assert tk.LAUNCH_COUNTS["tracking_sweep"] == T0 * 6
+    # one grouped launch a step for all six leaves, each kernel
+    assert tk.LAUNCH_COUNTS["fused_sweep"] == T0
+    assert tk.LAUNCH_COUNTS["tracking_sweep"] == T0
     for f in ("x", "y", "nu", "g"):
         for key, v in getattr(out["cuda"], f).items():
             torch.testing.assert_close(v.cpu(), getattr(out["cpu"], f)[key],
