@@ -8,12 +8,13 @@ final line):
 
 1. build the CUDA kernels from the repo's sources with ``nvcc`` (into
    each kernel's ``build/``): ``kernels/prox/csrc/prox_sweep.cu``,
-   ``kernels/flash_attention/csrc/flash_fwd.cu`` (fp32) and
+   ``kernels/flash_attention/csrc/flash_fwd.cu`` (fp32),
    ``kernels/flash_attention/csrc/flash_fwd_sm90.cu`` (bf16), the three
-   ``nvcc`` runs started together; print what ``-Xptxas -v`` says of the
-   bf16 flash kernel (registers, shared memory, spills) and fail if its
-   D = 128 instantiation spills, or if its SASS (``cuobjdump -sass``) lacks
-   the wgmma of Q K^T (A from shared memory) or of P V (A from registers);
+   ``nvcc`` runs started together; print what ``-Xptxas
+   -v`` says of both flash kernels per D (registers, shared memory,
+   spills) and fail if the bf16 or the fp32 D = 128 instantiation spills,
+   or if the bf16 SASS (``cuobjdump -sass``) lacks the wgmma of Q K^T (A
+   from shared memory) or of P V (A from registers);
 2. hold each kernel against its plain PyTorch version on the card:
    * the sweep-major pair: all three prox kinds, gated and ungated, S = 3
      configs x C = 10 clients, an odd d (scalar loads) and a d that is a
@@ -36,10 +37,10 @@ final line):
    falls from round 1, and the run matches the same run with
    ``fused="off"``: one round within ``STEP_ATOL`` / ``STEP_RTOL``, all
    rounds within ``STATE_REL`` (model, relative norm) and ``LOSS_RTOL`` /
-   ``STAT_RTOL``;
+   ``STAT_RTOL``, all 0: bit-equal; prints the drift of both;
 4. the prox tree path: ``ops.prox_tree`` and ``ops.fused_update_tree`` over
-   that run's final model (six leaves), one launch a leaf each, against the
-   plain versions;
+   that run's final model (six leaves), one grouped launch each, bit-equal
+   to the plain versions;
 5. the served path at full width: ``qwen3-1.7b`` (28 layers, d 2048, 16/8
    heads of 128, d_ff 6144, vocab 151936, bf16, untied; random weights from
    a seeded generator on the card) through ``BatchedServer`` with B = 4,
@@ -62,8 +63,9 @@ final line):
    (flash) ``scaled_dot_product_attention``, at its path's shapes and at a
    larger one (the sweep pair's step both as one grouped launch and as six
    single-leaf launches, in turns, with the grouped kernels' device time
-   from ``torch.profiler``), and the DEPOSITUM round wall time fused and
-   unfused.
+   from ``torch.profiler``; the fp32 flash kernel at the served shape and
+   at L = 8192), and the
+   DEPOSITUM round wall time fused and unfused.
 
 Before each path (phases 3, 4, 5, 6) every launch count is set to 0; it
 is read just after.  Prints JSON lines per phase, then the card's name and
@@ -88,17 +90,15 @@ ROUNDS = 30
 # ragged tree (0-D to 2-D, odd and float4-able sizes)
 MLP_LEAVES = ((123, 64), (64,), (64, 32), (32,), (32, 10), (10,))
 RAGGED_LEAVES = ((), (3,), (10,), (8, 8), (123, 64), (1001,))
-LEAVES = len(MLP_LEAVES)
 ATOL, RTOL = 1e-6, 1e-6        # kernel vs plain, fp32: same ops, same order
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2   # one bf16 rounding of an fp32 result
-# Fused vs unfused on the card.  Per step the two differ by about an ulp:
-# PyTorch's CUDA division by a CPU scalar (the unfused MCP prox) multiplies
-# by the reciprocal, the kernel divides.  Over one round that stays at the
-# ulp scale; over 300 steps of a non-convex problem the difference grows,
-# so the long run is held by the model's relative norm and the metrics.
-STEP_ATOL, STEP_RTOL = 1e-6, 1e-5   # one round (10 steps)
-STATE_REL = 5e-2               # 300 steps: ||x_fused - x_unfused|| / ||x||
-LOSS_RTOL, STAT_RTOL = 1e-3, 1e-2   # 300 steps: final loss, stationarity
+# Fused vs unfused on the card: the unfused step divides by the round's
+# scalars on the device (a true division, as the kernel, built with
+# -fmad=false, does) and does the kernel's fp32 operations in its order, so
+# the two runs are bit-equal, after one round and after 300 steps.
+STEP_ATOL, STEP_RTOL = 0.0, 0.0     # one round (10 steps)
+STATE_REL = 0.0                # 300 steps: ||x_fused - x_unfused|| / ||x||
+LOSS_RTOL, STAT_RTOL = 0.0, 0.0     # 300 steps: final loss, stationarity
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32, outside the tensor cores
 # flops per element: update = momentum (3) + shift (2) + prox chain (<= 8)
@@ -109,8 +109,10 @@ FLASH_SOURCES = {
     "float32": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"}
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:34"
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, tensor cores
-# the bf16 flash kernel's instantiation on the served path must not spill
+# the flash kernels' instantiations at D = 128 (the served path, bf16; the
+# card-vs-CPU path, fp32) must not spill
 FLASH_NO_SPILL = "flash_fwd_sm90_kernelILi128E"
+FP32_NO_SPILL = "flash_fwd_fp32_kernelILi128E"
 # flash kernel vs plain: blockwise online softmax sums in another order
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # full-width prefill, flash vs plain attention: both compute the attention
@@ -191,8 +193,8 @@ def _sass_wgmma(lib) -> dict:
 
 
 def phase_build() -> dict:
-    """The three nvcc runs started together (one thread each), then
-    loaded; the bf16 flash kernel's ptxas report, and its spill check."""
+    """The three nvcc runs started together (one thread each), then loaded;
+    both flash kernels' ptxas reports, and their spill checks."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.prox import kernel as prox
@@ -206,11 +208,13 @@ def phase_build() -> dict:
         flash._kernel(name)
     sm90 = _ptxas(paths[2].with_suffix(".log").read_text())
     fp32 = _ptxas(paths[1].with_suffix(".log").read_text())
-    spilling = [name for name, p in sm90.items() if FLASH_NO_SPILL in name
-                and (p["spill_store_bytes"] or p["spill_load_bytes"])]
-    if spilling or not any(FLASH_NO_SPILL in name for name in sm90):
-        raise AssertionError(f"bf16 flash kernel, D = 128: spills or is "
-                             f"missing: {spilling or sorted(sm90)}")
+    for label, report, key in (("bf16", sm90, FLASH_NO_SPILL),
+                               ("fp32", fp32, FP32_NO_SPILL)):
+        spilling = [name for name, p in report.items() if key in name
+                    and (p["spill_store_bytes"] or p["spill_load_bytes"])]
+        if spilling or not any(key in name for name in report):
+            raise AssertionError(f"{label} flash kernel, D = 128: spills or "
+                                 f"is missing: {spilling or sorted(report)}")
     wgmma = _sass_wgmma(paths[2])
     if not any(k.endswith(" ss") for k in wgmma) \
             or not any(k.endswith(" rs") for k in wgmma):
@@ -219,8 +223,7 @@ def phase_build() -> dict:
     return {"phase": "build",
             "libraries": [str(p.relative_to(ROOT)) for p in paths],
             "seconds": time.perf_counter() - t0, "flash_sm90_wgmma": wgmma,
-            "flash_sm90_ptxas": sm90,
-            "flash_fp32_ptxas": {k: v.get("usage") for k, v in fp32.items()}}
+            "flash_sm90_ptxas": sm90, "flash_fp32_ptxas": fp32}
 
 
 def _modules():
@@ -536,8 +539,9 @@ def phase_tree_path(state) -> tuple[dict, dict]:
                                     **hp)
     torch.cuda.synchronize()
     launches = read_counts()
+    # one grouped launch for the six leaves, each
     expect_counts("prox tree path", launches,
-                  {"prox": LEAVES, "fused_update": LEAVES})
+                  {"prox": 1, "fused_update": 1})
     worst = {"prox": 0.0, "fused_update": 0.0}
     for k in state.x:
         rp = K.prox_plain(state.x[k], **hp)
@@ -546,8 +550,9 @@ def phase_tree_path(state) -> tuple[dict, dict]:
         for name, out, ref in (("prox", px[k], rp),
                                ("fused_update", ux[k], rx),
                                ("fused_update", unu[k], rn)):
-            torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL,
-                                       msg=lambda m: f"{name} {k}: {m}")
+            if not bits_equal(out, ref):
+                raise AssertionError(f"tree path {name} {k}: not bit-equal "
+                                     "to plain")
             worst[name] = max(worst[name], float((out - ref).abs().max()))
     shapes = {k: list(v.shape) for k, v in state.x.items()}
     return launches, {"phase": "tree_path", "leaf_shapes": shapes,
@@ -919,32 +924,31 @@ def phase_timing() -> dict:
 
 
 def phase_timing_prox(state) -> dict:
-    """prox_cuda / fused_update_cuda vs plain at the tree path's shapes (the
-    six leaves, one call each) and at one bandwidth-bound leaf."""
+    """prox_tree / fused_update_tree vs plain at the tree path's shapes (the
+    six leaves, one grouped call each) and prox_cuda / fused_update_cuda at
+    one bandwidth-bound leaf; each call's wall time (CUDA events, host work
+    included) and its kernel's device time (``torch.profiler``)."""
     import torch
     from repro_torch.kernels.prox import kernel as K
+    from repro_torch.kernels.prox import ops
     hp = dict(kind="mcp", lam=1e-4, alpha=0.05, theta=4.0)
     g = torch.Generator(device="cuda").manual_seed(29)
     big = [torch.randn(1 << 26, generator=g, device="cuda") * 0.01
            for _ in range(3)]
     out = {}
-    for label, leaves in (
-            ("tree_path", [(state.x[k], state.y[k], state.nu[k])
-                           for k in state.x]),
-            ("bandwidth", [tuple(big)])):
-        n_elem = sum(x.numel() for x, _, _ in leaves)
-
-        def run(fn):
-            return [fn(x, y, nu) for x, y, nu in leaves]
-
+    for label, (x, y, nu) in (
+            ("tree_path", (state.x, state.y, state.nu)),
+            ("bandwidth", ({"x": big[0]}, {"x": big[1]}, {"x": big[2]}))):
+        n_elem = sum(t.numel() for t in x.values())
+        xs, ys, nus = (list(t.values()) for t in (x, y, nu))
         fns = {"prox": (
-            lambda: run(lambda x, y, nu: (K.prox_cuda(x, **hp),)),
-            lambda: run(lambda x, y, nu: (K.prox_plain(x, **hp),))),
+            lambda: [list(ops.prox_tree(x, **hp).values())],
+            lambda: [K.prox_grouped_plain(xs, **hp)]),
             "fused_update": (
-            lambda: run(lambda x, y, nu: K.fused_update_cuda(
-                x, y, nu, gamma=0.8, **hp)),
-            lambda: run(lambda x, y, nu: K.fused_update_plain(
-                x, y, nu, gamma=0.8, **hp)))}
+            lambda: [list(t.values()) for t in ops.fused_update_tree(
+                x, y, nu, gamma=0.8, **hp)],
+            lambda: list(K.fused_update_grouped_plain(xs, ys, nus,
+                                                      gamma=0.8, **hp)))}
 
         def max_err(fk, fp):
             def err():
@@ -952,21 +956,24 @@ def phase_timing_prox(state) -> dict:
                 pairs = [(u, v) for pa, pb in zip(a, b)
                          for u, v in zip(pa, pb)]
                 for u, v in pairs:
-                    torch.testing.assert_close(
-                        u, v, atol=ATOL, rtol=RTOL,
-                        msg=lambda m: f"{label} timing shapes: {m}")
+                    if not bits_equal(u, v):
+                        raise AssertionError(f"{label} timing shapes: not "
+                                             "bit-equal to plain")
                 return max(float((u - v).abs().max()) for u, v in pairs)
             return err
 
-        entry = {"leaf_shapes": [list(x.shape) for x, _, _ in leaves],
-                 "launches_per_call": len(leaves)}
+        entry = {"leaf_shapes": [list(t.shape) for t in xs],
+                 "launches_per_call": 1}
         for name, (fk, fp) in fns.items():
             k, p_, e = _time_pair(fk, fp, max_err(fk, fp))
             bpe = 8 if name == "prox" else 5 * 4
             fpe = (UPDATE_FLOPS - 5) if name == "prox" else UPDATE_FLOPS
             b, by = _bound_ms(n_elem, bpe, fpe)
-            entry[name] = {"ms": k, "plain_ms": p_, "bound_ms": b,
-                           "bound_by": by, "max_abs_err": e}
+            kernel = "prox_kernel" if name == "prox" else "fused_update_kernel"
+            entry[name] = {"ms": k, "plain_ms": p_,
+                           "device_ms": _device_ms(fk, (kernel,)),
+                           "bound_ms": b, "bound_by": by,
+                           "share_of_bound": b / k, "max_abs_err": e}
         out[label] = entry
     del big
     return {"phase": "timing_prox", **out}
@@ -987,18 +994,21 @@ def _flash_bound_ms(B, L, H, KV, D, bytes_per_elem):
 
 def phase_timing_flash() -> dict:
     """Flash kernels vs the plain version vs scaled_dot_product_attention
-    (enable_gqa), causal: bf16 (the tensor-core kernel) at the served shape
-    and at L = 8192, fp32 (the CUDA-core kernel) at the served shape."""
+    (enable_gqa), causal: bf16 (the tensor-core kernel) and fp32 (the
+    CUDA-core kernel), each at the served shape and at L = 8192, in turns.
+    The plain version at fp32 L = 8192 (~4.3 GB of scores) is timed once."""
     import torch
     import torch.nn.functional as TF
     from repro_torch.kernels.flash_attention import kernel as F
     out = {}
     g = torch.Generator(device="cuda").manual_seed(31)
     served = (SERVE["batch"], SERVE["prompt"], 16, 8, 128)
+    long = (1, 8192, 16, 8, 128)
     for label, (B, L, H, KV, D), dtype, iters in (
             ("served", served, torch.bfloat16, 20),
-            ("long", (1, 8192, 16, 8, 128), torch.bfloat16, 5),
-            ("served_fp32", served, torch.float32, 20)):
+            ("long", long, torch.bfloat16, 5),
+            ("served_fp32", served, torch.float32, 20),
+            ("long_fp32", long, torch.float32, 5)):
         q = torch.randn((B, L, H, D), generator=g, device="cuda").to(dtype)
         k, v = (torch.randn((B, L, KV, D), generator=g, device="cuda")
                 .to(dtype) for _ in range(2))
@@ -1009,18 +1019,25 @@ def phase_timing_flash() -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
         a, b, c = kern(), plain(), sdpa()
+        others = [("plain", b), ("sdpa", c)]
         torch.cuda.synchronize()
         tol = FLASH_TOL[tname]
-        for name, o in (("plain", b), ("sdpa", c)):
+        for name, o in others:
             torch.testing.assert_close(
                 a, o, atol=tol, rtol=tol,
                 msg=lambda m: f"flash {label} kernel vs {name}: {m}")
         err = float((a.float() - b.float()).abs().max())
-        del a, b, c
+        del a, b, c, others
         times = {"ms": [], "plain_ms": [], "library_ms": []}
-        for name, fn in (("plain_ms", plain), ("ms", kern),
-                         ("library_ms", sdpa), ("library_ms", sdpa),
-                         ("ms", kern), ("plain_ms", plain)):
+        turns = [("plain_ms", plain), ("ms", kern), ("library_ms", sdpa),
+                 ("library_ms", sdpa), ("ms", kern), ("plain_ms", plain)]
+        once = label == "long_fp32"
+        for name, fn in turns:
+            if once and name == "plain_ms":
+                if not times[name]:
+                    times[name].append(time_ms(fn, iters=1, warmup=0))
+                    torch.cuda.empty_cache()
+                continue
             times[name].append(time_ms(fn, iters=iters, warmup=2))
         bound, by, flops = _flash_bound_ms(B, L, H, KV, D, q.element_size())
         ms = min(times["ms"])

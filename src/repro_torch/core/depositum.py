@@ -213,9 +213,21 @@ def _where(cond, new: Tree, old: Tree) -> Tree:
     return {k: torch.where(cond, new[k], old[k]) for k in new}
 
 
-def _hp_table(hp: Hyper, state: DepositumState) -> torch.Tensor:
-    """The (5,) kernel params row on the state's device."""
-    return hyper_param_vec(hp, device=next(iter(state.x.values())).device)
+def _round_scalars(hp: Hyper, state: DepositumState
+                   ) -> tuple[Hyper, torch.Tensor]:
+    """``hp`` on the state's device, as one (5,) row ``[lam, theta, alpha,
+    gamma, beta]`` (the kernels' params row) and a Hyper of 0-d views into
+    it, from one host-to-device copy.
+
+    The unfused step divides by these device scalars, so on the card each
+    division is a true tensor-by-tensor division, as in the reference and
+    the kernel (PyTorch's CUDA division by a CPU scalar multiplies by its
+    reciprocal instead).  Range checks keep reading the host Hyper.
+    """
+    vec = hyper_param_vec(hp, device=next(iter(state.x.values())).device)
+    lam, theta, alpha, gamma, beta = vec.unbind(-1)
+    return Hyper(alpha=alpha, beta=beta, gamma=gamma, lam=lam,
+                 theta=theta), vec
 
 
 def step(
@@ -246,16 +258,15 @@ def step(
         hp = config.hyper()
     else:
         hp = hyper
-    hp_vec = (_hp_table(hp, state) if config.fused_mode() != "off"
-              else None)
-    return _step(state, batch, grad_fn, config, mixer, is_comm_step, hp,
+    hp_dev, hp_vec = _round_scalars(hp, state)
+    return _step(state, batch, grad_fn, config, mixer, is_comm_step, hp_dev,
                  hp_vec, active_mask)
 
 
 def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
           active_mask):
-    """:func:`step` with the hyperparameters resolved: ``hp`` on the host,
-    ``hp_vec`` its kernel row already on the device (None when unfused)."""
+    """:func:`step` with the hyperparameters resolved and checked: ``hp``
+    and ``hp_vec`` from :func:`_round_scalars`, on the state's device."""
     _reject_later_slices(mixer)
     if state.comm:
         raise NotImplementedError(
@@ -373,7 +384,7 @@ def local_then_comm_round(
 
     ``batches`` is a dict whose leaves carry a leading dim of length T0
     (one minibatch per inner iteration).  The hyperparameters are checked
-    and their kernel row built once here, for the whole round.
+    and put on the state's device once here, for the whole round.
     ``active_mask`` freezes rows for every step of the round.
     """
     _reject_later_slices(mixer)
@@ -384,8 +395,7 @@ def local_then_comm_round(
     else:
         config.validate(hyper)
         hp = hyper
-    hp_vec = (_hp_table(hp, state) if config.fused_mode() != "off"
-              else None)
+    hp, hp_vec = _round_scalars(hp, state)
     take = lambda i: {k: v[i] for k, v in batches.items()}
     for i in range(T0 - 1):
         state, _ = _step(state, take(i), grad_fn, config, identity_mixer,
@@ -450,7 +460,7 @@ def stationarity_metrics(
     }
     ``weights`` is the padded-axis eligibility mask (n,).
     """
-    hp = config.hyper() if hyper is None else hyper
+    hp, _ = _round_scalars(config.hyper() if hyper is None else hyper, state)
     if weights is None:
         n = next(iter(state.x.values())).shape[0]
     else:

@@ -303,7 +303,16 @@ def get_prox(name: str, **kwargs) -> ProxOperator:
 # ---------------------------------------------------------------------------
 
 def prox_gradient(prox: ProxOperator, x: dict, grad: dict, alpha) -> dict:
-    """G^alpha(x, nu) = (x - prox_{alpha h}(x - alpha nu)) / alpha  (dict)."""
+    """G^alpha(x, nu) = (x - prox_{alpha h}(x - alpha nu)) / alpha  (dict).
+
+    The division is by ``alpha`` as a float32 0-d tensor on the leaves'
+    device, made once: on the card PyTorch divides a tensor by a CPU scalar
+    by multiplying with its reciprocal, which rounds differently.
+    """
+    if not x:
+        return {}
     shifted = {k: x[k] - alpha * grad[k] for k in x}
     proxed = prox.prox(shifted, alpha)
-    return {k: (x[k] - proxed[k]) / alpha for k in x}
+    div = torch.as_tensor(alpha, dtype=torch.float32,
+                          device=next(iter(x.values())).device)
+    return {k: (x[k] - proxed[k]) / div for k in x}

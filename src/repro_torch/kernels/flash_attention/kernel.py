@@ -14,7 +14,8 @@ from one route to another:
 * bf16 on CUDA: ``csrc/flash_fwd_sm90.cu``, the tensor-core kernel (wgmma,
   TMA loads into a ring of shared-memory stages);
 * fp32 on CUDA: ``csrc/flash_fwd.cu``, fp32 on the CUDA cores, the exact
-  path the fp32 models rely on;
+  path the fp32 models rely on (register-tiled Q K^T and P V, K/V tiles
+  streamed with ``cp.async``);
 * CPU: :func:`flash_attention_plain`;
 * anything else raises.
 

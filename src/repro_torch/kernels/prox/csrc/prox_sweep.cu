@@ -12,10 +12,11 @@
 //       update, which is fused_update_kernel's ungated instantiation on one
 //       leaf of one (1, 1, n) row with a (1, 5) table;
 //   * _prox_kernel           (via prox_pallas): the standalone prox of any
-//       leaf, prox_kernel below (entry point prox_apply).  It reads x and
-//       writes out, 8 B an element in fp32, ~8 flops: a byte-bound stream.
+//       leaf, prox_kernel below (entry point prox_apply_grouped).  It reads
+//       x and writes out, 8 B an element in fp32, ~8 flops: a byte-bound
+//       stream.
 //
-// Grouped launches.  The two sweep kernels take every leaf of a parameter
+// Grouped launches.  Every kernel here takes every leaf of a parameter
 // tree in ONE launch (per dtype, per kMaxLeaves leaves).  A leaf table goes
 // to the kernel by value, as a __grid_constant__ parameter: per leaf its
 // operand and output pointers, d (elements of one (s, c) row), its first
@@ -32,6 +33,11 @@
 // bit for bit, without reading the operands it does not need.  Loads are
 // float4 where the leaf's vec flag says so (fp32, d % 4 == 0 and all five
 // pointers 16-byte aligned), otherwise scalar, masked at the tile's end.
+// The standalone prox and the one-config update walk the same table with
+// one row a leaf (a whole leaf of any shape is one row of d elements) and
+// one (1, 5) parameter row for the whole call; the prox reads in[0] and
+// writes out[0] only.
+//
 // The paper's MLP step (six leaves of 7,872 / 64 / 2,048 / 32 / 320 / 10
 // elements a client, 10 clients) is 14 tiles a row x 10 rows = 140 blocks,
 // about one wave on 132 SMs.  The host packs the table into a reused
@@ -39,7 +45,7 @@
 // the device and nothing is allocated here, so the launches can be
 // captured in a CUDA graph.
 //
-// Bound on an H100 (3.35 TB/s HBM3): both kernels are pure streams with ~10
+// Bound on an H100 (3.35 TB/s HBM3): the kernels are pure streams with ~10
 // flops per element, far below the 67 TFLOP/s fp32 rate, so bytes bound
 // them.  The update moves 5 x 4 B per fp32 element (read x, y, nu; write
 // x', nu'), tracking 4 x 4 B (5 x 4 B gated: g_kept is written too).  At
@@ -73,7 +79,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads * 4;  // elements of one row a block takes
 constexpr int kMaxLeaves = 48;       // leaves in one launch's table
-constexpr int kMaxBlocksX = 1024;    // prox_kernel: grid-stride beyond this
 
 enum Kind { kL1 = 0, kMcp = 1, kScad = 2 };
 
@@ -291,25 +296,27 @@ tracking_kernel(const __grid_constant__ LeafTable t,
   }
 }
 
-// Standalone prox of a flat leaf of n elements; params is a 5-wide table
-// row [lam, theta, alpha, gamma, beta] of which lam, theta, alpha are read.
-template <typename T, int K, bool VEC>
+// Standalone prox of every leaf of a table (one row a leaf); params is one
+// 5-wide row [lam, theta, alpha, gamma, beta] of which lam, theta, alpha
+// are read.
+template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-prox_kernel(const T* __restrict__ x, const float* __restrict__ params,
-            T* __restrict__ out, long long n) {
+prox_kernel(const __grid_constant__ LeafTable t,
+            const float* __restrict__ params) {
+  const Place p = place_of(t);
+  const Leaf& L = t.leaf[p.leaf];
+  const T* __restrict__ x = static_cast<const T*>(L.in[0]) + p.off;
+  T* __restrict__ out = static_cast<T*>(L.out[0]) + p.off;
   const UpdateConsts c = load_consts(params);
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  if (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (long long i = tid; i < n / 4; i += stride) {
-      const float4 a = x4[i];
-      o4[i] = make_float4(prox<K>(a.x, c), prox<K>(a.y, c), prox<K>(a.z, c),
-                          prox<K>(a.w, c));
+  const int i = threadIdx.x;
+  if (std::is_same<T, float>::value && L.vec) {
+    if (i < p.n / 4) {
+      const float4 a = reinterpret_cast<const float4*>(x)[i];
+      reinterpret_cast<float4*>(out)[i] = make_float4(
+          prox<K>(a.x, c), prox<K>(a.y, c), prox<K>(a.z, c), prox<K>(a.w, c));
     }
   } else {
-    for (long long i = tid; i < n; i += stride) out[i] = from_f<T>(prox<K>(to_f(x[i]), c));
+    for (int j = i; j < p.n; j += kThreads) out[j] = from_f<T>(prox<K>(to_f(x[j]), c));
   }
 }
 
@@ -362,36 +369,18 @@ int tracking_gate(const LeafTable& t, const void* params, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K, bool VEC>
-int launch_prox(const void* x, const void* params, void* out, long long n,
-                cudaStream_t stream) {
-  const long long per_block = static_cast<long long>(kThreads) * (VEC ? 4 : 1);
-  long long blocks = (n + per_block - 1) / per_block;
-  if (blocks > kMaxBlocksX) blocks = kMaxBlocksX;
-  prox_kernel<T, K, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(params),
-      static_cast<T*>(out), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int K>
-int prox_vec(int vec, const void* x, const void* params, void* out,
-             long long n, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (vec) return launch_prox<T, K, true>(x, params, out, n, st);
-  }
-  return launch_prox<T, K, false>(x, params, out, n, st);
-}
-
 template <typename T>
-int prox_kind(int kind, int vec, const void* x, const void* params, void* out,
-              long long n, cudaStream_t st) {
+int prox_kind(int kind, const LeafTable& t, const void* params,
+              long long blocks, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const float* p = static_cast<const float*>(params);
   switch (kind) {
-    case kL1: return prox_vec<T, kL1>(vec, x, params, out, n, st);
-    case kMcp: return prox_vec<T, kMcp>(vec, x, params, out, n, st);
-    case kScad: return prox_vec<T, kScad>(vec, x, params, out, n, st);
+    case kL1: prox_kernel<T, kL1><<<grid, kThreads, 0, st>>>(t, p); break;
+    case kMcp: prox_kernel<T, kMcp><<<grid, kThreads, 0, st>>>(t, p); break;
+    case kScad: prox_kernel<T, kScad><<<grid, kThreads, 0, st>>>(t, p); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -426,13 +415,21 @@ int prox_sweep_tracking_grouped(const void* leaves, int n, const void* params,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Standalone prox of n elements.  vec = 1 only for float32 with n % 4 == 0
-// and 16-byte-aligned pointers.
-int prox_apply(const void* x, const void* params, void* out, long long n,
-               int kind, int dtype, int vec, void* stream) {
+// One grouped launch of the standalone prox over the n leaves at `leaves`
+// (one row each: in[0] is x, out[0] the result), all of one dtype;
+// params: one (1, 5) row for the whole call.  The grid is the table's own:
+// the last leaf's first block plus its tiles.
+int prox_apply_grouped(const void* leaves, int n, const void* params,
+                       int kind, int dtype, void* stream) {
+  if (!leaves || n < 1 || n > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  Leaf last;
+  std::memcpy(&last, static_cast<const Leaf*>(leaves) + (n - 1), sizeof(Leaf));
+  const long long blocks = last.first + (last.d + kTile - 1) / kTile;
+  LeafTable t;
+  if (!table_from(leaves, n, 1, blocks, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return prox_kind<float>(kind, vec, x, params, out, n, st);
-  if (dtype == 1 && !vec) return prox_kind<__nv_bfloat16>(kind, 0, x, params, out, n, st);
+  if (dtype == 0) return prox_kind<float>(kind, t, params, blocks, st);
+  if (dtype == 1) return prox_kind<__nv_bfloat16>(kind, t, params, blocks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

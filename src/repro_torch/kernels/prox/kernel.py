@@ -14,17 +14,19 @@ grouped launch over every leaf of a tree:
 * :func:`fused_update_sweep_cuda` / :func:`fused_tracking_sweep_cuda` are
   the same launches over a tree of one leaf.
 
-and the one-config pair:
+and the one-config pair, each one grouped launch over every leaf of a
+tree of any shapes (one row a leaf):
 
-* :func:`prox_cuda` replaces ``prox_pallas`` (``_prox_kernel``): the
-  standalone elementwise prox of a leaf of any shape;
-* :func:`fused_update_cuda` replaces ``fused_update_pallas``
+* :func:`prox_grouped` replaces ``prox_pallas`` (``_prox_kernel``), which
+  the reference calls once a leaf: the standalone elementwise prox;
+* :func:`fused_update_grouped` replaces ``fused_update_pallas``
   (``_fused_kernel``): the fused momentum + prox update of one config,
-  which is the sweep update kernel's ungated instantiation on one leaf of
-  one row.  Both take ``lam, theta, alpha[, gamma]`` as Python floats or
-  0-d tensors; they travel to the kernel as a (1, 5) table row on the
-  operand's device, so a new value never rebuilds and a device tensor is
-  never read back.
+  which is the sweep update kernel's ungated instantiation;
+* :func:`prox_cuda` / :func:`fused_update_cuda` are the same launches over
+  a tree of one leaf.  All four take ``lam, theta, alpha[, gamma]`` as
+  Python floats or 0-d tensors; they travel to the kernel as one (1, 5)
+  table row a call on the operands' device, so a new value never rebuilds
+  and a device tensor is never read back.
 
 Sweep operands are ``(S, C, *p)`` tensors (S stacked configs, C clients), the
 hyperparameters an ``(S, 5)`` float32 table ``[lam, theta, alpha, gamma,
@@ -118,8 +120,8 @@ def _lib() -> ctypes.CDLL:
     lib.prox_sweep_update_grouped.restype = i
     lib.prox_sweep_tracking_grouped.argtypes = [p, i, p, p, i, ll, i, p]
     lib.prox_sweep_tracking_grouped.restype = i
-    lib.prox_apply.argtypes = [p] * 3 + [ll, i, i, i, p]
-    lib.prox_apply.restype = i
+    lib.prox_apply_grouped.argtypes = [p, i, p, i, i, p]
+    lib.prox_apply_grouped.restype = i
     return lib
 
 
@@ -163,11 +165,11 @@ def _check(name, operands, params, mask):
 def _check_group(name, leaves, params, mask, lead):
     """:func:`_check` over a whole tree in one pass.
 
-    ``leaves`` holds each leaf's three operands.  Every leaf's operands
-    agree in shape and dtype and are contiguous, all leaves lie on one
-    device and share their first ``lead`` axes: ``(S, C)`` for lead 2,
-    ``(C,)`` of one config (S = 1) for lead 1, one row for lead 0.
-    Returns (S, C, elements a row of each leaf, each leaf's dtype).
+    ``leaves`` holds each leaf's operands (three, or the prox's one).
+    Every leaf's operands agree in shape and dtype and are contiguous, all
+    leaves lie on one device and share their first ``lead`` axes: ``(S,
+    C)`` for lead 2, ``(C,)`` of one config (S = 1) for lead 1, one row for
+    lead 0.  Returns (S, C, elements a row of each leaf, each leaf's dtype).
     """
     a0 = leaves[0][0]
     if a0.ndim < lead:
@@ -178,15 +180,14 @@ def _check_group(name, leaves, params, mask, lead):
     for n in head:
         rows *= n
     ds, dts = [], []
-    for a, b, c in leaves:
+    for ops in leaves:
+        a = ops[0]
         shape, dtype = a.shape, a.dtype
-        if (a.device != device or b.shape != shape or c.shape != shape
-                or b.dtype != dtype or c.dtype != dtype
-                or b.device != device or c.device != device):
+        if any(o.shape != shape or o.dtype != dtype or o.device != device
+               for o in ops):
             raise ValueError(f"{name}: operands differ in shape, dtype or "
                              "device")
-        if not (a.is_contiguous() and b.is_contiguous()
-                and c.is_contiguous()):
+        if not all(o.is_contiguous() for o in ops):
             raise ValueError(f"{name}: operands must be contiguous")
         if dtype not in _DTYPES:
             raise TypeError(f"{name}: dtype {dtype} not in "
@@ -205,12 +206,6 @@ def _check_group(name, leaves, params, mask, lead):
 def _check_kind(kind):
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
-
-
-def _vec_ok(d: int, *tensors) -> int:
-    """float4 loads need fp32, d % 4 == 0 and 16-byte-aligned rows."""
-    return int(tensors[0].dtype == torch.float32 and d % 4 == 0
-               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _col(params: torch.Tensor, j: int, ndim: int) -> torch.Tensor:
@@ -320,12 +315,13 @@ def _buffer(nbytes, dtypes, device):
 def _launch_grouped(name, key, leaves, params, mask, lead, kind=None):
     """Check, allocate and launch one grouped call on the card.
 
-    ``leaves`` holds each leaf's (a, b, c) operands; ``kind`` None is the
-    tracking axpy.  Returns the two outputs' lists of leaves; ungated
+    ``leaves`` holds each leaf's (a, b, c) operands, or for ``key`` "prox"
+    its one operand x; ``kind`` None is the tracking axpy.  Returns the
+    outputs' lists of leaves: the prox's one, the others' two; ungated
     tracking returns the ``b`` leaves (g_new) themselves as the second.
     """
     S, C, ds, dts = _check_group(name, leaves, params, mask, lead)
-    tracking, gated = kind is None, mask is not None
+    prox, tracking, gated = key == "prox", kind is None, mask is not None
     if not tracking:
         _check_kind(kind)
     device, rows = leaves[0][0].device, S * C
@@ -333,8 +329,11 @@ def _launch_grouped(name, key, leaves, params, mask, lead, kind=None):
         [rows * d * dt.itemsize for d, dt in zip(ds, dts)])
     views, base0 = _buffer(total, dts, device)
     first = [views[dt].as_strided(a.shape, a.stride(), off // dt.itemsize)
-             for (a, _, _), off, dt in zip(leaves, offsets, dts)]
-    if gated or not tracking:            # a second output to write
+             for (a, *_), off, dt in zip(leaves, offsets, dts)]
+    if prox:                             # one output
+        ptrs = [(a.data_ptr(), 0, 0, base0 + off, 0)
+                for (a,), off in zip(leaves, offsets)]
+    elif gated or not tracking:          # a second output to write
         views, base1 = _buffer(total, dts, device)
         second = [views[dt].as_strided(a.shape, a.stride(),
                                        off // dt.itemsize)
@@ -345,22 +344,30 @@ def _launch_grouped(name, key, leaves, params, mask, lead, kind=None):
         second = [b for _, b, _ in leaves]      # g_kept is g_new itself
         ptrs = [(a.data_ptr(), b.data_ptr(), c.data_ptr(), base0 + off, 0)
                 for (a, b, c), off in zip(leaves, offsets)]
-    outs = (first, second)
+    outs = (first,) if prox else (first, second)
     words, launches = leaf_tables(rows, ds, dts, ptrs)
     if not launches:
         return outs
     addr = _packed(words)
     lib = _lib()
-    fn = (lib.prox_sweep_tracking_grouped if tracking
-          else lib.prox_sweep_update_grouped)
-    extra = () if tracking else (KINDS[kind],)
     p_ptr, m_ptr = params.data_ptr(), mask.data_ptr() if gated else None
+    if prox:       # the table fixes the grid; no mask, C or block count
+        def fn(table, n, blocks, dtype, stream):
+            return lib.prox_apply_grouped(table, n, p_ptr, KINDS[kind],
+                                          dtype, stream)
+    else:
+        entry = (lib.prox_sweep_tracking_grouped if tracking
+                 else lib.prox_sweep_update_grouped)
+        extra = () if tracking else (KINDS[kind],)
+
+        def fn(table, n, blocks, dtype, stream):
+            return entry(table, n, p_ptr, m_ptr, C, blocks, *extra, dtype,
+                         stream)
     with torch.cuda.device(device):
         stream = _stream_ptr(device)
         for ln in launches:
             err = fn(addr + ln.start * LEAF_WORDS * 8, ln.stop - ln.start,
-                     p_ptr, m_ptr, C, ln.blocks, *extra, _DTYPES[ln.dtype],
-                     stream)
+                     ln.blocks, _DTYPES[ln.dtype], stream)
             if err != 0:
                 raise RuntimeError(f"{name} grouped launch failed: CUDA "
                                    f"error {err}")
@@ -539,81 +546,113 @@ def hyper_row(like: torch.Tensor, lam, theta, alpha, gamma=0.0) -> torch.Tensor:
                         for v in vals])[None]
 
 
-def _check_leaf(name, operands):
-    a = operands[0]
-    for o in operands:
-        if o.shape != a.shape or o.dtype != a.dtype or o.device != a.device:
-            raise ValueError(f"{name}: operands differ in shape, dtype or "
-                             "device")
-    if a.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {a.dtype} not in "
-                        f"{sorted(map(str, _DTYPES))}")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {a.device}")
+def prox_grouped_plain(xs, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
+    """Plain PyTorch version of :func:`prox_grouped`: ``ref.py``'s prox in
+    float32 on the table row's values, cast back once, leaf by leaf."""
+    xs = [x.contiguous() for x in xs]
+    if not xs:
+        return []
+    row = hyper_row(xs[0], lam, theta, alpha)
+    _check_group("prox", [(x,) for x in xs], row, None, 0)
+    _check_kind(kind)
+    r = row[0]
+    return [prox_ref(x.to(torch.float32), kind, r[0], r[1], r[2]).to(x.dtype)
+            for x in xs]
+
+
+def prox_grouped(xs, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
+    """prox_{alpha h} of every leaf of a tree, h in l1 | mcp | scad.
+
+    ``xs``: leaves of any shapes, fp32 or bf16, on one device.  On the card
+    one launch per dtype (and per ``MAX_LEAVES`` leaves) with one (1, 5)
+    row for the call; the results are views of one allocation.  CPU
+    tensors run :func:`prox_grouped_plain`.  Returns a list.
+    """
+    xs = [x.contiguous() for x in xs]
+    if not xs or xs[0].device.type != "cuda":
+        return prox_grouped_plain(xs, kind=kind, lam=lam, theta=theta,
+                                  alpha=alpha)
+    row = hyper_row(xs[0], lam, theta, alpha)
+    (outs,) = _launch_grouped("prox", "prox", [(x,) for x in xs], row, None,
+                              0, kind)
+    return outs
 
 
 def prox_plain(x, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
-    """Plain PyTorch version of :func:`prox_cuda`: ``ref.py``'s prox in
-    float32 on the table row's values, cast back once."""
-    _check_leaf("prox", (x,))
-    _check_kind(kind)
-    row = hyper_row(x, lam, theta, alpha)[0]
-    out = prox_ref(x.to(torch.float32), kind, row[0], row[1], row[2])
-    return out.to(x.dtype)
+    """Plain PyTorch version of :func:`prox_cuda`."""
+    return prox_grouped_plain([x], kind=kind, lam=lam, theta=theta,
+                              alpha=alpha)[0]
 
 
 def prox_cuda(x, *, kind="l1", lam=1e-4, theta=4.0, alpha=0.1):
-    """prox_{alpha h}(x) for h in l1 | mcp | scad, any shape, fp32 or bf16.
+    """prox_{alpha h}(x) for h in l1 | mcp | scad, any shape, fp32 or bf16:
+    the grouped launch over a tree of one leaf.
 
     CUDA tensors launch the kernel, CPU tensors run :func:`prox_plain`.
     """
-    if x.device.type != "cuda":
-        return prox_plain(x, kind=kind, lam=lam, theta=theta, alpha=alpha)
-    _check_leaf("prox", (x,))
+    return prox_grouped([x], kind=kind, lam=lam, theta=theta,
+                        alpha=alpha)[0]
+
+
+def fused_update_grouped_plain(xs, ys, nus, *, kind="l1", lam=1e-4,
+                               theta=4.0, alpha=0.1, gamma=0.8):
+    """Plain PyTorch version of :func:`fused_update_grouped`.  Returns (x'
+    leaves, nu' leaves)."""
+    leaves = [tuple(t.contiguous() for t in ops)
+              for ops in zip(xs, ys, nus)]
+    if not leaves:
+        return [], []
+    row = hyper_row(leaves[0][0], lam, theta, alpha, gamma)
+    _check_group("fused_update", leaves, row, None, 0)
     _check_kind(kind)
-    xc = x.contiguous()
-    out = torch.empty_like(xc)
-    n = xc.numel()
-    if n == 0:
-        return out
-    row = hyper_row(xc, lam, theta, alpha)
-    lib = _lib()
-    with torch.cuda.device(xc.device):
-        err = lib.prox_apply(xc.data_ptr(), row.data_ptr(), out.data_ptr(),
-                             n, KINDS[kind], _DTYPES[xc.dtype],
-                             _vec_ok(n, xc, out), _stream_ptr(xc.device))
-    if err != 0:
-        raise RuntimeError(f"prox_apply launch failed: CUDA error {err}")
-    LAUNCH_COUNTS["prox"] += 1
-    return out
+    r = row[0]
+    f = lambda t: t.to(torch.float32)
+    outs = [fused_update_ref(f(x), f(y), f(nu), r[0], r[2], r[3],
+                             prox_kind=kind, theta=r[1])
+            for x, y, nu in leaves]
+    return ([o[0].to(x.dtype) for o, (x, _, _) in zip(outs, leaves)],
+            [o[1].to(nu.dtype) for o, (_, _, nu) in zip(outs, leaves)])
+
+
+def fused_update_grouped(xs, ys, nus, *, kind="l1", lam=1e-4, theta=4.0,
+                         alpha=0.1, gamma=0.8):
+    """Fused momentum + prox of one config over every leaf of a tree.
+
+    Leaves of any shapes, fp32 or bf16, on one device; each leaf's x, y
+    and nu agree in shape and dtype.  On the card the sweep update kernel
+    runs ungated, one row a leaf, one launch per dtype (and per
+    ``MAX_LEAVES`` leaves) with one (1, 5) row; CPU tensors run
+    :func:`fused_update_grouped_plain`.  Returns (x' leaves, nu' leaves).
+    """
+    leaves = [tuple(t.contiguous() for t in ops)
+              for ops in zip(xs, ys, nus)]
+    if not leaves or leaves[0][0].device.type != "cuda":
+        return fused_update_grouped_plain(xs, ys, nus, kind=kind, lam=lam,
+                                          theta=theta, alpha=alpha,
+                                          gamma=gamma)
+    row = hyper_row(leaves[0][0], lam, theta, alpha, gamma)
+    return _launch_grouped("fused_update", "fused_update", leaves, row, None,
+                           0, kind)
 
 
 def fused_update_plain(x, y, nu, *, kind="l1", lam=1e-4, theta=4.0,
                        alpha=0.1, gamma=0.8):
     """Plain PyTorch version of :func:`fused_update_cuda`.  Returns
     (x', nu')."""
-    _check_leaf("fused_update", (x, y, nu))
-    _check_kind(kind)
-    row = hyper_row(x, lam, theta, alpha, gamma)[0]
-    f = lambda t: t.to(torch.float32)
-    x_next, nu_next = fused_update_ref(f(x), f(y), f(nu), row[0], row[2],
-                                       row[3], prox_kind=kind, theta=row[1])
-    return x_next.to(x.dtype), nu_next.to(nu.dtype)
+    xs, nus = fused_update_grouped_plain([x], [y], [nu], kind=kind, lam=lam,
+                                         theta=theta, alpha=alpha,
+                                         gamma=gamma)
+    return xs[0], nus[0]
 
 
 def fused_update_cuda(x, y, nu, *, kind="l1", lam=1e-4, theta=4.0,
                       alpha=0.1, gamma=0.8):
-    """Fused momentum + prox of one config, any shape.  Returns (x', nu').
+    """Fused momentum + prox of one config, any shape: the grouped launch
+    over a tree of one leaf.  Returns (x', nu').
 
-    CUDA tensors launch the sweep update kernel, ungated, over one leaf of
-    one row with a (1, 5) table; CPU tensors run :func:`fused_update_plain`.
+    CUDA tensors launch the kernel, CPU tensors run
+    :func:`fused_update_plain`.
     """
-    if x.device.type != "cuda":
-        return fused_update_plain(x, y, nu, kind=kind, lam=lam, theta=theta,
-                                  alpha=alpha, gamma=gamma)
-    _check_kind(kind)
-    xc, yc, nc = (t.contiguous() for t in (x, y, nu))
-    row = hyper_row(xc, lam, theta, alpha, gamma)
-    xs, nus = _launch_grouped("fused_update", "fused_update", [(xc, yc, nc)],
-                              row, None, 0, kind)
+    xs, nus = fused_update_grouped([x], [y], [nu], kind=kind, lam=lam,
+                                   theta=theta, alpha=alpha, gamma=gamma)
     return xs[0], nus[0]

@@ -2,8 +2,10 @@
 
 Port of ``repro/kernels/prox/ops.py``:
 
-* :func:`prox_tree` / :func:`fused_update_tree` apply the one-config
-  kernels leafwise over dicts of tensors of any shape;
+* :func:`prox_tree` / :func:`fused_update_tree` run the one-config
+  kernels over dicts of tensors of any shape: on the card one grouped
+  launch for every leaf (per dtype), where the reference launches once a
+  leaf;
 * ``fused_update_sweep_tree`` / ``fused_tracking_sweep_tree`` run a sweep
   kernel over dicts of explicit ``(S, C, ...)`` leaves: on the card one
   grouped launch for every leaf (per dtype), where the reference launches
@@ -21,28 +23,30 @@ import torch
 
 from repro_torch.kernels.prox.kernel import (
     fused_tracking_sweep_grouped,
-    fused_update_cuda,
+    fused_update_grouped,
     fused_update_sweep_grouped,
-    prox_cuda,
+    prox_grouped,
 )
 from repro_torch.obs.trace import annotate
 
 
 def prox_tree(tree, *, kind: str, lam, alpha, theta=4.0):
-    """Apply the prox kernel leafwise over a dict of tensors."""
-    return {k: prox_cuda(v, kind=kind, lam=lam, theta=theta, alpha=alpha)
-            for k, v in tree.items()}
+    """The prox kernel over a dict of tensors (one grouped call)."""
+    keys = list(tree)
+    return dict(zip(keys, prox_grouped([tree[k] for k in keys], kind=kind,
+                                       lam=lam, theta=theta, alpha=alpha)))
 
 
 def fused_update_tree(x_tree, y_tree, nu_tree, *, kind: str, lam, alpha,
                       gamma, theta=4.0):
-    """Fused DEPOSITUM local update over dicts.  Returns (x', nu')."""
-    xs, nus = {}, {}
-    for k in x_tree:
-        xs[k], nus[k] = fused_update_cuda(
-            x_tree[k], y_tree[k], nu_tree[k], kind=kind, lam=lam,
-            theta=theta, alpha=alpha, gamma=gamma)
-    return xs, nus
+    """Fused DEPOSITUM local update over dicts (one grouped call).  Returns
+    (x', nu')."""
+    keys = list(x_tree)
+    xs, nus = fused_update_grouped(
+        [x_tree[k] for k in keys], [y_tree[k] for k in keys],
+        [nu_tree[k] for k in keys], kind=kind, lam=lam, theta=theta,
+        alpha=alpha, gamma=gamma)
+    return dict(zip(keys, xs)), dict(zip(keys, nus))
 
 
 def fused_update_sweep_tree(x_tree, y_tree, nu_tree, params, mask=None, *,

@@ -227,3 +227,47 @@ def test_later_slices_and_missing_cuda_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             tdep.init(params_from_numpy(params_np, device="cpu"), C)
+
+
+@pytest.mark.parametrize("fused", ["off", "require"])
+def test_round_divides_by_scalars_on_the_state_device(fused, monkeypatch):
+    """Every step of a round gets its Hyper as 0-d views of the one (5,)
+    row on the state's device (so the unfused prox divides tensor by
+    tensor on the card), and the unfused round still matches the
+    reference at TOL."""
+    _, state_np, batches = _problem()
+    W = mixing_matrix("ring", C)
+    kw = _cfg(fused=fused)
+    seen = []
+    step = tdep._step
+
+    def spy(state, batch, grad_fn, config, mixer, is_comm, hp, hp_vec,
+            mask):
+        seen.append((hp, hp_vec))
+        return step(state, batch, grad_fn, config, mixer, is_comm, hp,
+                    hp_vec, mask)
+
+    monkeypatch.setattr(tdep, "_step", spy)
+    st = state_from_numpy(state_np, device="cpu")
+    ts, _ = tdep.local_then_comm_round(
+        st, {k: torch.from_numpy(v) for k, v in batches.items()},
+        _t_grad_fn(), tdep.DepositumConfig(**kw),
+        TPlan.dense(W, device="cpu"))
+    assert len(seen) == T0
+    hp, vec = seen[0]
+    assert all(h is hp and v is vec for h, v in seen)      # once a round
+    assert vec.shape == (5,) and vec.device == st.x["l0.w"].device
+    host = tdep.DepositumConfig(**kw).hyper()
+    for name, col in (("lam", 0), ("theta", 1), ("alpha", 2), ("gamma", 3),
+                      ("beta", 4)):
+        leaf = getattr(hp, name)
+        assert leaf.ndim == 0 and leaf.device == vec.device
+        assert leaf.untyped_storage().data_ptr() == \
+            vec.untyped_storage().data_ptr()
+        assert float(leaf) == float(vec[col]) == float(getattr(host, name))
+    j_round = jax.jit(functools.partial(
+        jdep.local_then_comm_round, grad_fn=_j_grad_fn(),
+        config=jdep.DepositumConfig(**kw), mixer=JPlan.dense(W)))
+    js, _ = j_round(_j_state(state_np),
+                    {k: jnp.asarray(v) for k, v in batches.items()})
+    _assert_state_close(ts, js)

@@ -12,7 +12,9 @@ divisibility assert refuses, are held against ``attention_ref`` only.  The
 CUDA kernels themselves are held to the plain version by
 ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py`` on the card;
 ``_sm90_model`` below repeats the bf16 kernel's arithmetic on the CPU, so
-that its rounding is held to the reference here as well.
+that its rounding is held to the reference here as well; ``fp32_schedule``
+and ``_fp32_model`` repeat the fp32 kernel's tile schedule and masks, held
+against a brute-force mask and the plain version.
 """
 import math
 
@@ -196,3 +198,130 @@ def test_dispatch_and_checks():
         fk.flash_attention(q, k.double(), v)
     with pytest.raises(TypeError, match="dtype"):
         fk.flash_attention(q.double(), k.double(), v.double())
+
+
+# the fp32 kernel's tiles (csrc/flash_fwd.cu) for each head dim: query
+# rows a CTA, and keys a K/V tile
+FP32_BQ = {64: 128, 128: 128, 256: 64}
+FP32_BK = {64: 64, 128: 64, 256: 32}
+
+
+def fp32_schedule(Lq: int, Lk: int, D: int, *, causal: bool = True,
+                  window: int = 0) -> list[tuple[int, int, int, set]]:
+    """The fp32 kernel's schedule of one (batch, head), as the card runs it.
+
+    One ``(qt, kt_begin, kt_end, masked)`` a query tile of ``FP32_BQ[D]``
+    rows,
+    in launch order (the grid takes the last, heaviest tile first): the
+    K/V tiles ``[kt_begin, kt_end)`` of ``FP32_BK[D]`` keys it walks (those
+    that meet the causal / window band) and the set of them it masks
+    element by element (they cross the diagonal, the window's edge or the
+    end of the keys).  A model of ``flash_fwd.cu``, which computes the same bounds on the card.
+    """
+    BQ, BK = FP32_BQ[D], FP32_BK[D]
+    nq, nk = -(-Lq // BQ), -(-Lk // BK)
+    plan = []
+    for qt in reversed(range(nq)):
+        q0, begin, end = qt * BQ, 0, nk
+        if causal:
+            end = min(nk, (min(q0 + BQ, Lq) - 1) // BK + 1)
+            if window > 0 and q0 - window + 1 > 0:
+                begin = (q0 - window + 1) // BK
+        masked = {kt for kt in range(begin, end)
+                  if kt * BK + BK > Lk or (causal and (
+                      kt * BK + BK - 1 > q0
+                      or (window > 0 and kt * BK <= q0 + BQ - 1 - window)))}
+        plan.append((qt, begin, end, masked))
+    return plan
+
+
+# (Lq, Lk, D, causal, window): tile edges, ragged ends, Lq != Lk both ways,
+# windows narrower and wider than a tile, rows with no visible key
+SCHEDULE_CASES = [(1, 1, 64, True, 0), (65, 65, 64, True, 0),
+                  (200, 200, 128, True, 64), (40, 17, 128, True, 0),
+                  (17, 200, 256, True, 0), (256, 64, 64, True, 64),
+                  (130, 70, 256, False, 0), (300, 300, 256, True, 100),
+                  (129, 129, 128, True, 4096), (191, 250, 64, True, 31)]
+
+
+def _visible(Lq, Lk, causal, window):
+    i = np.arange(Lq)[:, None]
+    j = np.arange(Lk)[None, :]
+    vis = np.ones((Lq, Lk), bool)
+    if causal:
+        vis &= j <= i
+        if window > 0:
+            vis &= j > i - window
+    return vis
+
+
+@pytest.mark.parametrize("Lq,Lk,D,causal,window", SCHEDULE_CASES)
+def test_fp32_schedule_against_a_brute_force_mask(Lq, Lk, D, causal, window):
+    """Every query tile once, heaviest first when causal; its key tiles
+    hold every visible key of its rows; an unmasked tile has only visible
+    keys of real rows (a row past Lq is never written)."""
+    BQ, BK = FP32_BQ[D], FP32_BK[D]
+    vis = _visible(Lq, Lk, causal, window)
+    plan = fp32_schedule(Lq, Lk, D, causal=causal, window=window)
+    assert [p[0] for p in plan] == list(reversed(range(-(-Lq // BQ))))
+    if causal and window == 0:
+        work = [p[2] - p[1] for p in plan]
+        assert work == sorted(work, reverse=True)
+    for qt, begin, end, masked in plan:
+        rows = vis[qt * BQ:(qt + 1) * BQ]
+        cols = np.nonzero(rows.any(axis=0))[0]
+        if len(cols):
+            assert begin <= cols[0] // BK and cols[-1] // BK < end
+        assert masked <= set(range(begin, end))
+        for kt in set(range(begin, end)) - masked:
+            assert kt * BK + BK <= Lk
+            assert rows[:, kt * BK:(kt + 1) * BK].all()
+
+
+def _fp32_model(q, k, v, causal, window):
+    """The fp32 kernel's walk on the CPU: the tiles of ``fp32_schedule``,
+    K/V zero-filled to whole tiles, a mask only on the tiles it names,
+    the online softmax tile by tile."""
+    B, Lq, H, D = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    BQ, BK = FP32_BQ[D], FP32_BK[D]
+    pad = -(-Lk // BK) * BK - Lk
+    kp, vp = (torch.cat([t, t.new_zeros((B, pad, KV, D))], 1) for t in (k, v))
+    qg = q.reshape(B, Lq, KV, H // KV, D)
+    out = torch.zeros((B, Lq, KV, H // KV, D))
+    vis = torch.from_numpy(_visible(Lq, kp.shape[1], causal, window))
+    vis[:, Lk:] = False
+    for qt, begin, end, masked in fp32_schedule(Lq, Lk, D, causal=causal,
+                                                   window=window):
+        rows = slice(qt * BQ, min(qt * BQ + BQ, Lq))
+        m = torch.full(qg[:, rows].shape[:-1], fk.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qg[:, rows].shape)
+        for kt in range(begin, end):
+            keys = slice(kt * BK, kt * BK + BK)
+            s = torch.einsum("bikgd,bjkd->bikgj", qg[:, rows],
+                             kp[:, keys]) / math.sqrt(D)
+            ok = (vis[rows, keys][None, :, None, None, :] if kt in masked
+                  else torch.ones(s.shape, dtype=torch.bool))
+            s = torch.where(ok, s, fk.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.where(m == fk.NEG_INF, 0.0, torch.exp(m - m_new))
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + torch.einsum("bikgj,bjkd->bikgd",
+                                                        p, vp[:, keys])
+            m = m_new
+        out[:, rows] = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, Lq, H, D)
+
+
+@pytest.mark.parametrize("Lq,Lk,D,causal,window", SCHEDULE_CASES)
+def test_fp32_kernel_walk_matches_plain(Lq, Lk, D, causal, window):
+    """The kernel's schedule and masks, run on the CPU, give the plain
+    version's attention at the fp32 tolerance (rows with no visible key
+    come out 0 in both)."""
+    q, k, v = _t(*_qkv(Lq + Lk + D, 1, Lq, 4, 2, D, Lk=Lk))
+    torch.testing.assert_close(
+        _fp32_model(q, k, v, causal, window),
+        fk.flash_attention_plain(q, k, v, causal=causal, window=window),
+        **F32)

@@ -40,6 +40,7 @@ TABLE = dict(lam=[1e-3, 1e-2], theta=4.0, alpha=[0.05, 0.2],
 MASK = np.array([[1, 0, 1], [0, 0, 0]], np.float32)   # config 1 all frozen
 # the paper's Fig. 4 MLP (123 -> 64 -> 32 -> 10) leaves, elements a client
 MLP_DS = (7872, 64, 2048, 32, 320, 10)
+MLP_SHAPES = ((123, 64), (64,), (64, 32), (32,), (32, 10), (10,))
 
 
 def _shape(S, d):
@@ -63,6 +64,23 @@ def _tables(S):
     cols = {k: (v[:S] if isinstance(v, list) else v) for k, v in TABLE.items()}
     return (tk.sweep_params_table(**cols, device="cpu"),
             j_table(**{k: jnp.asarray(v) for k, v in cols.items()}))
+
+
+def _one_config_trees(label, dtype, seed):
+    """Three trees of the tree path's leaves, as numpy-seeded torch and
+    jax dicts: the Fig. 4 MLP's six (10, ...) leaves, or a ragged tree of
+    0-D to 3-D leaves."""
+    shapes = ({f"l{i}": (10,) + s for i, s in enumerate(MLP_SHAPES)}
+              if label == "mlp" else
+              {"s": (), "a": (3,), "b": (1001,), "w": (8, 8),
+               "v": (2, 5, 7), "big": (123, 64)})
+    rng = np.random.default_rng(seed)
+    trees = [{k: (rng.standard_normal(s) * 0.05).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    return ([{k: torch.from_numpy(np.asarray(v)).to(dtype)
+              for k, v in t.items()} for t in trees],
+            [{k: jnp.asarray(v, _JDT[dtype]) for k, v in t.items()}
+             for t in trees])
 
 
 def _masks(S, gated):
@@ -129,6 +147,26 @@ def test_tracking_tree_matches_reference(S, gated, dtype):
             assert gk[k] is gn[k]        # no copy
     _assert_frozen(yo, y, tm)
     _assert_frozen(gk, go, tm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tree", ["mlp", "ragged"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_one_config_trees_match_reference(kind, tree, dtype):
+    """``prox_tree`` / ``fused_update_tree`` (one grouped call each on the
+    card, the plain versions here) against the reference's trees."""
+    tt, jt = _one_config_trees(tree, dtype,
+                               seed=len(tree) + KINDS.index(kind))
+    hp = dict(kind=kind, lam=0.02, alpha=0.5, theta=4.0)
+    got, want = tops.prox_tree(tt[0], **hp), jops.prox_tree(jt[0], **hp)
+    assert list(got) == list(tt[0])
+    for k in got:
+        _close(got[k], want[k], dtype)
+    gx, gn = tops.fused_update_tree(*tt, gamma=0.5, **hp)
+    wx, wn = jops.fused_update_tree(*jt, gamma=0.5, **hp)
+    for k in gx:
+        _close(gx[k], wx[k], dtype)
+        _close(gn[k], wn[k], dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +333,23 @@ class _ModelLib:
         self._run(addr, n, params, mask, C, blocks, dtype, tile)
         return 0
 
+    def prox_apply_grouped(self, addr, n, params, kind, dtype, stream):
+        """The grid the C entry takes from the table: the last leaf's first
+        block plus its tiles (one row a leaf)."""
+        name = {v: k for k, v in tk.KINDS.items()}[kind]
+        last = np.frombuffer((ctypes.c_int64 * (n * tk.LEAF_WORDS))
+                             .from_address(addr), np.int64)[-tk.LEAF_WORDS:]
+        blocks = int(last[6]) + -(-int(last[5]) // tk.TILE)
+
+        def tile(io, prow, live, cnt):
+            x, y, nu, out, unused = io
+            assert y is nu is unused is None and live
+            out.copy_(tk.prox_plain(x, kind=name, lam=prow[0, 0],
+                                    theta=prow[0, 1], alpha=prow[0, 2]))
+
+        self._run(addr, n, params, None, 1, blocks, dtype, tile)
+        return 0
+
     def prox_sweep_tracking_grouped(self, addr, n, params, mask, C, blocks,
                                     dtype, stream):
         def tile(io, prow, live, cnt):
@@ -329,8 +384,8 @@ def model_lib(monkeypatch):
 
 def _tree_leaves(seed, shapes, dtypes, n=3):
     rng = np.random.default_rng(seed)
-    return [[torch.from_numpy((rng.standard_normal(s) * 0.1)
-                              .astype(np.float32)).to(dt)
+    return [[torch.from_numpy(np.asarray(rng.standard_normal(s) * 0.1,
+                                         np.float32)).to(dt)
              for s, dt in zip(shapes, dtypes)] for _ in range(n)]
 
 
@@ -460,3 +515,85 @@ def test_grouped_wrappers_check_their_inputs(model_lib, route):
     with pytest.raises(ValueError, match="differ"):
         upd((x, y[..., :5].contiguous(), nu), tt)
     assert model_lib.calls == [] and not tk.LAUNCH_COUNTS
+
+
+def test_block_prefixes_of_the_tree_path():
+    """``prox_tree`` over the Fig. 4 model (six (10, ...) leaves) is one
+    row a leaf: 77 + 1 + 20 + 1 + 4 + 1 = 104 tiles in one launch."""
+    f32 = torch.float32
+    ptrs = [(p[0], 0, 0, p[3], 0) for p in _ptrs(6)]
+    table, launches = _tables_of(1, [10 * d for d in MLP_DS], [f32] * 6,
+                                 ptrs)
+    assert table[:, 6].tolist() == [0, 77, 78, 98, 99, 103]
+    assert table[:, 7].tolist() == [1, 1, 1, 1, 1, 1]
+    assert launches == [tk.Launch(f32, 0, 6, 104)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_prox_host_path_matches_plain(model_lib, kind):
+    """The prox's grouped call on CPU memory: one row a leaf, the grid from
+    the table, one (1, 5) row; a mixed fp32 / bf16 tree of 0-D to 3-D and
+    empty leaves takes one launch per dtype, bit-equal to plain."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [(), (10, 123, 64), (0,), (1001,), (10, 64), (2, 3, 5), (4,)]
+    dts = [f32, f32, f32, bf16, f32, bf16, f32]
+    (xs,) = _tree_leaves(13, shapes, dts, n=1)
+    row = tk.hyper_row(xs[0], 0.02, 4.0, 0.5)
+    (got,) = tk._launch_grouped("prox", "prox", [(x,) for x in xs], row,
+                                None, 0, kind)
+    want = tk.prox_grouped_plain(xs, kind=kind, lam=0.02, theta=4.0,
+                                 alpha=0.5)
+    for a, b, x in zip(got, want, xs):
+        assert a.shape == x.shape and a.dtype == x.dtype
+        assert torch.equal(_bits(a), _bits(b))
+    # fp32: 1 + 77 + 1 (d 640) + 1 (d 4) blocks; bf16: 1 + 1
+    assert model_lib.calls == [(4, 80, 0), (2, 2, 1)]
+    assert tk.LAUNCH_COUNTS == {"prox": 2}
+    _assert_views_of_one_buffer([a for a in got if a.numel()],
+                                [x for x in xs if x.numel()])
+
+
+def test_one_config_update_host_path_matches_plain(model_lib):
+    """``fused_update_tree``'s grouped call (lead 0: one row a leaf, one
+    (1, 5) row) over the MLP tree and 100 ragged leaves: bit-equal to the
+    plain version, one launch per 48 leaves."""
+    leaves = [(10,) + s for s in MLP_SHAPES]
+    x, y, nu = _tree_leaves(17, leaves, [torch.float32] * 6)
+    row = tk.hyper_row(x[0], 1e-4, 4.0, 0.05, 0.8)
+    got = tk._launch_grouped("fused_update", "fused_update",
+                             list(zip(x, y, nu)), row, None, 0, "mcp")
+    want = tk.fused_update_grouped_plain(x, y, nu, kind="mcp", lam=1e-4,
+                                         theta=4.0, alpha=0.05, gamma=0.8)
+    for o, r in zip(got, want):
+        for a, b in zip(o, r):
+            assert torch.equal(_bits(a), _bits(b))
+    assert model_lib.calls == [(6, 104, 0)]
+    many = [(7,), (3, 3), ()] * 33 + [(1025,)]
+    x, y, nu = _tree_leaves(19, many, [torch.float32] * 100)
+    got = tk._launch_grouped("fused_update", "fused_update",
+                             list(zip(x, y, nu)), row, None, 0, "scad")
+    want = tk.fused_update_grouped_plain(x, y, nu, kind="scad", lam=1e-4,
+                                         theta=4.0, alpha=0.05, gamma=0.8)
+    for o, r in zip(got, want):
+        for a, b in zip(o, r):
+            assert torch.equal(_bits(a), _bits(b))
+    assert [c[0] for c in model_lib.calls[1:]] == [48, 48, 4]
+    assert tk.LAUNCH_COUNTS == {"fused_update": 4}
+
+
+def test_one_config_grouped_wrappers_check_their_inputs():
+    ((x, y),) = _tree_leaves(23, [(4, 5), (6,)], [torch.float32] * 2, n=1)
+    with pytest.raises(ValueError, match="differ"):
+        tk.fused_update_grouped([x], [y], [x])
+    with pytest.raises(TypeError):
+        tk.prox_grouped([x, y.double()])
+    with pytest.raises(ValueError, match="kind"):
+        tk.prox_grouped([x], kind="box")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tk.prox_grouped([x.to("meta")])
+    assert tk.prox_grouped([]) == []
+    assert tk.fused_update_grouped([], [], []) == ([], [])
+    # any layout: leaves are made contiguous first
+    xt = x.t()
+    assert torch.equal(tk.prox_grouped([xt], kind="mcp")[0],
+                       tk.prox_plain(xt.contiguous(), kind="mcp"))

@@ -259,12 +259,70 @@ def test_one_config_kernels_match_plain_versions(kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prox_tree_is_one_grouped_launch_bit_equal_to_plain(dtype):
+    """``prox_tree`` / ``fused_update_tree`` over the Fig. 4 model's six
+    (10, ...) leaves and a ragged tree: one launch each a call, fp32 bit
+    for bit (bf16: one rounding of the same fp32 result, also equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.kernels.prox import ops
+    hp = dict(kind="mcp", lam=1e-4, alpha=0.05, theta=4.0)
+    for shapes in ([(10,) + s for s in MLP_SHAPES], RAGGED_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(len(shapes))
+        x, y, nu = ({f"l{i}": (torch.randn(s, generator=g, device="cuda")
+                               * 0.01).to(dtype)
+                     for i, s in enumerate(shapes)} for _ in range(3))
+        for kind in ("l1", "mcp", "scad"):
+            hp["kind"] = kind
+            tk.reset_launch_counts()
+            px = ops.prox_tree(x, **hp)
+            ux, unu = ops.fused_update_tree(x, y, nu, gamma=0.8, **hp)
+            torch.cuda.synchronize()
+            assert dict(tk.LAUNCH_COUNTS) == {"prox": 1, "fused_update": 1}
+            for key in x:
+                rp = tk.prox_plain(x[key], **hp)
+                rx, rn = tk.fused_update_plain(x[key], y[key], nu[key],
+                                               gamma=0.8, **hp)
+                for a, b in ((px[key], rp), (ux[key], rx), (unu[key], rn)):
+                    assert a.shape == b.shape and a.dtype == dtype
+                    assert torch.equal(_bits(a), _bits(b)), (kind, key)
+
+
+@pytest.mark.gpu
+def test_unfused_mcp_prox_divides_like_the_kernel():
+    """The round's device Hyper makes the unfused MCP prox a true division
+    on the card: bit-equal to ``prox_cuda`` (built with -fmad=false, which
+    divides).  With the host's 0-d CPU scalars PyTorch multiplies by the
+    reciprocal instead, and some elements differ by an ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.core import depositum as dep
+    from repro_torch.core.hyper import Hyper
+    from repro_torch.core.prox import _mcp_prox
+    host = Hyper.create(alpha=0.05, lam=1e-4, theta=4.0)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    # mostly inside the shrink band alpha lam < |x| <= theta lam
+    x = torch.randn((10, 1 << 16), generator=g, device="cuda") * 2e-4
+    state = dep.DepositumState(x={"w": x}, y={}, nu={}, mu={}, g={}, t=0)
+    hp, vec = dep._round_scalars(host, state)
+    assert all(t.device == x.device for t in hp) and vec.device == x.device
+    kernel = tk.prox_cuda(x, kind="mcp", lam=host.lam, theta=host.theta,
+                          alpha=host.alpha)
+    on_card = _mcp_prox(x, hp.alpha, hp.lam, hp.theta)
+    on_host = _mcp_prox(x, host.alpha, host.lam, host.theta)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(on_card), _bits(kernel))
+    assert not torch.equal(_bits(on_host), _bits(kernel))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_kernel_matches_plain_version(D):
     """fp32 runs flash_fwd.cu and bf16 flash_fwd_sm90.cu; each case checks
-    which of the two it launched.  The bf16 lengths sit on the tile edges of
-    the tensor-core kernel (64 rows a warpgroup, 128 a CTA, 64 or 128 keys
-    a tile)."""
+    which of the two it launched.  The lengths sit on the tile edges of
+    both kernels (bf16: 64 rows a warpgroup, 128 a CTA, 64 or 128 keys a
+    tile; fp32: 128 rows a CTA and 64 keys a tile, 64 and 32 at D = 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -302,19 +360,25 @@ def test_flash_kernel_matches_plain_version(D):
             q, k, v = qkv(B, Lq, Lk, H, KV, dtype)
             for causal, window in ((True, 0), (True, 64), (False, 0)):
                 check(q, k, v, causal, window)
-    lengths = [(L, L) for L in (1, 63, 64, 65, 127, 128, 129, 1000)]
-    for Lq, Lk in lengths + [(40, 17), (17, 200)]:
+    # the tile edges of both kernels (fp32: 64 query rows a CTA, 64 keys a
+    # tile, 32 at D = 256), ragged Lq != Lk both ways, windows narrower and
+    # wider than a tile
+    lengths = [(L, L) for L in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129,
+                                1000)]
+    for Lq, Lk in lengths + [(40, 17), (17, 200), (130, 70), (191, 250)]:
         for group in (1, 2, 8):
-            q, k, v = qkv(2 if Lq < 1000 else 1, Lq, Lk, 8, 8 // group,
-                          torch.bfloat16)
-            for causal, window in ((True, 0), (True, 64), (True, 4096),
-                                   (False, 0)):
-                check(q, k, v, causal, window)
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = qkv(2 if Lq < 1000 else 1, Lq, Lk, 8, 8 // group,
+                              dtype)
+                for causal, window in ((True, 0), (True, 31), (True, 64),
+                                       (True, 4096), (False, 0)):
+                    check(q, k, v, causal, window)
     # causal, window 64, Lq 256 > Lk 64 + 63: rows 127.. see no key
-    q, k, v = qkv(1, 256, 64, 4, 2, torch.bfloat16)
-    out = check(q, k, v, True, 64)
-    assert torch.count_nonzero(out[:, 127:]) == 0
-    assert torch.count_nonzero(out[:, :127]) > 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(1, 256, 64, 4, 2, dtype)
+        out = check(q, k, v, True, 64)
+        assert torch.count_nonzero(out[:, 127:]) == 0
+        assert torch.count_nonzero(out[:, :127]) > 0
     # no key at all: zeros, and no launch
     q, k, v = qkv(1, 5, 0, 4, 2, torch.bfloat16)
     assert torch.count_nonzero(fk.flash_attention(q, k, v)) == 0
