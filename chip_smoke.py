@@ -41,6 +41,26 @@ final line):
 4. the prox tree path: ``ops.prox_tree`` and ``ops.fused_update_tree`` over
    that run's final model (six leaves), one grouped launch each, bit-equal
    to the plain versions;
+4a. the sweep paths (``repro_torch.training.sweep``), one grouped launch of
+   each sweep kernel a step for all S configs, fused bit-equal to
+   unfused after one round and after the whole run, ``sweep_run`` against
+   ``sweep_run_sequential`` (each config alone through the one-config
+   round) after one round within ``SWEEP_SEQ_ATOL`` / ``SWEEP_SEQ_RTOL``
+   and after the whole run within ``SWEEP_SEQ_REL`` on x:
+   * ``sweep_fig6``: the Fig. 6 topology grid at its published widths (MLP
+     123 -> 64 -> 32 -> 10, 10 clients, complete / ring / star / torus as
+     a stacked dense W (4, 10, 10), T0 = 20, MCP), 40 rounds: 800
+     launches of each kernel, where the sequential run makes 3,200; both
+     timed ``SWEEP_TIMING_PAIRS`` times in turns (``sweep_vs_sequential``)
+     and one round of each profiled (device busy share);
+   * ``sweep_fig8``: the Fig. 8 schedule grid (lazy p 0.3 / 0.6 / 1.0 and
+     Chebyshev k 1 / 2 / 3, stacked per-round W (6, 30, 10, 10)), 30
+     rounds;
+   * ``sweep_cohort``: the cohort grid (n 8 / 32 / 128 / 512 x p 0.5 /
+     1.0 padded to 512 clients, least squares), 30 rounds through the
+     gated instantiation: every launch gated, the rows each round leaves
+     out (and every padding row) bit for bit unchanged, each padded point
+     within ``COHORT_NATIVE_REL`` of its native-size run;
 5. the served path at full width: ``qwen3-1.7b`` (28 layers, d 2048, 16/8
    heads of 128, d_ff 6144, vocab 151936, bf16, untied; random weights from
    a seeded generator on the card) through ``BatchedServer`` with B = 4,
@@ -67,10 +87,12 @@ final line):
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused.
 
-Before each path (phases 3, 4, 5, 6) every launch count is set to 0; it
-is read just after.  Prints JSON lines per phase, then the card's name and
-power limit (from ``nvidia-smi``), then one ``{"kernels": [...]}`` line,
-then as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero
+Before each path (phases 3, 4, 4a, 5, 6) every launch count is set to 0;
+it is read just after.  The kernels line's launches of the two sweep
+kernels sum the paths that run them (3 and 4a).  Prints JSON lines per
+phase, then the card's name and power limit (from ``nvidia-smi``), then
+one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
+"device": {...}}``.  Exits non-zero
 with no result when CUDA is unavailable or the port's sources are not
 beside the script.
 """
@@ -122,6 +144,22 @@ SERVE_LOGIT_ATOL, SERVE_LOGIT_RTOL = 0.1, 0.05
 CPU_ATOL = CPU_RTOL = 1e-4     # card vs CPU, fp32 reduced models
 SERVE = {"arch": "qwen3-1.7b", "batch": 4, "prompt": 1024, "new": 32,
          "cache": 2048}
+# The sweep paths (Fig. 6: 4 topologies, Fig. 8: 6 schedules, the cohort
+# grid: 8 padded (n, p) points).  Fused and unfused sweeps do the same
+# fp32 operations: bit-equal.  Sweep against sequential: a sweep runs S
+# configs' gradients and gossip as batched products where the sequential
+# run makes one product a config, and the two need not round alike.  One
+# round (<= 20 steps) is held at the reference's test_sweep.py tolerance;
+# after a whole run (800 steps for Fig. 6) the model x by relative L2
+# norm, at SWEEP_SEQ_REL, a bound set before the first run on the card
+# from the drift one ulp a step can reach over 800 steps of a nonconvex
+# run (a fused-vs-unfused drift of 2.6e-3 after 300 steps was measured
+# when the unfused step still divided by host scalars).
+FIG6_ROUNDS, FIG8_ROUNDS, COHORT_ROUNDS = 40, 30, 30
+SWEEP_SEQ_ATOL, SWEEP_SEQ_RTOL = 1e-6, 2e-5     # one round
+SWEEP_SEQ_REL = 5e-2                            # whole run, x
+COHORT_NATIVE_REL = 1e-4    # padded point vs native run (fig_cohort.py)
+SWEEP_TIMING_PAIRS = 3      # sweep and sequential timed in turns
 
 
 def emit(obj) -> None:
@@ -835,7 +873,8 @@ def phase_graph() -> dict:
 
 def phase_timing() -> dict:
     """Kernel vs plain times at the main path's shapes (one step: the six
-    leaves, S = 1, C = 10) and at a bandwidth-bound shape (one leaf).  Each
+    leaves, S = 1, C = 10), at the sweep path's (the same leaves for S = 4
+    configs, Fig. 6) and at a bandwidth-bound shape (one leaf).  Each
     sweep kernel's step is timed as one grouped launch (``ms``) and as six
     single-leaf launches (``per_leaf_ms``, the first version's route), in
     turns with the plain version (the least of four timings each); ``device_ms`` is the grouped kernel's own
@@ -848,6 +887,7 @@ def phase_timing() -> dict:
 
     out = {}
     shapes = {"main_path_step": [(1, 10) + s for s in MLP_LEAVES],
+              "sweep_step": [(4, 10) + s for s in MLP_LEAVES],
               "bandwidth": [(4, 16, 1 << 20)]}
     for label, leaf_shapes in shapes.items():
         S = leaf_shapes[0][0]
@@ -1071,6 +1111,268 @@ def phase_round_time() -> dict:
             "round_ms_unfused": walls["off"]}
 
 
+def _sweep_counts(path: str, want: int, gated: int = 0) -> dict:
+    """The sweep kernels launched ``want`` times each and nothing else,
+    ``gated`` of them through the gated instantiation."""
+    prox, _ = _modules()
+    launches = read_counts()
+    expect_counts(path, launches, {"fused_update_sweep": want,
+                                   "fused_tracking_sweep": want})
+    g = {"fused_update_sweep": prox.GATED_LAUNCH_COUNTS["fused_sweep"],
+         "fused_tracking_sweep": prox.GATED_LAUNCH_COUNTS["tracking_sweep"]}
+    if g != {"fused_update_sweep": gated, "fused_tracking_sweep": gated}:
+        raise AssertionError(f"{path}: gated launches {g}, want {gated}")
+    return {**launches, "gated": g}
+
+
+def _timed(fn):
+    """``fn()`` on the host clock, synchronised; returns (result, s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_sweep_pair(path, pairs, sweep1, seq1, sweep, seq) -> dict:
+    """Fused = unfused bit for bit (``pairs``: (fused, unfused) states
+    after one round and after the whole run); the sweep against the
+    sequential run after one round within SWEEP_SEQ_ATOL / SWEEP_SEQ_RTOL
+    and after the whole run, x within SWEEP_SEQ_REL by relative L2 norm;
+    every value finite."""
+    import torch
+    for label, (a, b) in zip(("one round", "whole run"), pairs):
+        for f in ("x", "y", "nu", "g"):
+            for k, v in getattr(a, f).items():
+                if not bits_equal(v, getattr(b, f)[k]):
+                    raise AssertionError(f"{path} {label}: fused {f}.{k} is "
+                                         "not bit-equal to unfused")
+    _assert_states_close(sweep1, seq1, SWEEP_SEQ_ATOL, SWEEP_SEQ_RTOL)
+    rel = _rel_l2(sweep, seq)
+    if max(rel["x"].values()) > SWEEP_SEQ_REL:
+        raise AssertionError(f"{path}: sweep vs sequential x drifted "
+                             f"{rel['x']}")
+    for f in ("x", "y", "nu", "g"):
+        for k, v in getattr(sweep, f).items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{path}: {f}.{k} not finite")
+    return {"sweep_vs_sequential_one_round_max_abs": _state_diff(sweep1,
+                                                                 seq1),
+            "sweep_vs_sequential_max_abs": _state_diff(sweep, seq),
+            "sweep_vs_sequential_rel_l2": rel,
+            "fused_vs_unfused_max_abs": _state_diff(*pairs[1])}
+
+
+def phase_sweep_fig6() -> tuple[dict, dict]:
+    """The paper's Fig. 6 topology grid at its published widths (MLP 123 ->
+    64 -> 32 -> 10, 10 clients, complete / ring / star / torus as a stacked
+    dense W (4, 10, 10), T0 = 20, MCP) for FIG6_ROUNDS rounds through
+    ``sweep_run`` with ``fused="require"``: one grouped launch of each
+    sweep kernel a step for all four configs, against ``fused="off"`` (bit
+    for bit) and ``sweep_run_sequential`` (four one-config runs, four
+    times the launches); then both timed in turns, and one sweep round and
+    one sequential round profiled."""
+    import dataclasses
+    import torch
+    from repro_torch.figures import fig6_configs
+    from repro_torch.profile_round import profile_window
+    from repro_torch.quickstart import grid_operands
+    from repro_torch.training.sweep import (make_sweep_round, sweep_init,
+                                            sweep_run, sweep_run_sequential)
+    from repro_torch.core import init, local_then_comm_round
+
+    cfgs = fig6_configs(FIG6_ROUNDS, fused="require")
+    g = grid_operands(cfgs, device="cuda")
+    p, dep, S, C = g.prepared, cfgs[0].depositum, len(cfgs), 10
+    T0 = dep.comm_period
+
+    def run(fn, mode, rounds=FIG6_ROUNDS):
+        batches = {k: v[:rounds] for k, v in g.batches.items()}
+        return fn(g.params0, p.grad_fn, dataclasses.replace(dep, fused=mode),
+                  g.plan, g.hypers, batches, n_clients=C)[0]
+
+    # one round first (it also warms both paths up for the timed runs)
+    one = {m: run(sweep_run, m, 1) for m in ("require", "off")}
+    seq1 = run(sweep_run_sequential, "require", 1)
+    reset_counts()
+    sweep, wall_sweep = _timed(lambda: run(sweep_run, "require"))
+    launches = _sweep_counts("fig6 sweep", FIG6_ROUNDS * T0)
+    reset_counts()
+    seq, wall_seq = _timed(lambda: run(sweep_run_sequential, "require"))
+    seq_launches = _sweep_counts("fig6 sequential", S * FIG6_ROUNDS * T0)
+    reset_counts()
+    off = run(sweep_run, "off")
+    _sweep_counts("fig6 sweep, fused='off'", 0)
+    checks = _check_sweep_pair("fig6", ((one["require"], one["off"]),
+                                        (sweep, off)), one["require"],
+                               seq1, sweep, seq)
+    walls = {"sweep_s": [wall_sweep], "sequential_s": [wall_seq]}
+    for _ in range(SWEEP_TIMING_PAIRS - 1):
+        for key, fn in (("sequential_s", sweep_run_sequential),
+                        ("sweep_s", sweep_run)):
+            walls[key].append(_timed(lambda: run(fn, "require"))[1])
+    ratios = [q / w for q, w in zip(walls["sequential_s"], walls["sweep_s"])]
+    # one sweep round and one round of each config alone, profiled
+    round_fn = make_sweep_round(p.grad_fn, dep, g.plan, batch_axis=None)
+    state = sweep_init(g.params0, C, S)
+    state, _ = round_fn(state, g.hypers, p.batches(0))
+
+    def sweep_round(i):
+        nonlocal state
+        state, _ = round_fn(state, g.hypers, p.batches((1 + i) % FIG6_ROUNDS))
+
+    prof_sweep = profile_window(sweep_round, 2, "cuda")
+    one_cfg = [init(g.params0, C, device="cuda") for _ in range(S)]
+
+    def seq_round(i):
+        for s in range(S):
+            one_cfg[s], _ = local_then_comm_round(
+                one_cfg[s], p.batches((1 + i) % FIG6_ROUNDS), p.grad_fn, dep,
+                g.plan.point(s), hyper=cfgs[s].depositum.hyper())
+
+    seq_round(-1)
+    prof_seq = profile_window(seq_round, 2, "cuda")
+    keep = ("wall_ms_per_round", "device_busy_ms_per_round",
+            "device_busy_share")
+    return launches, {
+        "phase": "sweep_fig6", "configs": S, "clients": C, "rounds":
+        FIG6_ROUNDS, "steps": FIG6_ROUNDS * T0,
+        "topologies": [c.topology for c in cfgs],
+        "launches": launches, "sequential_launches": seq_launches,
+        **checks, "one_round_atol": SWEEP_SEQ_ATOL,
+        "one_round_rtol": SWEEP_SEQ_RTOL, "whole_run_rel_l2": SWEEP_SEQ_REL,
+        "sweep_vs_sequential_walls": walls,
+        "sweep_vs_sequential": ratios,
+        "sweep_round_ms": [w / FIG6_ROUNDS * 1e3 for w in walls["sweep_s"]],
+        "sequential_round_ms": [w / FIG6_ROUNDS * 1e3
+                                for w in walls["sequential_s"]],
+        "profiled_sweep_round": {k: prof_sweep[k] for k in keep},
+        "profiled_sequential_round": {k: prof_seq[k] for k in keep}}
+
+
+def phase_sweep_fig8() -> tuple[dict, dict]:
+    """The Fig. 8 schedule grid (lazy p in {0.3, 0.6, 1.0} and Chebyshev k
+    in {1, 2, 3} on a ring, densified per round and stacked: S = 6, MLP 64
+    -> 64 -> 32 -> 5, 10 clients, T0 = 5, l1) for FIG8_ROUNDS rounds:
+    launches, fused = unfused bit for bit, sweep against sequential."""
+    import dataclasses
+    from repro_torch.figures import FIG8_CLIENTS, fig8_setup
+    from repro_torch.training.sweep import sweep_run, sweep_run_sequential
+
+    f = fig8_setup(FIG8_ROUNDS, "cuda", fused="require")
+    S, T0 = len(f.names), f.config.comm_period
+
+    def run(fn, mode, rounds=FIG8_ROUNDS):
+        return fn(f.params0, f.grad_fn,
+                  dataclasses.replace(f.config, fused=mode), f.grid, f.hypers,
+                  {k: v[:rounds] for k, v in f.batches.items()},
+                  n_clients=FIG8_CLIENTS)[0]
+
+    one = {m: run(sweep_run, m, 1) for m in ("require", "off")}
+    seq1 = run(sweep_run_sequential, "require", 1)
+    reset_counts()
+    sweep, wall_sweep = _timed(lambda: run(sweep_run, "require"))
+    launches = _sweep_counts("fig8 sweep", FIG8_ROUNDS * T0)
+    reset_counts()
+    seq, wall_seq = _timed(lambda: run(sweep_run_sequential, "require"))
+    seq_launches = _sweep_counts("fig8 sequential", S * FIG8_ROUNDS * T0)
+    off = run(sweep_run, "off")
+    checks = _check_sweep_pair("fig8", ((one["require"], one["off"]),
+                                        (sweep, off)), one["require"],
+                               seq1, sweep, seq)
+    W = f.grid.plan.W
+    return launches, {
+        "phase": "sweep_fig8", "schedules": f.names,
+        "stacked_W": list(W.shape), "stacked_W_bytes": W.numel() * 4,
+        "rounds": FIG8_ROUNDS, "launches": launches,
+        "sequential_launches": seq_launches, **checks,
+        "sweep_s": wall_sweep, "sequential_s": wall_seq,
+        "sweep_vs_sequential": wall_seq / wall_sweep}
+
+
+def phase_sweep_cohort() -> tuple[dict, dict]:
+    """The cohort grid at its full sizes: n in {8, 32, 128, 512} x p in
+    {0.5, 1.0} Bernoulli cohorts on rings padded to 512 clients (S = 8),
+    least squares (D 32, M 16, T0 5, data from a numpy seed) for
+    COHORT_ROUNDS rounds with ``fused="require"``: every step one launch
+    of each kernel's gated instantiation; after each round every row its
+    point's mask left out, and every padding row, is bit for bit what it
+    was; gated fused = unfused bit for bit; each padded point within
+    COHORT_NATIVE_REL of its native-size run (``fig_cohort.py``)."""
+    import torch
+    from repro_torch.figures import (COHORT_D, cohort_grad_fn, cohort_setup)
+    from repro_torch.training.sweep import (make_sweep_round, sweep_init,
+                                            sweep_run_sequential)
+
+    c = {m: cohort_setup("cuda", m) for m in ("require", "off")}
+    n_max, S = c["require"].n_max, len(c["require"].points)
+    T0 = c["require"].config.comm_period
+    params0 = {"w": torch.zeros(COHORT_D, device="cuda")}
+    batch = torch.zeros((T0, 1), device="cuda")
+    states, frozen_rows = {}, 0
+    for mode in ("require", "off"):
+        cm = c[mode]
+        round_fn = make_sweep_round(cohort_grad_fn(cm.A, cm.b), cm.config,
+                                    cm.grid, batch_axis=None)
+        state = sweep_init(params0, n_max, S)
+        reset_counts()
+        after_one = None
+        for r in range(COHORT_ROUNDS):
+            before = state
+            state, _ = round_fn(state, cm.config.hyper(), batch)
+            idle = (cm.grid.sampler.mask_at(r) <= 0)
+            for f in ("x", "y", "nu", "mu", "g"):
+                a, b = getattr(state, f)["w"], getattr(before, f)["w"]
+                if not bits_equal(a[idle], b[idle]):
+                    raise AssertionError(f"cohort round {r} ({mode}): a "
+                                         f"frozen row of {f} moved")
+            if mode == "require":
+                frozen_rows += int(idle.sum())
+            after_one = state if r == 0 else after_one
+        torch.cuda.synchronize()
+        if mode == "require":
+            launches = _sweep_counts("cohort sweep", COHORT_ROUNDS * T0,
+                                     gated=COHORT_ROUNDS * T0)
+        else:
+            _sweep_counts("cohort sweep, fused='off'", 0)
+        states[mode] = (after_one, state)
+    for i, label in enumerate(("one round", "whole run")):
+        a, b = states["require"][i], states["off"][i]
+        for f in ("x", "y", "nu", "g"):
+            if not bits_equal(getattr(a, f)["w"], getattr(b, f)["w"]):
+                raise AssertionError(f"cohort {label}: gated fused {f} is "
+                                     "not bit-equal to unfused")
+    final = states["require"][1]
+    cm = c["require"]
+    rel, padded_zero = {}, True
+    for s, (name, n, p, _padded, native) in enumerate(cm.points):
+        ref = sweep_run_sequential(
+            params0, cohort_grad_fn(cm.A[:n], cm.b[:n]), cm.config, native,
+            cm.config.hyper(), torch.zeros((COHORT_ROUNDS, T0, 1),
+                                           device="cuda"),
+            n_clients=n)[0].x["w"][0]
+        got = final.x["w"][s, :n]
+        rel[name] = float((got - ref).abs().max() / ref.abs().max())
+        for f in ("x", "y", "nu", "mu", "g"):
+            padded_zero &= not bool(getattr(final, f)["w"][s, n:].any())
+    if max(rel.values()) > COHORT_NATIVE_REL or not padded_zero:
+        raise AssertionError(f"cohort: padded vs native {rel}, padding "
+                             f"rows zero: {padded_zero}")
+    if not torch.isfinite(final.x["w"]).all():
+        raise AssertionError("cohort: x not finite")
+    W = cm.grid.plan.W
+    return launches, {
+        "phase": "sweep_cohort", "points": [pt[0] for pt in cm.points],
+        "n_max": n_max, "rounds": COHORT_ROUNDS, "stacked_W": list(W.shape),
+        "stacked_W_bytes": W.numel() * 4, "launches": launches,
+        "frozen_rows_checked": frozen_rows,
+        "fused_vs_unfused_max_abs": _state_diff(*[states[m][1] for m in
+                                                  ("require", "off")]),
+        "padded_vs_native_rel": rel, "native_rel_tol": COHORT_NATIVE_REL,
+        "padding_rows_zero": padded_zero}
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1110,6 +1412,12 @@ def main() -> int:
     emit(main_path)
     tree_launches, tree = phase_tree_path(state)
     emit(tree)
+    sweep_launches = [launches]
+    for phase in (phase_sweep_fig6, phase_sweep_fig8, phase_sweep_cohort):
+        path_launches, line = phase()
+        emit(line)
+        sweep_launches.append(path_launches)
+        torch.cuda.empty_cache()
     serve_launches, serve = phase_serve()
     emit(serve)
     torch.cuda.empty_cache()
@@ -1131,7 +1439,8 @@ def main() -> int:
         t = step[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": f"{prox_src}:{line}", "launches": launches[name],
+            "replaces": f"{prox_src}:{line}",
+            "launches": sum(n[name] for n in sweep_launches),
             "max_abs_err": max(check["max_abs_err"][name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

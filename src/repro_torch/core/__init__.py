@@ -9,11 +9,17 @@ from repro_torch.core.depositum import (  # noqa: F401
     stationarity_metrics,
     step,
 )
+from repro_torch.core.cohort import (  # noqa: F401
+    CohortSampler,
+    pad_plan,
+    stack_cohorts,
+)
 from repro_torch.core.gossip import identity_mixer, make_dense_mixer  # noqa: F401
 from repro_torch.core.hyper import Hyper, hyper_grid, n_sweep, stack_hypers  # noqa: F401
 from repro_torch.core.mixing import (  # noqa: F401
     MixPlan,
     apply_mix,
+    apply_mix_sweep,
     as_dense,
     as_mixer,
     plan_spectral_lambda,
@@ -28,6 +34,18 @@ from repro_torch.core.prox import (  # noqa: F401
     get_prox,
     prox_apply,
     prox_gradient,
+)
+from repro_torch.core.schedule import (  # noqa: F401
+    MixSchedule,
+    ScheduleMixer,
+    apply_schedule,
+    apply_schedule_sweep,
+    as_schedule,
+    as_stacked_schedule,
+    schedule_round_mask,
+    schedule_spectral_lambda,
+    stack_schedules,
+    validate_schedule,
 )
 from repro_torch.core.topology import (  # noqa: F401
     delta_coefficients,

@@ -15,9 +15,17 @@ parameter pytree leaves (``l0.w``, ``l0.b``, ...).
 
 With the ``fused`` knob on, steps (1)+(2) and (4) run through the two
 hand-written CUDA kernels of :mod:`repro_torch.kernels.prox` (their plain
-PyTorch versions on CPU tensors).  This slice covers dense communication
-only: compressed gossip (``CompressionSpec``) and round-indexed
-schedules (``MixSchedule``) arrive with their own slices.
+PyTorch versions on CPU tensors).
+
+The round program also runs S configurations at once (the sweep axis of
+``repro_torch.training.sweep``): ``local_then_comm_round(..., sweep=True)``
+takes leaves ``(S, C, ...)`` and a Hyper of ``(S,)`` values through the
+same step logic, with one ``(S, 5)`` kernel table and one grouped launch a
+step for all S configurations.  The mixer is a callable, a
+:class:`~repro_torch.core.mixing.MixPlan` or a round-indexed
+:class:`~repro_torch.core.schedule.MixSchedule` (cohort schedules also
+freeze inactive and padding rows).  Compressed gossip
+(``CompressionSpec``) arrives with the compression slice.
 """
 from __future__ import annotations
 
@@ -30,8 +38,15 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.gossip import Mixer, identity_mixer
 from repro_torch.core.hyper import Hyper
-from repro_torch.core.mixing import resolve_mixer
+from repro_torch.core.mixing import MixPlan, apply_mix_sweep, resolve_mixer
 from repro_torch.core.momentum import MomentumKind, momentum_update
+from repro_torch.core.schedule import (
+    MixSchedule,
+    ScheduleMixer,
+    apply_schedule,
+    apply_schedule_sweep,
+    schedule_round_mask,
+)
 from repro_torch.core.prox import (
     ProxOperator,
     family_params,
@@ -65,12 +80,11 @@ def _scoped(name, fn):
 
 
 def _reject_later_slices(mixer) -> None:
-    name = type(mixer).__name__
-    if name in ("MixSchedule", "ScheduleMixer", "CompressionSpec"):
+    if type(mixer).__name__ == "CompressionSpec":
         raise NotImplementedError(
-            f"{name} is not ported yet: round-indexed schedules arrive with "
-            "the schedules slice and compressed gossip with the compression "
-            "slice (ROADMAP Queue 1); pass a MixPlan or a mixer callable")
+            "CompressionSpec is not ported yet: compressed gossip arrives "
+            "with the compression slice (ROADMAP Queue 1 item 6); pass a "
+            "MixPlan, a MixSchedule or a mixer callable")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,12 +149,15 @@ class DepositumConfig:
 
 
 def fused_eligibility(config: "DepositumConfig", state=None,
-                      hyper: Hyper | None = None) -> tuple[bool, str]:
+                      hyper: Hyper | None = None, *,
+                      sweep: bool = False) -> tuple[bool, str]:
     """Can the fused kernels serve this step?
 
     Returns ``(ok, reason)`` with ``reason`` naming the first blocker: the
     kernels cover Polyak momentum over the l1 | mcp | scad prox chain, on
-    float32 or bfloat16 state leaves, with *scalar* hyperparameters.
+    float32 or bfloat16 state leaves.  A stacked Hyper is eligible only
+    with the sweep axis (``sweep=True``: ``(S, C, ...)`` leaves, the
+    kernels' ``(S, 5)`` table); the one-config step refuses it.
     """
     if config.momentum != "polyak":
         return False, (f"momentum={config.momentum!r} (kernel covers "
@@ -154,9 +171,11 @@ def fused_eligibility(config: "DepositumConfig", state=None,
                 if leaf.dtype not in _KERNEL_DTYPES:
                     return False, (f"state leaf dtype {leaf.dtype} (kernel "
                                    "takes float32 | bfloat16)")
-    if hyper is not None and torch.as_tensor(hyper.alpha).ndim > 0:
-        return False, ("stacked Hyper passed directly to step (the sweep "
-                       "slice carries the config axis)")
+    if (hyper is not None and not sweep
+            and torch.as_tensor(hyper.alpha).ndim > 0):
+        return False, ("stacked Hyper passed directly to step (run the "
+                       "sweep axis through local_then_comm_round(..., "
+                       "sweep=True) or repro_torch.training.sweep)")
     return True, "eligible"
 
 
@@ -217,7 +236,8 @@ def _round_scalars(hp: Hyper, state: DepositumState
                    ) -> tuple[Hyper, torch.Tensor]:
     """``hp`` on the state's device, as one (5,) row ``[lam, theta, alpha,
     gamma, beta]`` (the kernels' params row) and a Hyper of 0-d views into
-    it, from one host-to-device copy.
+    it, from one host-to-device copy.  A stacked Hyper gives the (S, 5)
+    table and (S,) views.
 
     The unfused step divides by these device scalars, so on the card each
     division is a true tensor-by-tensor division, as in the reference and
@@ -243,21 +263,29 @@ def step(
 ) -> tuple[DepositumState, Any]:
     """One DEPOSITUM iteration for all clients.
 
-    ``mixer`` applies W over the client dim (a callable or a
-    :class:`~repro_torch.core.mixing.MixPlan`).  If ``is_comm_step`` is None
+    ``mixer`` applies W over the client dim (a callable, a
+    :class:`~repro_torch.core.mixing.MixPlan`, or a round-indexed
+    :class:`~repro_torch.core.schedule.MixSchedule` / ``ScheduleMixer``,
+    whose round is ``t // T0``).  If ``is_comm_step`` is None
     it is ``(t+1) % T0 == 0``; a bool tensor selects between the mixed and
     unmixed values.  ``hyper`` overrides the config's floats (validated by
     the caller; the config's floats are validated here).
 
     ``active_mask`` is the cohort gate: an (n,) 0/1 mask under which rows
     with mask 0 are frozen — every state variable keeps its previous value
-    (``t`` still advances).
+    (``t`` still advances).  With a cohort schedule and no mask, the
+    round's mask is drawn from the schedule's sampler.  A stacked Hyper
+    raises: the sweep axis runs through :func:`local_then_comm_round`.
     """
     if hyper is None:
         config.validate()
         hp = config.hyper()
     else:
         hp = hyper
+    if torch.as_tensor(hp.alpha).ndim > 0:
+        _, why = fused_eligibility(config, state, hp)
+        raise ValueError(
+            f"fused={config.fused_mode()!r}: step runs one config: {why}")
     hp_dev, hp_vec = _round_scalars(hp, state)
     return _step(state, batch, grad_fn, config, mixer, is_comm_step, hp_dev,
                  hp_vec, active_mask)
@@ -266,27 +294,65 @@ def step(
 def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
           active_mask):
     """:func:`step` with the hyperparameters resolved and checked: ``hp``
-    and ``hp_vec`` from :func:`_round_scalars`, on the state's device."""
+    and ``hp_vec`` from :func:`_round_scalars`, on the state's device.
+
+    A (S, 5) ``hp_vec`` is the sweep axis: leaves are ``(S, C, ...)``,
+    ``hp`` holds (S,) views, ``grad_fn`` and a callable mixer take
+    ``(S, C, ...)`` leaves, and ``active_mask`` is (S, C).
+    """
     _reject_later_slices(mixer)
     if state.comm:
         raise NotImplementedError(
             "states with compression memory arrive with the compression "
-            "slice (ROADMAP Queue 1)")
-    # cohort schedules, which also admit the in-kernel gate on comm steps,
-    # arrive with the schedules slice
-    is_cohort_mixer = False
-    mixer, _plan = resolve_mixer(mixer)
+            "slice (ROADMAP Queue 1 item 6)")
+    sweep = hp_vec.ndim == 2
+    # round-indexed mixers: round r = t // T0; a cohort schedule's mask
+    # also gates local updates, and its mixing already masks frozen rows,
+    # which lets the gate ride inside the kernels on comm steps too
+    sched = (mixer.schedule if isinstance(mixer, ScheduleMixer)
+             else mixer if isinstance(mixer, MixSchedule) else None)
+    is_cohort_mixer = sched is not None and sched.kind == "cohort"
+    if sched is not None:
+        r = state.t // config.comm_period
+        if active_mask is None:
+            active_mask = schedule_round_mask(sched, r)
+        if isinstance(mixer, MixSchedule):
+            fn = apply_schedule_sweep if sweep else apply_schedule
+            mixer = lambda tree, fn=fn: fn(sched, r, tree)
+        else:
+            mixer = lambda tree, sm=mixer: sm(tree, r)
+    elif sweep and isinstance(mixer, MixPlan):
+        mixer = lambda tree, plan=mixer: apply_mix_sweep(plan, tree)
+    else:
+        mixer, _plan = resolve_mixer(mixer)
     mixer = _scoped("gossip", mixer)
     if is_comm_step is None:
         is_comm_step = (state.t + 1) % config.comm_period == 0
-    # scalars in each leaf's dtype so bf16 params stay bf16
-    c = lambda s, leaf: torch.as_tensor(s, dtype=leaf.dtype)
+    if sweep:
+        # each (S,) scalar as (S, 1, ..., 1) against a leaf
+        lead = lambda s, leaf: s.reshape(s.shape + (1,) * (leaf.ndim - 1))
+        c = lambda s, leaf: lead(s, leaf).to(leaf.dtype)
+        gamma = {k: c(hp.gamma, v) for k, v in state.nu.items()}
+
+        def prox(tree):
+            return {k: prox_apply(config.prox_name, {k: v}, lead(hp.alpha, v),
+                                  lam=lead(hp.lam, v),
+                                  theta=lead(hp.theta, v))[k]
+                    for k, v in tree.items()}
+    else:
+        # scalars in each leaf's dtype so bf16 params stay bf16
+        c = lambda s, leaf: torch.as_tensor(s, dtype=leaf.dtype)
+        gamma = hp.gamma
+
+        def prox(tree):
+            return prox_apply(config.prox_name, tree, hp.alpha, lam=hp.lam,
+                              theta=hp.theta)
 
     fused_mode = config.fused_mode()
     if fused_mode == "off":
         fused_ok = False
     else:
-        fused_ok, why = fused_eligibility(config, state, hp)
+        fused_ok, why = fused_eligibility(config, state, hp, sweep=sweep)
         if fused_mode == "require" and not fused_ok:
             raise ValueError(
                 f"fused='require' but the fused kernel cannot serve this "
@@ -314,13 +380,10 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         with annotate("local_step"):
             # (1) momentum from the tracking variable
             nu_next, mu_next = momentum_update(
-                config.momentum, hp.gamma, state.nu, state.mu, state.y)
+                config.momentum, gamma, state.nu, state.mu, state.y)
             # (2) proximal descent
-            x_half = prox_apply(
-                config.prox_name,
-                {k: p - c(hp.alpha, p) * nu_next[k]
-                 for k, p in state.x.items()},
-                hp.alpha, lam=hp.lam, theta=hp.theta)
+            x_half = prox({k: p - c(hp.alpha, p) * nu_next[k]
+                           for k, p in state.x.items()})
 
     def gossip(tree):
         if isinstance(is_comm_step, bool):
@@ -348,8 +411,8 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         # (select, not arithmetic, so active rows keep their bits exactly)
         def keep(new, old):
             return {k: torch.where(
-                active_mask.reshape(active_mask.shape
-                                    + (1,) * (v.ndim - 1)) > 0, v, old[k])
+                active_mask.reshape(active_mask.shape + (1,) * (
+                    v.ndim - active_mask.ndim)) > 0, v, old[k])
                 for k, v in new.items()}
 
         if kernel_mask is not None:
@@ -379,13 +442,21 @@ def local_then_comm_round(
     *,
     hyper: Hyper | None = None,
     active_mask: torch.Tensor | None = None,
+    sweep: bool = False,
 ) -> tuple[DepositumState, Any]:
     """One FL round = (T0-1) collective-free local steps + 1 gossip step.
 
     ``batches`` is a dict whose leaves carry a leading dim of length T0
     (one minibatch per inner iteration).  The hyperparameters are checked
     and put on the state's device once here, for the whole round.
-    ``active_mask`` freezes rows for every step of the round.
+    ``active_mask`` freezes rows for every step of the round; for a cohort
+    schedule it is drawn here once a round when not given.
+
+    ``sweep=True`` runs S configurations at once: state leaves
+    ``(S, C, ...)``, ``hyper`` (S,) values (an unstacked Hyper, or None,
+    broadcasts), ``grad_fn`` and a callable ``mixer`` taking ``(S, C, ...)``
+    leaves (``repro_torch.training.sweep`` vmaps a client ``grad_fn``); a
+    MixPlan or MixSchedule mixer may be stacked over S or shared.
     """
     _reject_later_slices(mixer)
     T0 = config.comm_period
@@ -395,8 +466,21 @@ def local_then_comm_round(
     else:
         config.validate(hyper)
         hp = hyper
+    if sweep:
+        S = next(iter(state.x.values())).shape[0]
+        if torch.as_tensor(hp.alpha).ndim == 0:
+            hp = Hyper(*(torch.as_tensor(v).expand(S) for v in hp))
+    elif torch.as_tensor(hp.alpha).ndim > 0:
+        _, why = fused_eligibility(config, state, hp)
+        raise ValueError(
+            f"fused={config.fused_mode()!r}: a one-config round: {why}")
+    if active_mask is None:
+        active_mask = schedule_round_mask(mixer, state.t // T0)
+    if sweep and active_mask is not None and active_mask.ndim == 1:
+        active_mask = active_mask.expand(S, -1)      # a shared schedule
     hp, hp_vec = _round_scalars(hp, state)
-    take = lambda i: {k: v[i] for k, v in batches.items()}
+    take = lambda i: ({k: v[i] for k, v in batches.items()}
+                      if isinstance(batches, dict) else batches[i])
     for i in range(T0 - 1):
         state, _ = _step(state, take(i), grad_fn, config, identity_mixer,
                          False, hp, hp_vec, active_mask)

@@ -12,9 +12,11 @@ and offsets are static structure.  Kinds:
   applications of the base mix via the T_k recurrence, with the base
   spectral quantity ``lam`` a 0-d tensor.
 
-:func:`apply_mix` runs a plan on dicts of client-stacked tensors.  The
-per-shard form ``shard_body`` (collectives over a process group) comes with
-the backends slice.
+:func:`apply_mix` runs a plan on dicts of client-stacked tensors, and
+:func:`apply_mix_sweep` on dicts of ``(S, n, ...)`` tensors: S sweep points
+at once, each with its own plan point (a stacked plan) or one shared plan.
+The per-shard form ``shard_body`` (collectives over a process group) comes
+with the backends slice (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.gossip import dense_mix_leaf
+from repro_torch.core.gossip import dense_mix_leaf, dense_mix_sweep_leaf
 from repro_torch.core.topology import (
     chebyshev_matrix,
     mixing_matrix,
@@ -269,27 +271,72 @@ def validate_plan(plan: MixPlan, n: int | None = None,
 # Stacked-clients execution
 # ---------------------------------------------------------------------------
 
-def _chebyshev_apply(mixfn, lam, k: int, tree: dict) -> dict:
+def _lead(v: torch.Tensor, x: torch.Tensor, sweep: bool) -> torch.Tensor:
+    """A plan scalar shaped against leaf ``x``: 0-d (or a shared point's)
+    as it is, a sweep's (S,) values as (S, 1, ..., 1)."""
+    if sweep and v.ndim:
+        v = v.reshape(v.shape + (1,) * (x.ndim - v.ndim))
+    return v.to(x.device)
+
+
+def _coef(v: torch.Tensor, x: torch.Tensor, sweep: bool) -> torch.Tensor:
+    """:func:`_lead` in x's dtype."""
+    return _lead(v, x, sweep).to(x.dtype)
+
+
+def _chebyshev_apply(mixfn, lam, k: int, tree: dict, sweep: bool = False
+                     ) -> dict:
     """P_k(W) x via the T_k recurrence: k applications of ``mixfn``.
 
     The lam -> 0 limit (complete graph) degenerates to a single exchange,
-    matching :func:`repro_torch.core.topology.chebyshev_matrix`.
+    matching :func:`repro_torch.core.topology.chebyshev_matrix`; the choice
+    is a select on the device (per point on a sweep), never a host read.
     """
     Wx = mixfn(tree)
     if k == 1:
         return Wx  # P_1(W) = W exactly
     lam32 = lam.to(torch.float32)
     inv = 1.0 / torch.clamp_min(lam32, 1e-12)
-    Tm2, Tm1 = tree, {key: inv.to(w.dtype) * w for key, w in Wx.items()}
+    c = lambda s, w: _coef(s, w, sweep)
+    Tm2, Tm1 = tree, {key: c(inv, w) * w for key, w in Wx.items()}
     tm2, tm1 = 1.0, inv
     for _ in range(k - 1):
         WT = mixfn(Tm1)
-        Tm2, Tm1 = Tm1, {key: 2.0 * inv.to(w.dtype) * w - Tm2[key]
+        Tm2, Tm1 = Tm1, {key: 2.0 * c(inv, w) * w - Tm2[key]
                          for key, w in WT.items()}
         tm2, tm1 = tm1, 2.0 * inv * tm1 - tm2
-    if not float(lam32) > 1e-9:
-        return Wx
-    return {key: tk / tm1.to(tk.dtype) for key, tk in Tm1.items()}
+    accelerate = lam32 > 1e-9
+    return {key: torch.where(_lead(accelerate, tk, sweep), tk / c(tm1, tk),
+                             Wx[key])
+            for key, tk in Tm1.items()}
+
+
+def _mix(plan: MixPlan, tree: dict, sweep: bool) -> dict:
+    """:func:`apply_mix` (``sweep`` False, client axis 0) and
+    :func:`apply_mix_sweep` (client axis 1 of ``(S, n, ...)`` leaves)."""
+    if plan.kind == "identity":
+        return tree
+    if plan.kind == "chebyshev":
+        base = plan.base_plan()
+        return _chebyshev_apply(lambda t: _mix(base, t, sweep), plan.lam,
+                                plan.cheby_k, tree, sweep)
+    axis = 1 if sweep else 0
+    if plan.kind == "complete":
+        return {k: torch.mean(x, dim=axis, keepdim=True).expand(x.shape)
+                .contiguous() for k, x in tree.items()}
+    if plan.kind == "dense":
+        mix = dense_mix_sweep_leaf if sweep else dense_mix_leaf
+        return {k: mix(plan.W.to(x.device), x) for k, x in tree.items()}
+    # circulant: out_i = self_w * x_i + sum_k w_k * x[(i + off_k) % n]
+
+    def leaf(x):
+        out = _coef(plan.self_weight, x, sweep) * x
+        for k, off in enumerate(plan.offsets):
+            w = _coef(plan.weights[..., k], x, sweep)
+            out = out + w * torch.roll(x, -off, dims=axis)
+        return out
+
+    return {k: leaf(x) for k, x in tree.items()}
 
 
 def apply_mix(plan: MixPlan, tree: dict) -> dict:
@@ -301,29 +348,21 @@ def apply_mix(plan: MixPlan, tree: dict) -> dict:
     """
     if plan.is_stacked:
         raise ValueError("apply_mix runs one plan; select a sweep point "
-                         "with plan.point(s)")
-    if plan.kind == "identity":
-        return tree
-    if plan.kind == "chebyshev":
-        base = plan.base_plan()
-        return _chebyshev_apply(lambda t: apply_mix(base, t), plan.lam,
-                                plan.cheby_k, tree)
-    if plan.kind == "complete":
-        return {k: torch.mean(x, dim=0, keepdim=True).expand(x.shape)
-                .contiguous() for k, x in tree.items()}
-    if plan.kind == "dense":
-        return {k: dense_mix_leaf(plan.W.to(x.device), x)
-                for k, x in tree.items()}
-    # circulant: out_i = self_w * x_i + sum_k w_k * x[(i + off_k) % n]
+                         "with plan.point(s), or run a sweep with "
+                         "apply_mix_sweep")
+    return _mix(plan, tree, False)
 
-    def leaf(x):
-        ws = plan.weights.to(x.device, x.dtype)
-        out = plan.self_weight.to(x.device, x.dtype) * x
-        for k, off in enumerate(plan.offsets):
-            out = out + ws[k] * torch.roll(x, -off, dims=0)
-        return out
 
-    return {k: leaf(x) for k, x in tree.items()}
+def apply_mix_sweep(plan: MixPlan, tree: dict) -> dict:
+    """x_si <- sum_j W_sij x_sj on ``(S, n, ...)`` leaves: every sweep point
+    s mixes its own clients.
+
+    A stacked plan gives each point its own W (dense ``(S, n, n)``: one
+    batched fp32 product a leaf) or its own circulant / chebyshev weights;
+    an unstacked plan is shared by every point.  The plan should already
+    live on the leaves' device (:meth:`MixPlan.to`, once).
+    """
+    return _mix(plan, tree, True)
 
 
 def as_mixer(plan: MixPlan):

@@ -25,7 +25,8 @@ MomentumKind = Literal["polyak", "nesterov", "none"]
 def momentum_update(kind: MomentumKind, gamma, nu, mu, y):
     """Return ``(nu_next, mu_next)`` for dicts of tensors ``nu, mu, y``.
 
-    ``gamma`` may be a Python float or a 0-d tensor; the gamma == 0
+    ``gamma`` may be a Python float, a 0-d tensor, or a dict of per-leaf
+    tensors (the sweep path's (S, 1, ..., 1) values); the gamma == 0
     shortcut is taken for Python numbers only, as in the reference.
     """
     if kind == "none":
@@ -33,16 +34,17 @@ def momentum_update(kind: MomentumKind, gamma, nu, mu, y):
     if isinstance(gamma, (int, float)) and gamma == 0.0:
         return y, mu
 
-    def axpy(a, b):
+    def axpy(k, a, b):
         # gamma in the leaf's dtype: an fp32 scalar must not promote bf16
-        g = torch.as_tensor(gamma, dtype=a.dtype)
+        g = torch.as_tensor(gamma[k] if isinstance(gamma, dict) else gamma,
+                            dtype=a.dtype)
         return g * a + (1.0 - g) * b
 
     if kind == "polyak":
-        return {k: axpy(nu[k], y[k]) for k in nu}, mu
+        return {k: axpy(k, nu[k], y[k]) for k in nu}, mu
     if kind == "nesterov":
-        mu_next = {k: axpy(mu[k], y[k]) for k in mu}
-        nu_next = {k: axpy(mu_next[k], y[k]) for k in mu_next}
+        mu_next = {k: axpy(k, mu[k], y[k]) for k in mu}
+        nu_next = {k: axpy(k, mu_next[k], y[k]) for k in mu_next}
         return nu_next, mu_next
     raise ValueError(f"unknown momentum kind {kind!r}")
 

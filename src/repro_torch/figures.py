@@ -1,0 +1,459 @@
+"""The paper's figure grids through the sweep engine.
+
+Port of the grids of ``benchmarks/fig3_stepsizes.py`` (step sizes: a
+linear model with l1, a 5-point (alpha, beta) grid), ``fig4_momentum.py``
+(momentum: MLP + MCP, none / Polyak / Nesterov x gamma, one sweep a
+momentum kind), ``fig6_topology.py`` (complete / ring / star / torus as a
+stacked dense W), ``fig8_timevarying.py`` (lazy participation p in {0.3,
+0.6, 1.0} and Chebyshev k in {1, 2, 3} on a ring, densified to per-round
+W and stacked: six schedules) and ``fig_cohort.py`` (n in {8, 32, 128,
+512} x p in {0.5, 1.0} Bernoulli cohorts on rings padded to 512 clients,
+least squares).  Each ``*_run(rounds, sequential, device)`` returns one
+row a grid point as the reference's ``run`` does; ``sequential=True`` runs
+every point alone through the one-config round program instead.
+
+    PYTHONPATH=src python -m repro_torch.figures --fig 6 [--rounds N]
+        [--sequential] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core import (
+    CohortSampler,
+    DepositumConfig,
+    MixPlan,
+    MixSchedule,
+    as_stacked_schedule,
+    mixing_matrix,
+    pad_plan,
+    schedule_spectral_lambda,
+    stack_hypers,
+    stack_schedules,
+    validate_schedule,
+)
+from repro_torch.data import make_classification
+from repro_torch.models.classifier import (
+    MODELS,
+    client_grad_fn,
+    init_params,
+    stationarity_grad_fns,
+)
+from repro_torch.quickstart import (
+    ExperimentConfig,
+    classifier_metrics,
+    run_depositum,
+    run_depositum_grid,
+)
+from repro_torch.training.sweep import sweep_run, sweep_run_sequential
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _grid_curves(cfgs, sequential, device):
+    if sequential:
+        return [run_depositum(c, metrics_every=1, device=device)[1]
+                for c in cfgs]
+    return run_depositum_grid(cfgs, device=device)
+
+
+def _group_fields(c) -> dict:
+    return {"wall_s": c["wall_s"],
+            "sweep_group_id": c.get("sweep_group_id"),
+            "sweep_group_wall_s": c.get("sweep_group_wall_s"),
+            "curves": c}
+
+
+# ---------------------------------------------------------------------------
+# Fig. 3: step sizes alpha, beta (linear + l1, ring)
+# ---------------------------------------------------------------------------
+
+FIG3_GRID = [(0.05, 0.5), (0.05, 1.0), (0.1, 0.5), (0.1, 1.0), (0.2, 0.5)]
+
+
+def fig3_configs(rounds: int = 60, fused: str = "auto"):
+    return [
+        ExperimentConfig(
+            model="linear", n_clients=10, topology="ring", rounds=rounds,
+            depositum=DepositumConfig(alpha=alpha, beta=beta, gamma=0.5,
+                                      comm_period=5, prox_name="l1",
+                                      prox_kwargs={"lam": 1e-4},
+                                      fused=fused))
+        for alpha, beta in FIG3_GRID]
+
+
+def fig3_run(rounds: int = 60, sequential: bool = False, device="cuda",
+             fused: str = "auto"):
+    curves = _grid_curves(fig3_configs(rounds, fused), sequential, device)
+    return [{"alpha": a, "beta": b, "alpha_beta": a * b,
+             "final_loss": c["loss"][-1],
+             "final_prox_grad": c["prox_grad_sq"][-1],
+             "final_consensus_x": c["consensus_x"][-1],
+             "final_grad_est_err": c["grad_est_err"][-1],
+             "iters": c["iters"], **_group_fields(c)}
+            for (a, b), c in zip(FIG3_GRID, curves)]
+
+
+# ---------------------------------------------------------------------------
+# Fig. 4: momentum gamma, OPTION I / II / none (MLP + MCP, Dirichlet)
+# ---------------------------------------------------------------------------
+
+FIG4_SETTINGS = [("none", 0.0)] + [(m, g) for m in ("polyak", "nesterov")
+                                   for g in (0.2, 0.5, 0.8)]
+
+
+def fig4_configs(rounds: int = 50, fused: str = "auto"):
+    return [
+        ExperimentConfig(
+            model="mlp", n_clients=10, topology="ring", theta=1.0,
+            n_classes=10, rounds=rounds,
+            depositum=DepositumConfig(alpha=0.05, beta=0.5, gamma=gamma,
+                                      momentum=momentum, comm_period=10,
+                                      prox_name="mcp",
+                                      prox_kwargs={"lam": 1e-4,
+                                                   "theta": 4.0},
+                                      fused=fused))
+        for momentum, gamma in FIG4_SETTINGS]
+
+
+def fig4_run(rounds: int = 50, sequential: bool = False, device="cuda",
+             fused: str = "auto"):
+    curves = _grid_curves(fig4_configs(rounds, fused), sequential, device)
+    return [{"momentum": m, "gamma": g, "final_loss": c["loss"][-1],
+             "final_acc": c["accuracy"][-1], **_group_fields(c)}
+            for (m, g), c in zip(FIG4_SETTINGS, curves)]
+
+
+# ---------------------------------------------------------------------------
+# Fig. 6: topology (complete / ring / star / torus) as a stacked dense W
+# ---------------------------------------------------------------------------
+
+FIG6_TOPOLOGIES = ["complete", "ring", "star", "torus"]
+
+
+def fig6_configs(rounds: int = 40, fused: str = "auto"):
+    return [
+        ExperimentConfig(
+            model="mlp", n_clients=10, topology=topo, theta=1.0,
+            n_classes=10, rounds=rounds,
+            depositum=DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5,
+                                      comm_period=20, prox_name="mcp",
+                                      prox_kwargs={"lam": 1e-4,
+                                                   "theta": 4.0},
+                                      fused=fused))
+        for topo in FIG6_TOPOLOGIES]
+
+
+def fig6_run(rounds: int = 40, sequential: bool = False, device="cuda",
+             fused: str = "auto"):
+    curves = _grid_curves(fig6_configs(rounds, fused), sequential, device)
+    return [{"topology": t, "lambda": c["spectral_lambda"],
+             "final_loss": c["loss"][-1], "final_acc": c["accuracy"][-1],
+             "final_consensus_x": c["consensus_x"][-1], **_group_fields(c)}
+            for t, c in zip(FIG6_TOPOLOGIES, curves)]
+
+
+def fig6_check(rows) -> dict:
+    by = {r["topology"]: r for r in rows}
+    return {
+        "complete_best_consensus": by["complete"]["final_consensus_x"]
+        <= min(by["ring"]["final_consensus_x"],
+               by["star"]["final_consensus_x"]) + 1e-6,
+        "lambda_ordering": (by["complete"]["lambda"] < 1e-6
+                            and by["torus"]["lambda"] <= by["ring"]["lambda"]
+                            + 1e-9 and by["ring"]["lambda"] < 1.0),
+        "loss_band": max(r["final_loss"] for r in rows)
+        - min(r["final_loss"] for r in rows),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Fig. 8: time-varying communication (lazy p x Chebyshev k on a ring)
+# ---------------------------------------------------------------------------
+
+FIG8_CLIENTS, FIG8_P, FIG8_K = 10, [0.3, 0.6, 1.0], [1, 2, 3]
+
+
+@dataclasses.dataclass
+class Fig8:
+    """The Fig. 8 sweep's operands: the stacked per-round schedule of the
+    six points (S, R, n, n), the Hyper and data shared by all."""
+
+    config: DepositumConfig
+    names: list
+    grid: MixSchedule        # stacked (S, R, n, n)
+    hypers: object
+    params0: dict
+    grad_fn: object
+    batches: dict
+    metrics_fn: object
+
+
+def fig8_setup(rounds: int = 30, device="cuda", fused: str = "auto") -> Fig8:
+    dev = resolve_device(device)
+    dep = DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5, comm_period=5,
+                          prox_name="l1", prox_kwargs={"lam": 1e-4},
+                          fused=fused)
+    ds = make_classification(n_samples=2048, n_features=64, n_classes=5,
+                             n_clients=FIG8_CLIENTS, theta=1.0, seed=0)
+    model = MODELS["mlp"](64, 5).to(dev)
+    xs = torch.from_numpy(np.stack([ds.client_arrays(i)[0]
+                                    for i in range(FIG8_CLIENTS)])).to(dev)
+    ys = torch.from_numpy(np.stack([ds.client_arrays(i)[1]
+                                    for i in range(FIG8_CLIENTS)])).to(dev)
+    base = MixPlan.dense(mixing_matrix("ring", FIG8_CLIENTS), device=dev)
+    pts = [(f"lazy_p{p}", MixSchedule.lazy(base, p, rounds=rounds, seed=42))
+           for p in FIG8_P]
+    pts += [(f"cheby_k{k}", MixSchedule.chebyshev(base, k)) for k in FIG8_K]
+    grid = stack_schedules([as_stacked_schedule(s, rounds, FIG8_CLIENTS)
+                            for _, s in pts])
+    rng = np.random.default_rng(7)
+    draws = [ds.stacked_batches(rng, 32, dep.comm_period)
+             for _ in range(rounds)]
+    return Fig8(
+        config=dep, names=[n for n, _ in pts], grid=grid, hypers=stack_hypers([dep.hyper()] * len(pts)),
+        params0=init_params(model, 0, device=dev),
+        grad_fn=client_grad_fn(model),
+        batches={"x": torch.from_numpy(np.stack([d[0] for d in draws])),
+                 "y": torch.from_numpy(np.stack([d[1] for d in draws]))},
+        metrics_fn=classifier_metrics(
+            model, stationarity_grad_fns(model, xs, ys), xs.reshape(-1, 64),
+            ys.reshape(-1), dep))
+
+
+def fig8_run(rounds: int = 30, sequential: bool = False, device="cuda",
+             fused: str = "auto"):
+    f = fig8_setup(rounds, device, fused)
+    validate_schedule(f.grid, FIG8_CLIENTS)
+    lams = schedule_spectral_lambda(f.grid, FIG8_CLIENTS, rounds=rounds)
+    run = sweep_run_sequential if sequential else sweep_run
+    t0 = time.perf_counter()
+    _final, outs = run(f.params0, f.grad_fn, f.config, f.grid, f.hypers,
+                       f.batches, n_clients=FIG8_CLIENTS,
+                       metrics_fn=f.metrics_fn)
+    outs = {k: v.cpu().numpy() for k, v in outs.items()}
+    _sync(device)
+    wall = time.perf_counter() - t0
+    rows = []
+    for s, name in enumerate(f.names):
+        curves = {"round": list(range(1, rounds + 1)),
+                  **{k: [float(v) for v in outs[k][s]]
+                     for k in ("loss", "accuracy", "consensus_x",
+                               "stationarity")},
+                  "wall_s": wall / len(f.names),
+                  "iters": rounds * f.config.comm_period,
+                  "sweep_group_id": None if sequential else 0,
+                  "sweep_group_size": len(f.names),
+                  "sweep_group_wall_s": wall}
+        kind, value = name.split("_")
+        rows.append({"schedule": name,
+                     ("p_active" if kind == "lazy" else "cheby_k"):
+                         float(value[1:]) if kind == "lazy"
+                         else int(value[1:]),
+                     "mean_lambda": float(np.mean(lams[s])),
+                     "final_loss": curves["loss"][-1],
+                     "final_acc": curves["accuracy"][-1],
+                     "final_consensus_x": curves["consensus_x"][-1],
+                     **_group_fields(curves)})
+    return rows
+
+
+def fig8_check(rows) -> dict:
+    by = {r["schedule"]: r for r in rows}
+    return {
+        "chebyshev_shrinks_lambda":
+            by["cheby_k3"]["mean_lambda"] < by["cheby_k2"]["mean_lambda"]
+            < by["cheby_k1"]["mean_lambda"],
+        "k1_matches_full_participation_lambda":
+            abs(by["cheby_k1"]["mean_lambda"]
+                - by["lazy_p1.0"]["mean_lambda"]) < 1e-6,
+        "grid_points": len(rows),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Cohort grid: n_clients x p_active on one padded client axis
+# ---------------------------------------------------------------------------
+
+COHORT_SIZES, COHORT_P, COHORT_N_MAX = [8, 32, 128, 512], [0.5, 1.0], 512
+COHORT_D, COHORT_M, COHORT_T0, COHORT_SEED = 32, 16, 5, 42
+
+
+@dataclasses.dataclass
+class Cohort:
+    """The cohort sweep's operands: least-squares clients drawn once at
+    ``n_max`` (a native size-n problem is the row slice ``[:n]``), and per
+    point a padded cohort schedule and its native twin."""
+
+    config: DepositumConfig
+    points: list             # (name, n, p, padded schedule, native)
+    grid: MixSchedule        # the padded schedules stacked
+    A: torch.Tensor          # (n_max, M, D)
+    b: torch.Tensor          # (n_max, M)
+    n_max: int
+
+
+def cohort_grad_fn(A: torch.Tensor, b: torch.Tensor):
+    """Full-batch least-squares gradients ``A_i^T (A_i w_i - b_i) / M`` of
+    the first ``len(A)`` clients; rows past them (padding) get zeros."""
+    n = A.shape[0]
+
+    def grad_fn(x, batch):
+        w = x["w"]
+        r = torch.einsum("nmd,nd->nm", A, w[:n]) - b
+        g = torch.einsum("nmd,nm->nd", A, r) / A.shape[1]
+        pad = w.shape[0] - n
+        if pad:
+            g = torch.cat([g, g.new_zeros((pad,) + g.shape[1:])])
+        return {"w": g}, {}
+
+    return grad_fn
+
+
+def cohort_metrics(state, hyper, operand) -> dict:
+    """Consensus and mean norm over the point's eligible rows."""
+    w = operand.sampler.eligible()
+    w = w / torch.sum(w)
+    x = state.x["w"]
+    xbar = torch.einsum("i,id->d", w, x)
+    return {"consensus_x": torch.einsum("i,id->", w, (x - xbar[None]) ** 2),
+            "xbar_norm": torch.sum(xbar ** 2)}
+
+
+def cohort_setup(device="cuda", fused: str = "auto", *,
+                 sizes=COHORT_SIZES, p_active=COHORT_P,
+                 n_max: int = COHORT_N_MAX, seed: int = 0) -> Cohort:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    D, M = COHORT_D, COHORT_M
+    A = rng.standard_normal((n_max, M, D)).astype(np.float32)
+    w_true = rng.standard_normal(D).astype(np.float32)
+    b = np.einsum("nmd,d->nm", A, w_true)
+    dep = DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5,
+                          comm_period=COHORT_T0, prox_name="l1",
+                          prox_kwargs={"lam": 1e-4}, fused=fused)
+    pts = []
+    for n in sizes:
+        ring = MixPlan.from_topology("ring", n, device=dev)
+        for p in p_active:
+            pts.append((f"n{n}_p{p}", n, p,
+                        MixSchedule.cohort(pad_plan(ring, n_max),
+                                           CohortSampler.bernoulli(
+                                               p, n_max, seed=COHORT_SEED,
+                                               n_eff=n, device=dev)),
+                        MixSchedule.cohort(ring, CohortSampler.bernoulli(
+                            p, n, seed=COHORT_SEED, device=dev))))
+    return Cohort(config=dep, points=pts,
+                  grid=stack_schedules([pt[3] for pt in pts]),
+                  A=torch.from_numpy(A).to(dev),
+                  b=torch.from_numpy(b).to(dev), n_max=n_max)
+
+
+def cohort_run(rounds: int = 30, sequential: bool = False, device="cuda",
+               fused: str = "auto", **grid):
+    """The grid as one padded sweep (``sequential``: one native-size run
+    a point).  Each padded point is held against its native run
+    (``native_rel_err``, the reference's acceptance)."""
+    c = cohort_setup(device, fused, **grid)
+    params0 = {"w": torch.zeros(COHORT_D, device=c.A.device)}
+    batches = torch.zeros((rounds, COHORT_T0, 1), device=c.A.device)
+    hyper = c.config.hyper()
+
+    def native(n, sched):
+        return sweep_run_sequential(
+            params0, cohort_grad_fn(c.A[:n], c.b[:n]), c.config, sched,
+            hyper, batches, n_clients=n, metrics_fn=cohort_metrics)
+
+    t0 = time.perf_counter()
+    if sequential:
+        runs = [native(n, nat) for _, n, _, _, nat in c.points]
+        outs = {k: torch.cat([o[k] for _, o in runs]) for k in runs[0][1]}
+        finals = None
+    else:
+        validate_schedule(c.grid, c.n_max)
+        finals, outs = sweep_run(
+            params0, cohort_grad_fn(c.A, c.b), c.config, c.grid,
+            stack_hypers([hyper] * len(c.points)), batches,
+            n_clients=c.n_max, metrics_fn=cohort_metrics)
+    outs = {k: v.cpu().numpy() for k, v in outs.items()}
+    _sync(device)
+    wall = time.perf_counter() - t0
+    rows = []
+    for s, (name, n, p, _padded, nat) in enumerate(c.points):
+        if finals is not None:
+            ref = native(n, nat)[0].x["w"][0]
+            got = finals.x["w"][s, :n]
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max()) or 1.0
+        else:
+            err, scale = 0.0, 1.0
+        eff = float(np.mean([float(nat.sampler.mask_at(r).sum())
+                             for r in range(rounds)]))
+        curves = {"round": list(range(1, rounds + 1)),
+                  "consensus_x": [float(v) for v in outs["consensus_x"][s]],
+                  "xbar_norm": [float(v) for v in outs["xbar_norm"][s]],
+                  "wall_s": wall / len(c.points),
+                  "iters": rounds * COHORT_T0,
+                  "sweep_group_id": None if sequential else 0,
+                  "sweep_group_size": len(c.points),
+                  "sweep_group_wall_s": wall}
+        rows.append({"name": name, "n_clients": n, "p_active": p,
+                     "n_max": c.n_max, "eff_clients_per_round": eff,
+                     "native_rel_err": err / scale,
+                     "final_consensus_x": curves["consensus_x"][-1],
+                     **_group_fields(curves)})
+    return rows
+
+
+def cohort_check(rows) -> dict:
+    full = [r for r in rows if r["p_active"] == 1.0]
+    part = [r for r in rows if r["p_active"] < 1.0]
+    return {
+        "padded_matches_native":
+            max(r["native_rel_err"] for r in rows) < 1e-4,
+        "full_participation_exact":
+            all(r["eff_clients_per_round"] == r["n_clients"] for r in full),
+        "bernoulli_cohort_size_tracks_p":
+            all(abs(r["eff_clients_per_round"]
+                    - r["p_active"] * r["n_clients"])
+                < 10 * np.sqrt(r["n_clients"] * 0.25) + 1.0 for r in part),
+    }
+
+
+FIGURES = {"3": (fig3_run, None, 60), "4": (fig4_run, None, 50),
+           "6": (fig6_run, fig6_check, 40), "8": (fig8_run, fig8_check, 30),
+           "cohort": (cohort_run, cohort_check, 30)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fig", required=True, choices=sorted(FIGURES))
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--sequential", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fused", default="auto",
+                    choices=("auto", "require", "off"))
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run, check, rounds = FIGURES[args.fig]
+    rows = run(args.rounds or rounds, args.sequential, args.device,
+               args.fused)
+    for r in rows:
+        print(json.dumps({k: v for k, v in r.items() if k != "curves"}))
+    if check is not None:
+        print(json.dumps({"check": check(rows)}))
+
+
+if __name__ == "__main__":
+    main()

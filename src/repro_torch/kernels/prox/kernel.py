@@ -74,6 +74,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: "fused_update"; a count rises only where a wrapper launches its CUDA
 #: kernel (never on the plain path)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+#: the sweep kernels' launches of their gated instantiation (a cohort
+#: mask), keyed as LAUNCH_COUNTS and counted there too
+GATED_LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 SOURCE = Path(__file__).parent / "csrc" / "prox_sweep.cu"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -90,6 +93,7 @@ _MAX_BLOCKS = 2**31 - 1
 
 def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
+    GATED_LAUNCH_COUNTS.clear()
 
 
 def sweep_params_table(lam, theta, alpha, gamma, beta=0.0, *,
@@ -372,6 +376,8 @@ def _launch_grouped(name, key, leaves, params, mask, lead, kind=None):
                 raise RuntimeError(f"{name} grouped launch failed: CUDA "
                                    f"error {err}")
             LAUNCH_COUNTS[key] += 1
+            if gated:
+                GATED_LAUNCH_COUNTS[key] += 1
     return outs
 
 

@@ -11,11 +11,12 @@ Port of ``repro/kernels/prox/ops.py``:
   grouped launch for every leaf (per dtype), where the reference launches
   once a leaf;
 * :func:`fused_local_update` / :func:`fused_tracking` are the round
-  program's entry points.  They run one config's ``(C, ...)`` leaves
-  through the same grouped launch with a single-config axis (S = 1), as the
-  reference's unbatched call does.  (The reference's ``custom_vmap`` rule,
-  which maps a stacked-Hyper sweep axis onto the kernel's config axis,
-  comes with the sweep slice: there the leaves carry ``S`` explicitly.)
+  program's entry points.  One config's ``(C, ...)`` leaves with a (5,)
+  row run through the grouped launch with a single-config axis (S = 1), as
+  the reference's unbatched call does; the sweep's ``(S, C, ...)`` leaves
+  with an (S, 5) table run all S configs in the same one launch.  That
+  stands in for the reference's ``custom_vmap`` rule, which maps a
+  stacked-Hyper sweep axis onto the kernel's config axis.
 """
 from __future__ import annotations
 
@@ -96,33 +97,44 @@ def _leaves(tree, keys):
     return [tree[k].contiguous() for k in keys]
 
 
-def _gate(mask):
-    return None if mask is None else mask.to(torch.float32).contiguous()[None]
+def _table(hp_vec, mask):
+    """(params table, gate, lead) of a round: one config's (5,) row as a
+    (1, 5) table with a (1, C) gate over ``(C, ...)`` leaves (lead 1), or
+    the sweep's (S, 5) table with its (S, C) gate over ``(S, C, ...)``
+    leaves (lead 2)."""
+    gate = None if mask is None else mask.to(torch.float32).contiguous()
+    if hp_vec.ndim == 1:
+        return hp_vec[None], None if gate is None else gate[None], 1
+    return hp_vec, gate, 2
 
 
 def fused_local_update(x_tree, y_tree, nu_tree, hp_vec, mask=None, *,
                        kind: str):
-    """Momentum + prox for one config's clients (S = 1 sweep kernel).
+    """Momentum + prox for one config's clients, or for every config of a
+    sweep: one grouped launch.
 
-    ``hp_vec`` is the (5,) row [lam, theta, alpha, gamma, beta] on the
-    leaves' device; ``mask`` an optional (C,) cohort gate freezing rows
-    in-kernel.  Returns (x', nu').
+    ``hp_vec`` is the (5,) row [lam, theta, alpha, gamma, beta] (leaves
+    ``(C, ...)``, ``mask`` an optional (C,) cohort gate) or the (S, 5)
+    table (leaves ``(S, C, ...)``, ``mask`` (S, C)), on the leaves'
+    device; the gate freezes rows in-kernel.  Returns (x', nu').
     """
     with annotate("fused_kernel"):
         keys = list(x_tree)
+        params, gate, lead = _table(hp_vec, mask)
         xs, nus = fused_update_sweep_grouped(
             _leaves(x_tree, keys), _leaves(y_tree, keys),
-            _leaves(nu_tree, keys), hp_vec[None], _gate(mask), kind=kind,
-            lead=1)
+            _leaves(nu_tree, keys), params, gate, kind=kind, lead=lead)
     return dict(zip(keys, xs)), dict(zip(keys, nus))
 
 
 def fused_tracking(y_tree, g_new_tree, g_old_tree, hp_vec, mask=None):
     """Tracking axpy ``y' = y + beta (g_new - g_old)`` (+ in-kernel freeze
-    when ``mask`` given) for one config's clients.  Returns (y', g_kept)."""
+    when ``mask`` given) for one config's clients or a sweep's, as
+    :func:`fused_local_update`.  Returns (y', g_kept)."""
     with annotate("fused_kernel"):
         keys = list(y_tree)
+        params, gate, lead = _table(hp_vec, mask)
         ys, gs = fused_tracking_sweep_grouped(
             _leaves(y_tree, keys), _leaves(g_new_tree, keys),
-            _leaves(g_old_tree, keys), hp_vec[None], _gate(mask), lead=1)
+            _leaves(g_old_tree, keys), params, gate, lead=lead)
     return dict(zip(keys, ys)), dict(zip(keys, gs))

@@ -1,8 +1,11 @@
 """Quickstart: DEPOSITUM rounds of the paper's MLP on a 10-client ring.
 
-Port of ``examples/quickstart.py`` and of ``run_depositum`` in
-``benchmarks/common.py`` (without telemetry).  The default configuration
-is the Polyak point of the paper's Fig. 4 (``benchmarks/fig4_momentum.py``):
+Port of ``examples/quickstart.py`` and of the harness of
+``benchmarks/common.py`` (without telemetry): ``run_depositum`` runs one
+configuration, ``run_depositum_grid`` a grid of them through the sweep
+engine (one run a group of configurations that share their structure).
+The default configuration is the Polyak point of the paper's Fig. 4
+(``benchmarks/fig4_momentum.py``):
 an MLP 123 -> 64 -> 32 -> 10 (ReLU, CE loss) on synthetic classification
 data with Dirichlet label skew (theta = 1.0) over 10 clients on a ring,
 batch 32, T0 = 10, alpha = 0.05, beta = 0.5, gamma = 0.8 and an MCP prox
@@ -23,11 +26,15 @@ from torch.func import functional_call
 from repro_torch._device import resolve_device
 from repro_torch.core import (
     DepositumConfig,
+    MixPlan,
     init,
     local_then_comm_round,
     make_dense_mixer,
     mixing_matrix,
+    plan_spectral_lambda,
     spectral_lambda,
+    stack_hypers,
+    stack_mixplans,
     stationarity_metrics,
 )
 from repro_torch.data import make_classification
@@ -139,6 +146,23 @@ def prepare(cfg: ExperimentConfig, *, params0: dict | None = None,
         all_x=xs_full.reshape(-1, cfg.n_features), all_y=ys_full.reshape(-1))
 
 
+def classifier_metrics(model, grad_fns: dict, all_x: torch.Tensor,
+                       all_y: torch.Tensor, config: DepositumConfig):
+    """``metrics(state, hyper) -> dict`` of 0-d tensors: the stationarity
+    terms and the consensus model's loss and accuracy on all the data
+    (``hyper`` None reads the config's floats)."""
+    def metrics(state, hyper=None):
+        m = stationarity_metrics(state, grad_fns, config, hyper=hyper)
+        pbar = {k: torch.mean(v, 0) for k, v in state.x.items()}
+        logits = functional_call(model, pbar, (all_x,))
+        m["accuracy"] = torch.mean(
+            (torch.argmax(logits, -1) == all_y).to(torch.float32))
+        m["loss"] = ce_loss(model, pbar, {"x": all_x, "y": all_y})
+        return m
+
+    return metrics
+
+
 def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
                   metrics_every: int | None = None, params0: dict | None = None,
                   device="cuda"):
@@ -151,6 +175,7 @@ def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
     """
     p = prepare(cfg, params0=params0, device=device)
     dep, state = cfg.depositum, p.state
+    metrics = classifier_metrics(p.model, p.grad_fns, p.all_x, p.all_y, dep)
     curves: dict[str, list] = {k: [] for k in
                                ("round", "loss", "accuracy") + METRIC_KEYS}
     every = metrics_every if metrics_every else max(cfg.rounds // 20, 1)
@@ -159,15 +184,9 @@ def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
         state, _ = local_then_comm_round(state, p.batches(r), p.grad_fn, dep,
                                          p.mixer)
         if collect_metrics and (r % every == 0 or r == cfg.rounds - 1):
-            m = stationarity_metrics(state, p.grad_fns, dep)
-            pbar = {k: torch.mean(v, 0) for k, v in state.x.items()}
-            logits = functional_call(p.model, pbar, (p.all_x,))
+            m = metrics(state)
             curves["round"].append(r + 1)
-            curves["loss"].append(float(ce_loss(
-                p.model, pbar, {"x": p.all_x, "y": p.all_y})))
-            curves["accuracy"].append(float(torch.mean(
-                (torch.argmax(logits, -1) == p.all_y).to(torch.float32))))
-            for k in METRIC_KEYS:
+            for k in ("loss", "accuracy") + METRIC_KEYS:
                 curves[k].append(float(m[k]))
     if p.all_x.device.type == "cuda":
         torch.cuda.synchronize(p.all_x.device)
@@ -175,6 +194,141 @@ def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
     curves["iters"] = cfg.rounds * dep.comm_period
     curves["spectral_lambda"] = float(spectral_lambda(p.W))
     return state, curves
+
+
+# ---------------------------------------------------------------------------
+# Sweep-engine path: a whole grid as one run
+# ---------------------------------------------------------------------------
+
+def _static_key(cfg: ExperimentConfig):
+    """Everything that changes the round program (the grouping key).
+
+    Topology is not part of it: mixing is a MixPlan operand, so configs
+    that differ only in their graph stack on the same sweep axis as
+    configs that differ in step sizes.
+    """
+    d = cfg.depositum
+    return (cfg.model, cfg.n_clients, cfg.theta, cfg.rounds, cfg.batch,
+            cfg.n_features, cfg.n_classes, cfg.n_samples, cfg.seed,
+            tuple(cfg.hidden), d.momentum, d.comm_period, d.prox_name,
+            d.fused_mode())
+
+
+@dataclasses.dataclass
+class GridOperands:
+    """The sweep engine's operands for a group of configs that share
+    their structure: data and model (``prepared``, from the first config),
+    the initial params, the mixing plan, the stacked Hyper and every
+    round's minibatches."""
+
+    prepared: Prepared
+    params0: dict
+    plan: MixPlan            # shared, or stacked (S, n, n) over topologies
+    hypers: object           # Hyper of (S,) values
+    batches: dict            # leaves (rounds, T0, C, batch, ...)
+
+
+def grid_operands(cfgs: list[ExperimentConfig], *,
+                  device="cuda") -> GridOperands:
+    """Operands of one static-config group (:func:`_static_key`): a
+    stacked Hyper axis, and a stacked dense-W plan when the topologies
+    differ.  The data, initial weights and minibatches are those of
+    :func:`run_depositum` on the first config."""
+    if len({_static_key(c) for c in cfgs}) != 1:
+        raise ValueError("grid_operands takes configs of one static "
+                         "structure (group them with run_depositum_grid)")
+    p = prepare(cfgs[0], device=device)
+    dev = p.all_x.device
+    plans = [MixPlan.from_topology(c.topology, c.n_clients, device=dev)
+             for c in cfgs]
+    if len({c.topology for c in cfgs}) == 1:
+        plan = plans[0]               # one graph: shared, no stacked W
+    else:
+        plan = stack_mixplans(plans)  # topology sweep axis: (S, n, n)
+    return GridOperands(
+        prepared=p, params0={k: v[0] for k, v in p.state.x.items()},
+        plan=plan, hypers=stack_hypers([c.depositum.hyper() for c in cfgs]),
+        batches={"x": p.bx, "y": p.by})
+
+
+def _run_sweep_group(cfgs: list[ExperimentConfig], group_id: int,
+                     collect_metrics: bool = True, *, backend=None,
+                     device="cuda") -> list[dict]:
+    """One static-config group through the sweep engine."""
+    from repro_torch.training.sweep import sweep_run
+
+    cfg = cfgs[0]
+    dep = cfg.depositum
+    ops = grid_operands(cfgs, device=device)
+    p, plan = ops.prepared, ops.plan
+    dev = p.all_x.device
+    lambdas = plan_spectral_lambda(plan, cfg.n_clients)
+
+    t0 = time.perf_counter()
+    _final, outs = sweep_run(
+        ops.params0, p.grad_fn, dep, plan, ops.hypers, ops.batches,
+        n_clients=cfg.n_clients,
+        metrics_fn=(classifier_metrics(p.model, p.grad_fns, p.all_x, p.all_y,
+                                       dep) if collect_metrics else None),
+        backend=backend)
+    outs = {k: v.cpu().numpy() for k, v in outs.items()}   # waits
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    rows = []
+    for s in range(len(cfgs)):
+        curves: dict = {"round": list(range(1, cfg.rounds + 1))}
+        for k in ("loss", "accuracy") + METRIC_KEYS:
+            curves[k] = ([float(v) for v in outs[k][s]]
+                         if collect_metrics else [])
+        curves["wall_s"] = wall / len(cfgs)
+        curves["iters"] = cfg.rounds * dep.comm_period
+        curves["spectral_lambda"] = float(np.atleast_1d(lambdas)[
+            s if plan.is_stacked else 0])
+        curves["sweep_group_id"] = group_id
+        curves["sweep_group_size"] = len(cfgs)
+        curves["sweep_group_wall_s"] = wall
+        rows.append(curves)
+    return rows
+
+
+def run_depositum_grid(cfgs: list[ExperimentConfig],
+                       collect_metrics: bool = True, *, backend=None,
+                       device="cuda") -> list[dict]:
+    """Run a grid of experiments through the sweep engine.
+
+    Configs are grouped by static structure (:func:`_static_key`); each
+    group is one sweep over its stacked Hyper axis and, since mixing is a
+    MixPlan operand, over a stacked dense-W topology axis too.  Returns
+    per-config curve dicts in input order, shaped like
+    :func:`run_depositum`'s curves, with each point's ``spectral_lambda``
+    and its group's id, size and wall time.
+    """
+    groups: dict[tuple, list[int]] = {}
+    for i, cfg in enumerate(cfgs):
+        groups.setdefault(_static_key(cfg), []).append(i)
+    out: list = [None] * len(cfgs)
+    for gid, idxs in enumerate(groups.values()):
+        rows = _run_sweep_group([cfgs[i] for i in idxs], gid,
+                                collect_metrics, backend=backend,
+                                device=device)
+        for i, row in zip(idxs, rows):
+            out[i] = row
+    return out
+
+
+def grid_wall_s(rows: list[dict]) -> float:
+    """Total wall time of grid rows (each sweep group counted once)."""
+    seen, total = set(), 0.0
+    for r in rows:
+        gid = r.get("sweep_group_id")
+        if gid is None:
+            total += r["wall_s"]
+        elif gid not in seen:
+            seen.add(gid)
+            total += r["sweep_group_wall_s"]
+    return total
 
 
 def main(argv=None):

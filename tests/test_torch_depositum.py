@@ -21,13 +21,13 @@ from benchmarks.common import apply_mlp, ce_loss as j_ce, init_mlp
 from repro.core import depositum as jdep
 from repro.core.gossip import make_dense_mixer as j_mixer
 from repro.core.mixing import MixPlan as JPlan
-from repro.core.schedule import MixSchedule
 from repro.core.topology import mixing_matrix
 from repro_torch.convert import (params_from_numpy, params_to_numpy,
                                  state_from_numpy, state_to_numpy)
 from repro_torch.core import depositum as tdep
 from repro_torch.core.gossip import make_dense_mixer as t_mixer
 from repro_torch.core.mixing import MixPlan as TPlan
+from repro_torch.core.schedule import MixSchedule as TSchedule
 from repro_torch.models.classifier import MLP, client_grad_fn
 
 C, D_IN, N_CLS, HIDDEN, T0, B = 4, 12, 5, (16, 8), 3, 6
@@ -214,13 +214,21 @@ def test_init_padding_and_conversion_round_trip():
 
 
 def test_later_slices_and_missing_cuda_raise():
+    """Compressed gossip waits for its slice (schedules arrived with the
+    sweep engine: ``tests/test_torch_schedule.py``)."""
     params_np, state_np, batches = _problem()
     st = state_from_numpy(state_np, device="cpu")
     bt = {k: torch.from_numpy(v[0]) for k, v in batches.items()}
-    sched = MixSchedule.constant(JPlan.dense(mixing_matrix("ring", C)))
-    with pytest.raises(NotImplementedError, match="schedules slice"):
+
+    class CompressionSpec:
+        pass
+
+    with pytest.raises(NotImplementedError, match="compression slice"):
         tdep.step(st, bt, _t_grad_fn(), tdep.DepositumConfig(**_cfg()),
-                  sched)
+                  CompressionSpec())
+    with pytest.raises(NotImplementedError, match="compression slice"):
+        TSchedule.constant(TPlan.dense(mixing_matrix("ring", C),
+                                       device="cpu")).with_compression(None)
     with pytest.raises(NotImplementedError, match="compression"):
         tdep.init(params_from_numpy(params_np, device="cpu"), C,
                   compress=object(), device="cpu")

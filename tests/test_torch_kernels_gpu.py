@@ -12,6 +12,9 @@ operations in the same order (built with -fmad=false), held at atol = rtol
 = 1e-6; frozen rows of the cohort gate are held bit for bit.  The flash
 kernels sum their online softmax blockwise: fp32 (``flash_fwd.cu``) at
 2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2.
+The sweep rounds hold fused against unfused bit for bit, and the card
+against the CPU at rtol 1e-4 / atol 1e-6 (products summed in another
+order).
 """
 import numpy as np
 import pytest
@@ -416,3 +419,98 @@ def test_reduced_server_on_the_card_matches_the_cpu():
     assert torch.equal(toks["cpu"], toks["cuda"])
     torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
                                rtol=1e-4)
+
+
+def _bits_equal_states(a, b):
+    for f in ("x", "y", "nu", "g"):
+        for key, v in getattr(a, f).items():
+            if not torch.equal(v.view(torch.int32),
+                               getattr(b, f)[key].view(torch.int32)):
+                return False
+    return True
+
+
+@pytest.mark.gpu
+def test_sweep_round_is_one_launch_a_step_fused_equal_to_unfused():
+    """Four configs (a stacked dense W over four topologies, a gamma x
+    alpha grid) of a small MLP through ``sweep_run`` on the card: one
+    grouped launch of each sweep kernel a step for all four, and fused
+    bit-equal to unfused (both divide by the round's device scalars)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.core import (DepositumConfig, MixPlan, hyper_grid,
+                                  stack_mixplans)
+    from repro_torch.models.classifier import MLP, client_grad_fn, init_params
+    from repro_torch.training.sweep import sweep_run
+
+    n, T0, R, d_in, k = 6, 4, 2, 12, 5
+    model = MLP(d_in, k, (16, 8)).cuda()
+    plans = stack_mixplans([MixPlan.from_topology(t, n, device="cuda")
+                            for t in ("complete", "ring", "star", "torus")])
+    rng = np.random.default_rng(1)
+    batches = {"x": torch.from_numpy(rng.standard_normal(
+        (R, T0, n, 6, d_in)).astype(np.float32)).cuda(),
+        "y": torch.from_numpy(rng.integers(0, k, (R, T0, n, 6))).cuda()}
+    finals = {}
+    for mode in ("require", "off"):
+        cfg = DepositumConfig(comm_period=T0, prox_name="mcp",
+                              prox_kwargs={"lam": 1e-3, "theta": 4.0},
+                              fused=mode)
+        hypers = hyper_grid(base=cfg.hyper(), gamma=[0.5, 0.8],
+                            alpha=[0.05, 0.1])
+        tk.reset_launch_counts()
+        finals[mode], _ = sweep_run(init_params(model, 0, device="cuda"),
+                                    client_grad_fn(model), cfg, plans,
+                                    hypers, batches, n_clients=n)
+        torch.cuda.synchronize()
+        want = R * T0 if mode == "require" else 0
+        assert tk.LAUNCH_COUNTS["fused_sweep"] == want
+        assert tk.LAUNCH_COUNTS["tracking_sweep"] == want
+        assert not tk.GATED_LAUNCH_COUNTS
+    assert finals["require"].x["l0.w"].shape == (4, n, d_in, 16)
+    assert _bits_equal_states(finals["require"], finals["off"])
+
+
+@pytest.mark.gpu
+def test_gated_cohort_sweep_round_on_the_card():
+    """A padded cohort grid on the card: every step one launch of each
+    kernel's gated instantiation, the rows a round leaves out bit for bit
+    unchanged, fused bit-equal to unfused, and the card within rtol 1e-4 /
+    atol 1e-6 of the plain run on the CPU (least-squares sums in another
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.figures import (COHORT_D, cohort_grad_fn, cohort_setup)
+    from repro_torch.training.sweep import make_sweep_round, sweep_init
+
+    grid, rounds = dict(sizes=[4, 8], p_active=[0.5, 1.0], n_max=16), 3
+    out = {}
+    for dev, mode in (("cuda", "require"), ("cuda", "off"),
+                      ("cpu", "require")):
+        c = cohort_setup(dev, mode, **grid)
+        T0 = c.config.comm_period
+        round_fn = make_sweep_round(cohort_grad_fn(c.A, c.b), c.config,
+                                    c.grid, batch_axis=None)
+        state = sweep_init({"w": torch.zeros(COHORT_D, device=dev)}, 16, 4)
+        tk.reset_launch_counts()
+        for r in range(rounds):
+            before = state
+            state, _ = round_fn(state, c.config.hyper(),
+                                torch.zeros((T0, 1), device=dev))
+            idle = c.grid.sampler.mask_at(r) <= 0
+            for f in ("x", "y", "nu", "g"):
+                a, b = getattr(state, f)["w"], getattr(before, f)["w"]
+                assert torch.equal(a[idle].view(torch.int32),
+                                   b[idle].view(torch.int32)), f
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = rounds * T0 if mode == "require" else 0
+            assert tk.LAUNCH_COUNTS["fused_sweep"] == want
+            assert tk.GATED_LAUNCH_COUNTS["fused_sweep"] == want
+            assert tk.GATED_LAUNCH_COUNTS["tracking_sweep"] == want
+        out[(dev, mode)] = state
+    assert _bits_equal_states(out[("cuda", "require")], out[("cuda", "off")])
+    for f in ("x", "y", "nu", "g"):
+        torch.testing.assert_close(
+            getattr(out[("cuda", "require")], f)["w"].cpu(),
+            getattr(out[("cpu", "require")], f)["w"], rtol=1e-4, atol=1e-6)
