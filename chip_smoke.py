@@ -61,6 +61,30 @@ final line):
      gated instantiation: every launch gated, the rows each round leaves
      out (and every padding row) bit for bit unchanged, each padded point
      within ``COHORT_NATIVE_REL`` of its native-size run;
+4b. the compressed paths (CHOCO error feedback, ``core/compression.py``),
+   every step of a compressed round through both sweep kernels:
+   * ``compressed_main``: the Fig. 4 MLP point under ``topk(0.1)`` and
+     ``qsgd(4)``, ``ROUNDS`` rounds each: 300 launches of each kernel,
+     ``fused="require"`` bit-equal to ``"off"`` with the memory; a
+     ``none`` spec bit-equal to the dense main path (no memory); one
+     round's comm step on the card against the CPU from the same state
+     (the same hashed draws), x within ``COMM_CPU_ATOL``;
+   * ``sweep_comm``: the accuracy-vs-bytes frontier of
+     ``fig_comm_frontier.py`` at its published sizes (dense, top-k 0.05 /
+     0.1 / 0.25 / 0.5, QSGD 2 / 4 / 8 bits; 8 clients, D 64, T0 5, ring),
+     ``COMM_ROUNDS`` rounds as one mixed-kind sweep (150 launches of each
+     kernel) against its native-kind sequential runs (1,200): after one
+     round within ``SWEEP_SEQ_ATOL`` / ``COMM_SEQ_RTOL``, after the run x
+     within ``SWEEP_SEQ_REL``; fused = unfused bit for bit; the
+     frontier's ``check`` all true; ``sweep_vs_sequential`` timed in
+     turns; each kind's compression of one comm step timed on the card;
+   * ``sweep_comm_mlp``: the same eight compressors on the Fig. 4 MLP
+     point as an S = 8 sweep (29.8 MB of state), fused = unfused bit for
+     bit;
+   * ``graph_choco``: ``choco_mix`` for top-k and QSGD captured in a CUDA
+     graph, each replay bit-equal to the eager call (no host sync);
+   * ``round_time_comm``: round wall time and profiled device busy share
+     of a top-k, a QSGD and a dense round, in turns;
 5. the served path at full width: ``qwen3-1.7b`` (28 layers, d 2048, 16/8
    heads of 128, d_ff 6144, vocab 151936, bf16, untied; random weights from
    a seeded generator on the card) through ``BatchedServer`` with B = 4,
@@ -87,9 +111,9 @@ final line):
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused.
 
-Before each path (phases 3, 4, 4a, 5, 6) every launch count is set to 0;
-it is read just after.  The kernels line's launches of the two sweep
-kernels sum the paths that run them (3 and 4a).  Prints JSON lines per
+Before each path (phases 3, 4, 4a, 4b, 5, 6) every launch count is set to
+0; it is read just after.  The kernels line's launches of the two sweep
+kernels sum the paths that run them (3, 4a and 4b).  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -160,6 +184,17 @@ SWEEP_SEQ_ATOL, SWEEP_SEQ_RTOL = 1e-6, 2e-5     # one round
 SWEEP_SEQ_REL = 5e-2                            # whole run, x
 COHORT_NATIVE_REL = 1e-4    # padded point vs native run (fig_cohort.py)
 SWEEP_TIMING_PAIRS = 3      # sweep and sequential timed in turns
+# Compressed paths.  Fused and unfused compressed rounds do the same fp32
+# operations (the compressors are plain PyTorch ops on both): bit-equal.
+# The frontier sweep runs every point in the mixed form, its sequential
+# runs each point's native kind: the dense point then differs by the
+# CHOCO arithmetic's rounding (x + (W x - x) against W x), hence rtol 1e-5
+# after one round; the whole run's x at SWEEP_SEQ_REL, set before the
+# first run on the card.  Card against CPU: one comm step from the same
+# state, where only the mix's and the gradients' products round apart.
+COMM_ROUNDS = 30
+COMM_SEQ_RTOL = 1e-5
+COMM_CPU_ATOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -786,10 +821,10 @@ def _time_pair(fn_kernel, fn_plain, outs_equal):
     return min(k1, k2), min(p1, p2), outs_equal()
 
 
-def _device_ms(fn, names, iters: int = 50):
+def _device_ms(fn, names=None, iters: int = 50):
     """Device time a call of ``fn()`` spends in the kernels whose names
-    hold one of ``names``, from ``torch.profiler``; None where the profiler
-    records no device time."""
+    hold one of ``names`` (every kernel and copy with None), from
+    ``torch.profiler``; None where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -803,7 +838,7 @@ def _device_ms(fn, names, iters: int = 50):
                    or getattr(e, "self_cuda_time_total", 0.0))
              for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(n in e.key for n in names))
+             and (names is None or any(n in e.key for n in names)))
     return us / iters / 1e3 if us > 0 else None
 
 
@@ -1373,6 +1408,404 @@ def phase_sweep_cohort() -> tuple[dict, dict]:
         "padding_rows_zero": padded_zero}
 
 
+def _comm_leaves(state) -> list:
+    """(name, tensor) of every state leaf and memory leaf of a run."""
+    out = [(f"{f}.{k}", v) for f in ("x", "y", "nu", "g")
+           for k, v in getattr(state, f).items()]
+    for var, mem in (state.comm or {}).items():
+        out += [(f"comm.{var}.{f}.{k}", v) for f in ("xhat", "s")
+                for k, v in getattr(mem, f).items()]
+    return out
+
+
+def _assert_bits_with_memory(path, a, b) -> None:
+    """Every state and memory leaf of ``a`` bit-equal to ``b``'s."""
+    la, lb = _comm_leaves(a), _comm_leaves(b)
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        raise AssertionError(f"{path}: state structures differ")
+    for (name, u), (_, v) in zip(la, lb):
+        if not bits_equal(u, v):
+            raise AssertionError(f"{path}: {name} not bit-equal")
+
+
+def _state_mb(state) -> float:
+    """Bytes of x, y, nu, mu, g and the memory, in MB."""
+    leaves = [v for f in ("x", "y", "nu", "mu", "g")
+              for v in getattr(state, f).values()]
+    leaves += [v for name, v in _comm_leaves(state)
+               if name.startswith("comm.")]
+    return sum(v.numel() * v.element_size() for v in leaves) / 1e6
+
+
+def _state_to(state, dev):
+    """``state`` with every tensor (memory included) on ``dev``."""
+    mv = lambda tree: {k: v.to(dev) for k, v in tree.items()}
+    return state._replace(
+        **{f: mv(getattr(state, f)) for f in ("x", "y", "nu", "mu", "g")},
+        comm={var: type(m)(*(mv(t) for t in m))
+              for var, m in state.comm.items()} if state.comm else ())
+
+
+def _all_specs(device):
+    """The frontier's eight compressors (ef_step 0.3), named."""
+    from repro_torch.core import CompressionSpec
+    from repro_torch.figures import (COMM_EF_STEP, COMM_QSGD_BITS,
+                                     COMM_TOPK_RATES)
+    return ([("dense", CompressionSpec.none(device=device))]
+            + [(f"topk_{r}", CompressionSpec.topk(r, ef_step=COMM_EF_STEP,
+                                                  device=device))
+               for r in COMM_TOPK_RATES]
+            + [(f"qsgd_{b}b", CompressionSpec.qsgd(b, ef_step=COMM_EF_STEP,
+                                                   device=device))
+               for b in COMM_QSGD_BITS])
+
+
+def phase_compressed_main(dense_state) -> tuple[list, dict]:
+    """The Fig. 4 MLP point (the main path's config) under ``topk(0.1)``
+    and ``qsgd(4)`` for ROUNDS rounds through ``run_depositum(...,
+    compress=spec)``: each sweep kernel once a step, fused = unfused bit
+    for bit with the memory, every value finite; then one round on the
+    card and on the CPU (the same hashed draws; its x difference is
+    reported: a top-k threshold or a QSGD level can flip on an ulp of the
+    gradients), and that round's comm step from the card's state on both,
+    x within COMM_CPU_ATOL.  A ``none`` spec is bit-equal to
+    ``dense_state`` (the main path's run) and allocates no memory."""
+    import torch
+    from repro_torch.core import CompressionSpec, step
+    from repro_torch.quickstart import mlp_config, prepare, run_depositum
+    makers = {"topk": lambda dev: CompressionSpec.topk(0.1, device=dev),
+              "qsgd": lambda dev: CompressionSpec.qsgd(4, device=dev)}
+    want = ROUNDS * mlp_config(ROUNDS).depositum.comm_period
+    path_launches, out = [], {}
+    for name, make in makers.items():
+        runs = {}
+        for mode in ("require", "off"):
+            reset_counts()
+            runs[mode] = run_depositum(mlp_config(ROUNDS, fused=mode),
+                                       compress=make("cuda"),
+                                       metrics_every=ROUNDS, device="cuda")
+            torch.cuda.synchronize()
+            launches = read_counts()
+            expect_counts(f"{name} path, fused={mode!r}", launches,
+                          {"fused_update_sweep": want,
+                           "fused_tracking_sweep": want}
+                          if mode == "require" else {})
+            if mode == "require":
+                path_launches.append(launches)
+        (st, curves), (off, _) = runs["require"], runs["off"]
+        _assert_bits_with_memory(f"{name} fused vs unfused", st, off)
+        if not all(bool(torch.isfinite(v).all())
+                   for _, v in _comm_leaves(st)):
+            raise AssertionError(f"{name}: state or memory not finite")
+        cfg1 = mlp_config(1, fused="require")
+        T0 = cfg1.depositum.comm_period
+        one = {dev: run_depositum(cfg1, compress=make(dev),
+                                  collect_metrics=False, device=dev)[0]
+               for dev in ("cuda", "cpu")}
+        round_err = max(float((v.cpu() - one["cpu"].x[k]).abs().max())
+                        for k, v in one["cuda"].x.items())
+        p = {dev: prepare(cfg1, compress=make(dev), device=dev)
+             for dev in ("cuda", "cpu")}
+        st0 = p["cuda"].state
+        for i in range(T0 - 1):
+            st0, _ = step(st0, {k: v[i] for k, v in
+                                p["cuda"].batches(0).items()},
+                          p["cuda"].grad_fn, cfg1.depositum,
+                          p["cuda"].mixer, is_comm_step=False)
+        comm_step = {}
+        for dev in ("cuda", "cpu"):
+            comm_step[dev], _ = step(
+                _state_to(st0, dev), {k: v[T0 - 1] for k, v in
+                                      p[dev].batches(0).items()},
+                p[dev].grad_fn, cfg1.depositum, p[dev].mixer)
+        step_err = max(float((v.cpu() - comm_step["cpu"].x[k]).abs().max())
+                       for k, v in comm_step["cuda"].x.items())
+        if not step_err <= COMM_CPU_ATOL:
+            raise AssertionError(f"{name}: comm step card vs CPU x differs "
+                                 f"by {step_err}")
+        out[name] = {"launches": path_launches[-1],
+                     "loss_last": curves["loss"][-1],
+                     "accuracy_last": curves["accuracy"][-1],
+                     "stationarity_last": curves["stationarity"][-1],
+                     "state_mb": _state_mb(st),
+                     "comm_step_card_vs_cpu_x_max_abs": step_err,
+                     "round_card_vs_cpu_x_max_abs": round_err}
+    reset_counts()
+    none_st, _ = run_depositum(mlp_config(ROUNDS, fused="require"),
+                               compress=CompressionSpec.none(device="cuda"),
+                               collect_metrics=False, device="cuda")
+    torch.cuda.synchronize()
+    none_launches = read_counts()
+    expect_counts("none path", none_launches,
+                  {"fused_update_sweep": want, "fused_tracking_sweep": want})
+    path_launches.append(none_launches)
+    if none_st.comm != ():
+        raise AssertionError("a none spec allocated memory")
+    _assert_bits_with_memory("none spec vs the dense path", none_st,
+                             dense_state)
+    return path_launches, {
+        "phase": "compressed_main", "rounds": ROUNDS, **out,
+        "none": {"launches": none_launches, "bit_equal_dense": True},
+        "dense_state_mb": _state_mb(dense_state), "cpu_atol": COMM_CPU_ATOL}
+
+
+def _compress_times(trees: dict) -> dict:
+    """Each kind's ``compress`` of one comm step's x (a round key, as the
+    round program draws): wall ms (CUDA events, host work included) and
+    device ms (profiler), per tree in ``trees``."""
+    from repro_torch.core import comm_round_keys, compress, stack_specs
+    out = {}
+    for label, (tree, lead) in trees.items():
+        specs = dict(_all_specs("cuda"))
+        if lead == 2:
+            specs = {"mixed_S8": stack_specs(list(specs.values()))}
+        else:
+            specs.pop("dense")
+        row = {}
+        for name, spec in specs.items():
+            key = comm_round_keys(spec, 3)[0]
+            fn = lambda: compress(spec, tree, key, lead=lead)
+            row[name] = {"ms": time_ms(fn, iters=50, warmup=5),
+                         "device_ms": _device_ms(fn, iters=20)}
+        out[label] = row
+    return out
+
+
+def phase_sweep_comm() -> tuple[dict, dict]:
+    """The accuracy-vs-bytes frontier (``fig_comm_frontier.py``) at its
+    published sizes: the eight compressors as one mixed-kind sweep for
+    COMM_ROUNDS rounds with ``fused="require"`` (one grouped launch of
+    each kernel a step for all eight) against ``fused="off"`` (bit for bit,
+    memory included) and against each point's native-kind run through
+    ``sweep_run_sequential`` (eight times the launches); the frontier's
+    own rows and ``check``; both timed in turns; each kind's compression
+    of one comm step timed."""
+    import dataclasses
+    import torch
+    from repro_torch.core import stack_hypers
+    from repro_torch.figures import (COMM_N, comm_check, comm_run,
+                                     comm_setup)
+    from repro_torch.training.sweep import sweep_run, sweep_run_sequential
+
+    c = comm_setup("cuda", "require")
+    S, T0 = len(c.points), c.config.comm_period
+    hyper = c.config.hyper()
+    hypers = stack_hypers([hyper] * S)
+
+    def run_sweep(mode, rounds=COMM_ROUNDS):
+        params0, grad_fn, batches, _ = c.operands(rounds)
+        return sweep_run(params0, grad_fn,
+                         dataclasses.replace(c.config, fused=mode), c.grid,
+                         hypers, batches, n_clients=COMM_N)[0]
+
+    def run_seq(rounds=COMM_ROUNDS):
+        params0, grad_fn, batches, _ = c.operands(rounds)
+        return [sweep_run_sequential(params0, grad_fn, c.config, sched,
+                                     hyper, batches, n_clients=COMM_N)[0]
+                for *_, sched in c.points]
+
+    sweep1, seq1 = run_sweep("require", 1), run_seq(1)
+    reset_counts()
+    sweep, wall_sweep = _timed(lambda: run_sweep("require"))
+    launches = _sweep_counts("frontier sweep", COMM_ROUNDS * T0)
+    reset_counts()
+    seq, wall_seq = _timed(run_seq)
+    seq_launches = _sweep_counts("frontier sequential",
+                                 S * COMM_ROUNDS * T0)
+    off = run_sweep("off")
+    _assert_bits_with_memory("frontier fused vs unfused", sweep, off)
+    one_err, rel = {}, {}
+    for s, (name, *_rest) in enumerate(c.points):
+        for f in ("x", "y", "nu", "g"):
+            a, b = getattr(sweep1, f)["w"][s], getattr(seq1[s], f)["w"][0]
+            torch.testing.assert_close(
+                a, b, atol=SWEEP_SEQ_ATOL, rtol=COMM_SEQ_RTOL,
+                msg=lambda m: f"frontier {name} {f}, one round: {m}")
+            one_err[f"{name}.{f}"] = float((a - b).abs().max())
+        a, b = sweep.x["w"][s], seq[s].x["w"][0]
+        rel[name] = float(torch.linalg.vector_norm(a - b)
+                          / torch.linalg.vector_norm(b))
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"frontier {name}: x not finite")
+    if max(rel.values()) > SWEEP_SEQ_REL:
+        raise AssertionError(f"frontier: sweep vs sequential x {rel}")
+    rows = comm_run(COMM_ROUNDS, device="cuda", fused="require")
+    check = comm_check(rows)
+    if not all(check.values()):
+        raise AssertionError(f"frontier check failed: {check}")
+    walls = {"sweep_s": [wall_sweep], "sequential_s": [wall_seq]}
+    for _ in range(SWEEP_TIMING_PAIRS - 1):
+        walls["sequential_s"].append(_timed(run_seq)[1])
+        walls["sweep_s"].append(_timed(lambda: run_sweep("require"))[1])
+    ratios = [q / w for q, w in zip(walls["sequential_s"], walls["sweep_s"])]
+    xs = {"w": sweep.x["w"]}
+    times = _compress_times({"frontier_x": ({"w": xs["w"][1]}, 1),
+                             "frontier_x_S8": (xs, 2)})
+    keep = ("name", "bytes_per_round", "bits_per_coord", "final_loss",
+            "first_loss", "final_consensus_x")
+    return launches, {
+        "phase": "sweep_comm", "points": [pt[0] for pt in c.points],
+        "rounds": COMM_ROUNDS, "launches": launches,
+        "sequential_launches": seq_launches,
+        "fused_vs_unfused_bit_equal": True,
+        "sweep_vs_sequential_one_round_max_abs": one_err,
+        "one_round_atol": SWEEP_SEQ_ATOL, "one_round_rtol": COMM_SEQ_RTOL,
+        "sweep_vs_sequential_x_rel_l2": rel,
+        "whole_run_rel_l2": SWEEP_SEQ_REL,
+        "rows": [{k: r[k] for k in keep} for r in rows], "check": check,
+        "sweep_vs_sequential_walls": walls, "sweep_vs_sequential": ratios,
+        "compress_ms": times}
+
+
+def phase_sweep_comm_mlp() -> tuple[dict, dict]:
+    """The frontier's eight compressors on the Fig. 4 MLP point (its data,
+    model and T0 = 10) as one S = 8 sweep for ROUNDS rounds: one grouped
+    launch of each kernel a step, fused = unfused bit for bit with the
+    memory, every point finite; the state's size and the walls."""
+    import dataclasses
+    import torch
+    from repro_torch.core import MixPlan, as_schedule, stack_hypers
+    from repro_torch.core import stack_schedules
+    from repro_torch.quickstart import mlp_config, prepare
+    from repro_torch.training.sweep import sweep_run
+
+    cfg = mlp_config(ROUNDS, fused="require")
+    p = prepare(cfg, device="cuda")
+    base = as_schedule(MixPlan.dense(p.W, device="cuda"))
+    names, specs = zip(*_all_specs("cuda"))
+    grid = stack_schedules([base.with_compression(s) for s in specs])
+    S, T0 = len(specs), cfg.depositum.comm_period
+    params0 = {k: v[0] for k, v in p.state.x.items()}
+    batches = {"x": p.bx, "y": p.by}
+
+    def run(mode):
+        return sweep_run(params0, p.grad_fn,
+                         dataclasses.replace(cfg.depositum, fused=mode),
+                         grid, stack_hypers([cfg.depositum.hyper()] * S),
+                         batches, n_clients=cfg.n_clients)[0]
+
+    run("require")                                  # warm-up
+    reset_counts()
+    sweep, wall = _timed(lambda: run("require"))
+    launches = _sweep_counts("MLP compressor sweep", ROUNDS * T0)
+    off, wall_off = _timed(lambda: run("off"))
+    _assert_bits_with_memory("MLP compressor sweep fused vs unfused", sweep,
+                             off)
+    if not all(bool(torch.isfinite(v).all()) for _, v in _comm_leaves(sweep)):
+        raise AssertionError("MLP compressor sweep: not finite")
+    return launches, {
+        "phase": "sweep_comm_mlp", "points": list(names), "S": S,
+        "rounds": ROUNDS, "state_mb": _state_mb(sweep),
+        "launches": launches, "fused_vs_unfused_bit_equal": True,
+        "round_ms_fused": wall / ROUNDS * 1e3,
+        "round_ms_unfused": wall_off / ROUNDS * 1e3,
+        "compress_ms": _compress_times({"mlp_x_S8": (sweep.x, 2)})}
+
+
+def phase_graph_choco() -> dict:
+    """``choco_mix`` of the Fig. 4 MLP's x (six (10, ...) leaves) over a
+    ring, top-k(0.1) and QSGD(4), captured in a CUDA graph on static
+    inputs: each replay, after the outputs are set to NaN and, the second
+    time, new values are copied into the inputs, equals the eager call bit
+    for bit.  A capture fails on any host sync, so this shows the exchange
+    has none."""
+    import torch
+    from repro_torch.core import (CommMemory, CompressionSpec, MixPlan,
+                                  apply_mix, choco_mix, comm_round_keys)
+    from repro_torch.core.topology import mixing_matrix
+    C = 10
+    g = torch.Generator(device="cuda").manual_seed(41)
+    plan = MixPlan.dense(mixing_matrix("ring", C), device="cuda")
+
+    def tree():
+        return {f"l{i}": torch.randn((C,) + s, generator=g, device="cuda")
+                * 0.1 for i, s in enumerate(MLP_LEAVES)}
+
+    x, xhat, s = tree(), tree(), tree()
+    out = {}
+    for name, spec in (("topk", CompressionSpec.topk(0.1, device="cuda")),
+                       ("qsgd", CompressionSpec.qsgd(4, device="cuda"))):
+        key = comm_round_keys(spec, 2)[0]
+
+        def call():
+            o, m = choco_mix(spec, lambda t: apply_mix(plan, t), x,
+                             CommMemory(xhat, s), key)
+            return [o, m.xhat, m.s]
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = read_counts()
+        with torch.cuda.graph(graph):
+            static = call()
+        if read_counts() != before:
+            raise AssertionError(f"graph {name}: a counted kernel launched")
+        for replay in range(2):
+            if replay:
+                for t in (x, xhat, s):
+                    for v in t.values():
+                        v.copy_(torch.randn(v.shape, generator=g,
+                                            device="cuda") * 0.1)
+            for t in static:
+                for v in t.values():
+                    v.fill_(float("nan"))
+            graph.replay()
+            eager = call()
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(static, eager)):
+                for k in a:
+                    if not bits_equal(a[k], b[k]):
+                        raise AssertionError(f"graph {name}, replay "
+                                             f"{replay}: output {i} {k} "
+                                             "differs from the eager call")
+        out[name] = {"replays": 2, "bit_equal": True}
+        del graph, static
+    return {"phase": "graph_choco", **out}
+
+
+def phase_round_time_comm() -> dict:
+    """Round wall time (host clock, synchronised, ROUNDS rounds, no
+    metrics) of the Fig. 4 MLP point fused, dense / top-k(0.1) / QSGD(4),
+    in turns (dense, topk, qsgd, qsgd, topk, dense); then 3 rounds of each
+    profiled after 2 warm-up (``profile_window``): wall and device busy ms
+    a round, the busy share."""
+    from repro_torch.core import CompressionSpec, local_then_comm_round
+    from repro_torch.profile_round import profile_window
+    from repro_torch.quickstart import mlp_config, prepare, run_depositum
+    makers = {"dense": lambda: None,
+              "topk": lambda: CompressionSpec.topk(0.1, device="cuda"),
+              "qsgd": lambda: CompressionSpec.qsgd(4, device="cuda")}
+    walls = {k: [] for k in makers}
+    for name in ("dense", "topk", "qsgd", "qsgd", "topk", "dense"):
+        _, curves = run_depositum(mlp_config(ROUNDS, fused="require"),
+                                  compress=makers[name](),
+                                  collect_metrics=False, device="cuda")
+        walls[name].append(curves["wall_s"] / ROUNDS * 1e3)
+    prof = {}
+    keep = ("wall_ms_per_round", "device_busy_ms_per_round",
+            "device_busy_share", "host_phase_ms_per_round")
+    for name, make in makers.items():
+        cfg = mlp_config(5, fused="require")
+        p = prepare(cfg, compress=make(), device="cuda")
+        state = p.state
+
+        def advance(r):
+            nonlocal state
+            state, _ = local_then_comm_round(state, p.batches(r), p.grad_fn,
+                                             cfg.depositum, p.mixer)
+
+        for r in range(2):
+            advance(r)
+        window = profile_window(lambda i: advance(2 + i), 3, "cuda")
+        prof[name] = {k: window[k] for k in keep}
+    return {"phase": "round_time_comm", "rounds": ROUNDS,
+            "round_ms": walls, "profiled": prof}
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1408,6 +1841,7 @@ def main() -> int:
     check_flash = phase_check_flash()
     emit(check_flash)
     emit(phase_graph())
+    emit(phase_graph_choco())
     state, launches, main_path = phase_main_path()
     emit(main_path)
     tree_launches, tree = phase_tree_path(state)
@@ -1418,6 +1852,13 @@ def main() -> int:
         emit(line)
         sweep_launches.append(path_launches)
         torch.cuda.empty_cache()
+    comm_launches, compressed = phase_compressed_main(state)
+    emit(compressed)
+    sweep_launches += comm_launches
+    for phase in (phase_sweep_comm, phase_sweep_comm_mlp):
+        path_launches, line = phase()
+        emit(line)
+        sweep_launches.append(path_launches)
     serve_launches, serve = phase_serve()
     emit(serve)
     torch.cuda.empty_cache()
@@ -1430,6 +1871,7 @@ def main() -> int:
     timing_flash = phase_timing_flash()
     emit(timing_flash)
     emit(phase_round_time())
+    emit(phase_round_time_comm())
 
     step = timing["main_path_step"]
     prox_src = "src/repro/kernels/prox/kernel.py"

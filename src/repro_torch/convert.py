@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.compression import CommMemory
 from repro_torch.core.depositum import DepositumState
 
 
@@ -63,23 +64,30 @@ def _field(state: Any, name: str, default=None):
 
 def state_from_numpy(state: Any, *, device="cuda") -> DepositumState:
     """A reference ``DepositumState`` (or a dict with its fields) whose
-    leaves are numpy arrays -> the port's state on ``device``."""
-    if _field(state, "comm", ()):
-        raise NotImplementedError(
-            "states with compression memory arrive with the compression "
-            "slice (ROADMAP Queue 1)")
+    leaves are numpy arrays -> the port's state on ``device``.  Its
+    ``comm`` (``()``, or ``{"x": .., "y": ..}`` of ``CommMemory`` or of
+    dicts with ``xhat`` / ``s``) comes along."""
     trees = {f: params_from_numpy(_field(state, f), device=device)
              for f in ("x", "y", "nu", "mu", "g")}
+    comm = _field(state, "comm", ())
+    if comm:
+        comm = {v: CommMemory(*(params_from_numpy(_field(comm[v], f),
+                                                  device=device)
+                                for f in CommMemory._fields))
+                for v in ("x", "y")}
     return DepositumState(**trees, t=int(np.asarray(_field(state, "t"))),
-                          comm=())
+                          comm=comm or ())
 
 
 def state_to_numpy(state: DepositumState) -> dict:
-    """The port's state -> dict of nested numpy trees (``t`` as int32)."""
+    """The port's state -> dict of nested numpy trees (``t`` as int32;
+    ``comm`` as ``{"x": {"xhat": .., "s": ..}, "y": ..}`` or ``()``)."""
     out = {f: params_to_numpy(getattr(state, f))
            for f in ("x", "y", "nu", "mu", "g")}
     out["t"] = np.asarray(state.t, np.int32)
-    out["comm"] = ()
+    out["comm"] = {v: {f: params_to_numpy(getattr(mem, f))
+                       for f in CommMemory._fields}
+                   for v, mem in state.comm.items()} if state.comm else ()
     return out
 
 

@@ -14,6 +14,21 @@ from repro_torch.core.cohort import (  # noqa: F401
     pad_plan,
     stack_cohorts,
 )
+from repro_torch.core.compression import (  # noqa: F401
+    CommMemory,
+    CompressionSpec,
+    active_compression,
+    as_mixed,
+    choco_mix,
+    comm_memory,
+    comm_round_keys,
+    compress,
+    compression_of,
+    pack_payload,
+    stack_specs,
+    unpack_payload,
+    wire_mode,
+)
 from repro_torch.core.gossip import identity_mixer, make_dense_mixer  # noqa: F401
 from repro_torch.core.hyper import Hyper, hyper_grid, n_sweep, stack_hypers  # noqa: F401
 from repro_torch.core.mixing import (  # noqa: F401

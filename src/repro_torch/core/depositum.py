@@ -24,8 +24,11 @@ same step logic, with one ``(S, 5)`` kernel table and one grouped launch a
 step for all S configurations.  The mixer is a callable, a
 :class:`~repro_torch.core.mixing.MixPlan` or a round-indexed
 :class:`~repro_torch.core.schedule.MixSchedule` (cohort schedules also
-freeze inactive and padding rows).  Compressed gossip
-(``CompressionSpec``) arrives with the compression slice.
+freeze inactive and padding rows).  A schedule carrying a
+:class:`~repro_torch.core.compression.CompressionSpec` turns each comm
+step into the CHOCO error-feedback exchange of
+:mod:`repro_torch.core.compression`, for one configuration and on the
+sweep axis; the state then carries the memory (``init(compress=...)``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,14 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.compression import (
+    CommMemory,
+    CompressionSpec,
+    active_compression,
+    choco_mix,
+    comm_memory,
+    comm_round_keys,
+)
 from repro_torch.core.gossip import Mixer, identity_mixer
 from repro_torch.core.hyper import Hyper
 from repro_torch.core.mixing import MixPlan, apply_mix_sweep, resolve_mixer
@@ -77,14 +88,6 @@ def _scoped(name, fn):
         with annotate(name):
             return fn(*args)
     return wrapped
-
-
-def _reject_later_slices(mixer) -> None:
-    if type(mixer).__name__ == "CompressionSpec":
-        raise NotImplementedError(
-            "CompressionSpec is not ported yet: compressed gossip arrives "
-            "with the compression slice (ROADMAP Queue 1 item 6); pass a "
-            "MixPlan, a MixSchedule or a mixer callable")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +187,9 @@ class DepositumState(NamedTuple):
 
     ``t`` is the iteration counter, a host integer (the round loop derives
     the communication gate from it without a device sync).  ``comm`` is the
-    compressed-communication memory: always ``()`` in this slice.
+    compressed-communication memory: ``()`` for dense runs, else ``{"x":
+    CommMemory, "y": CommMemory}``, one CHOCO error-feedback pair (public
+    copy ``xhat``, running mix ``s``) per mixed variable, shaped like x.
     """
 
     x: Tree       # model parameters (per client)
@@ -204,11 +209,11 @@ def init(params: Tree, n_clients: int, stacked: bool = False,
 
     ``n_max`` pads the client axis beyond ``n_clients``: padding rows get
     zero-filled x; pass an active mask to :func:`step` to keep them frozen.
+
+    ``compress`` (a CompressionSpec, or a schedule carrying one) allocates
+    the zeroed CHOCO memory on ``state.comm``; None and a ``kind="none"``
+    spec leave ``comm = ()``.
     """
-    if compress is not None:
-        raise NotImplementedError(
-            "compressed gossip (init(compress=...)) arrives with the "
-            "compression slice (ROADMAP Queue 1)")
     if n_max is not None and n_max < n_clients:
         raise ValueError(f"n_max={n_max} < n_clients={n_clients}")
     dev = resolve_device(device)
@@ -221,7 +226,19 @@ def init(params: Tree, n_clients: int, stacked: bool = False,
             v = torch.cat([v, v.new_zeros((n_max - n_clients,) + v.shape[1:])])
         x[k] = v
     z = lambda: {k: torch.zeros_like(v) for k, v in x.items()}
-    return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0, comm=())
+    return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0,
+                          comm=initial_comm(compress, x))
+
+
+def initial_comm(compress, x: Tree):
+    """Zeroed error-feedback memory for both mixed variables, shaped like
+    ``x``, when ``compress`` (a spec or a schedule carrying one)
+    compresses; else ``()``."""
+    spec = (compress if isinstance(compress, CompressionSpec)
+            else active_compression(compress))
+    if spec is None or spec.kind == "none":
+        return ()
+    return {"x": comm_memory(x), "y": comm_memory(x)}
 
 
 GradFn = Callable[[Tree, Any], tuple[Tree, Any]]
@@ -300,11 +317,6 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     ``hp`` holds (S,) views, ``grad_fn`` and a callable mixer take
     ``(S, C, ...)`` leaves, and ``active_mask`` is (S, C).
     """
-    _reject_later_slices(mixer)
-    if state.comm:
-        raise NotImplementedError(
-            "states with compression memory arrive with the compression "
-            "slice (ROADMAP Queue 1 item 6)")
     sweep = hp_vec.ndim == 2
     # round-indexed mixers: round r = t // T0; a cohort schedule's mask
     # also gates local updates, and its mixing already masks frozen rows,
@@ -312,10 +324,22 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     sched = (mixer.schedule if isinstance(mixer, ScheduleMixer)
              else mixer if isinstance(mixer, MixSchedule) else None)
     is_cohort_mixer = sched is not None and sched.kind == "cohort"
+    comm_spec = None        # the schedule's active CompressionSpec
+    key_x = key_y = None
     if sched is not None:
         r = state.t // config.comm_period
         if active_mask is None:
             active_mask = schedule_round_mask(sched, r)
+        comm_spec = active_compression(sched)
+        if comm_spec is not None:
+            if not state.comm:
+                raise ValueError(
+                    "the schedule carries an active CompressionSpec but the "
+                    "state has no error-feedback memory; build it with "
+                    "init(..., compress=spec)")
+            # the spec's scalars divide on the state's device
+            comm_spec = comm_spec.to(hp_vec.device)
+            key_x, key_y = comm_round_keys(comm_spec, r)
         if isinstance(mixer, MixSchedule):
             fn = apply_schedule_sweep if sweep else apply_schedule
             mixer = lambda tree, fn=fn: fn(sched, r, tree)
@@ -328,6 +352,8 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     mixer = _scoped("gossip", mixer)
     if is_comm_step is None:
         is_comm_step = (state.t + 1) % config.comm_period == 0
+    elif not isinstance(is_comm_step, torch.Tensor):
+        is_comm_step = bool(is_comm_step)
     if sweep:
         # each (S,) scalar as (S, 1, ..., 1) against a leaf
         lead = lambda s, leaf: s.reshape(s.shape + (1,) * (leaf.ndim - 1))
@@ -385,13 +411,25 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
             x_half = prox({k: p - c(hp.alpha, p) * nu_next[k]
                            for k, p in state.x.items()})
 
-    def gossip(tree):
-        if isinstance(is_comm_step, bool):
-            return mixer(tree) if is_comm_step else tree
-        # tensor gate: compute the mix, select per leaf
-        return _where(is_comm_step, mixer(tree), tree)
+    def gossip(tree, mem, key):
+        """(mixed tree, new memory): the dense mix, or the CHOCO exchange
+        of a compressed schedule; a collective-free step touches neither,
+        a tensor gate selects both per leaf."""
+        if is_comm_step is False:
+            return tree, mem
+        if comm_spec is None:
+            out, new_mem = mixer(tree), mem
+        else:
+            out, new_mem = choco_mix(comm_spec, mixer, tree, mem, key,
+                                     lead=2 if sweep else 1)
+        if is_comm_step is True:
+            return out, new_mem
+        if comm_spec is not None:
+            new_mem = CommMemory(*(_where(is_comm_step, a, b)
+                                   for a, b in zip(new_mem, mem)))
+        return _where(is_comm_step, out, tree), new_mem
 
-    x_next = gossip(x_half)
+    x_next, mem_x = gossip(x_half, state.comm and state.comm["x"], key_x)
 
     # (3) fresh minibatch gradients at the *new* iterate
     g_next, aux = grad_fn(x_next, batch)
@@ -404,7 +442,9 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         with annotate("local_step"):
             y_half = {k: y + c(hp.beta, y) * (g_next[k] - state.g[k])
                       for k, y in state.y.items()}
-    y_next = gossip(y_half)
+    y_next, mem_y = gossip(y_half, state.comm and state.comm["y"], key_y)
+    comm_next = (state.comm if comm_spec is None
+                 else {"x": mem_x, "y": mem_y})
 
     if active_mask is not None:
         # freeze inactive/padding rows: keep every old value where mask = 0
@@ -427,9 +467,14 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
             nu_next = keep(nu_next, state.nu)
             mu_next = keep(mu_next, state.mu)
             g_next = keep(g_next, state.g)
+        if comm_spec is not None and is_comm_step is not False:
+            # frozen rows transmitted nothing: their memory must not
+            # advance either
+            comm_next = {v: CommMemory(*(keep(a, b) for a, b in zip(
+                comm_next[v], state.comm[v]))) for v in ("x", "y")}
 
     new_state = DepositumState(x=x_next, y=y_next, nu=nu_next, mu=mu_next,
-                               g=g_next, t=state.t + 1, comm=state.comm)
+                               g=g_next, t=state.t + 1, comm=comm_next)
     return new_state, aux
 
 
@@ -458,7 +503,6 @@ def local_then_comm_round(
     leaves (``repro_torch.training.sweep`` vmaps a client ``grad_fn``); a
     MixPlan or MixSchedule mixer may be stacked over S or shared.
     """
-    _reject_later_slices(mixer)
     T0 = config.comm_period
     if hyper is None:
         config.validate()

@@ -27,10 +27,13 @@ heterogeneous grids densify to the per-round ``stacked`` form first,
 schedule on ``(S, n, ...)`` leaves.  The round index ``r`` is a host
 integer, ``t // T0``.
 
-The per-shard execution (``shard_schedule_body``, ``wire_supported``,
+A schedule may carry a :class:`~repro_torch.core.compression.
+CompressionSpec` (:meth:`MixSchedule.with_compression`): its comm steps
+then run the CHOCO error-feedback exchange of
+:mod:`repro_torch.core.compression` (``repro_torch.core.depositum``).  The
+per-shard execution (``shard_schedule_body``, ``wire_supported``,
 ``shard_compressed_qmix``) raises until the backends slice (ROADMAP Queue
-1 item 5), :meth:`MixSchedule.with_compression` until the compression
-slice (item 6).
+1 item 5).
 """
 from __future__ import annotations
 
@@ -41,6 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.cohort import CohortSampler
+from repro_torch.core.compression import (
+    CompressionSpec,
+    as_mixed,
+    check_spec,
+    stack_specs,
+)
 from repro_torch.core.mixing import (
     _LEAVES as _PLAN_LEAVES,
     MixPlan,
@@ -106,7 +115,8 @@ class MixSchedule:
     """Round-indexed communication pattern.
 
     Build with the classmethod constructors.  ``kind`` and ``period`` are
-    structure; ``plan``, ``active`` and ``sampler`` carry the tensors.
+    structure; ``plan``, ``active``, ``sampler`` and ``compress`` carry the
+    tensors.
     """
 
     kind: str
@@ -114,6 +124,7 @@ class MixSchedule:
     active: Optional[torch.Tensor] = None    # lazy: (R, n) or (S, R, n)
     period: int = 0                          # alternating only
     sampler: Optional[CohortSampler] = None  # cohort / redrawn lazy
+    compress: Optional[CompressionSpec] = None  # what comm steps transmit
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -236,12 +247,26 @@ class MixSchedule:
         """Constant schedule for a named topology."""
         return cls.constant(MixPlan.from_topology(topology, n, **kwargs))
 
-    def with_compression(self, spec) -> "MixSchedule":
-        """Compressed gossip arrives with the compression slice."""
-        raise NotImplementedError(
-            "MixSchedule.with_compression is not ported yet: compressed "
-            "gossip arrives with the compression slice (ROADMAP Queue 1 "
-            "item 6)")
+    def with_compression(self, spec: Optional[CompressionSpec]
+                         ) -> "MixSchedule":
+        """This schedule transmitting ``spec``-compressed increments.
+
+        ``spec=None`` and a ``kind="none"`` spec leave the round program on
+        the dense path, bit for bit.  Any other kind makes each comm step a
+        CHOCO error-feedback exchange: the state must carry the memory
+        (``repro_torch.core.depositum.init(compress=...)``).  A stacked
+        spec needs a stacked schedule (:func:`stack_schedules` stacks both).
+        """
+        if spec is not None and not isinstance(spec, CompressionSpec):
+            raise TypeError("with_compression takes a CompressionSpec, got "
+                            f"{type(spec).__name__}")
+        if spec is not None and spec.is_stacked and (
+                not self.is_stacked or spec.n_sweep != self.n_sweep):
+            raise ValueError(
+                f"a spec stacked over {spec.n_sweep} points needs a schedule "
+                "stacked over as many; stack whole schedules instead "
+                "(stack_schedules)")
+        return dataclasses.replace(self, compress=spec)
 
     # -- introspection ------------------------------------------------------
     @property
@@ -292,14 +317,18 @@ class MixSchedule:
             self, plan=_plan_index(self.plan, s, 0) if swept_plan
             else self.plan,
             active=None if self.active is None else self.active[s],
-            sampler=None if self.sampler is None else self.sampler.point(s))
+            sampler=None if self.sampler is None else self.sampler.point(s),
+            compress=None if self.compress is None
+            else self.compress.point(s))
 
     def to(self, device) -> "MixSchedule":
         """The same schedule with its tensors on ``device``."""
         return dataclasses.replace(
             self, plan=self.plan.to(device),
             active=None if self.active is None else self.active.to(device),
-            sampler=None if self.sampler is None else self.sampler.to(device))
+            sampler=None if self.sampler is None else self.sampler.to(device),
+            compress=None if self.compress is None
+            else self.compress.to(device))
 
     def _round_index(self, r: int) -> int:
         if self.kind == "alternating":
@@ -483,14 +512,32 @@ def stack_schedules(schedules: Sequence[MixSchedule]) -> MixSchedule:
     Grids that mix kinds, or chebyshev orders, densify to the per-round
     ``stacked`` form first:
     ``stack_schedules([as_stacked_schedule(s, rounds, n) ...])``.
+
+    Compression specs normalise to one structure: a missing spec becomes
+    ``none``, and specs that differ in ``(kind, wire_k, wire_bits)`` (or
+    are mixed already) become the ``mixed`` form, so a grid of top-k rates,
+    QSGD bits and a dense baseline stacks as one operand.
     """
     schedules = list(schedules)
     if not schedules:
         raise ValueError("need at least one MixSchedule to stack")
+    specs = [s.compress for s in schedules]
+    if any(sp is not None for sp in specs):
+        dev = next(sp.ef_step.device for sp in specs if sp is not None)
+        specs = [CompressionSpec.none(device=dev) if sp is None else sp
+                 for sp in specs]
+        if len({(sp.kind, sp.wire_k, sp.wire_bits) for sp in specs}) > 1 \
+                or specs[0].kind == "mixed":
+            specs = [as_mixed(sp) for sp in specs]
+        schedules = [dataclasses.replace(s, compress=sp)
+                     for s, sp in zip(schedules, specs)]
     auxs = {(s.kind, s.period, s.plan.kind, s.plan.offsets, s.plan.cheby_k,
              s.plan.base_kind, s.active is None,
              None if s.sampler is None else (s.sampler.kind,
-                                             s.sampler.n_max))
+                                             s.sampler.n_max),
+             None if s.compress is None else (s.compress.kind,
+                                              s.compress.wire_k,
+                                              s.compress.wire_bits))
             for s in schedules}
     if len(auxs) > 1:
         raise ValueError(
@@ -510,7 +557,9 @@ def stack_schedules(schedules: Sequence[MixSchedule]) -> MixSchedule:
         active=None if s0.active is None else torch.stack(
             [s.active for s in schedules]),
         sampler=None if s0.sampler is None else stack_cohorts(
-            [s.sampler for s in schedules]))
+            [s.sampler for s in schedules]),
+        compress=None if s0.compress is None else stack_specs(
+            [s.compress for s in schedules]))
 
 
 def as_stacked_schedule(sched: MixSchedule, rounds: int,
@@ -539,8 +588,11 @@ def validate_schedule(sched: MixSchedule, n: int | None = None,
     contract.  Stacked / alternating rounds may carry negative entries
     (densified chebyshev matrices).  Lazy and cohort schedules also check
     their base plan.  With ``rounds=None`` round-varying kinds are sampled
-    at no more than :data:`VALIDATE_ROUNDS_CAP` rounds a point.
+    at no more than :data:`VALIDATE_ROUNDS_CAP` rounds a point.  A
+    compression spec is range-checked (rates in (0, 1], bits >= 1).
     """
+    if sched.compress is not None:
+        check_spec(sched.compress)
     for s in range(sched.n_sweep) if sched.is_stacked else (None,):
         ss = sched if s is None else sched.point(s)
         if ss.kind in ("lazy", "cohort"):

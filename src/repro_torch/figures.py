@@ -8,9 +8,13 @@ stacked dense W), ``fig8_timevarying.py`` (lazy participation p in {0.3,
 0.6, 1.0} and Chebyshev k in {1, 2, 3} on a ring, densified to per-round
 W and stacked: six schedules) and ``fig_cohort.py`` (n in {8, 32, 128,
 512} x p in {0.5, 1.0} Bernoulli cohorts on rings padded to 512 clients,
-least squares).  Each ``*_run(rounds, sequential, device)`` returns one
-row a grid point as the reference's ``run`` does; ``sequential=True`` runs
-every point alone through the one-config round program instead.
+least squares) and ``fig_comm_frontier.py`` (the accuracy-vs-bytes
+frontier: a dense baseline, top-k at rates {0.05, 0.1, 0.25, 0.5} and QSGD
+at {2, 4, 8} bits as one mixed-kind sweep over CHOCO-compressed gossip,
+least squares on a ring).  Each ``*_run(rounds, sequential, device)``
+returns one row a grid point as the reference's ``run`` does;
+``sequential=True`` runs every point alone through the one-config round
+program instead.
 
     PYTHONPATH=src python -m repro_torch.figures --fig 6 [--rounds N]
         [--sequential] [--device cpu]
@@ -26,13 +30,20 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.analysis.comm import (
+    round_wire_bytes,
+    spec_bits_per_coord,
+    sweep_round_bytes,
+)
 from repro_torch.core import (
     CohortSampler,
+    CompressionSpec,
     DepositumConfig,
     MixPlan,
     MixSchedule,
     as_stacked_schedule,
     mixing_matrix,
+    as_schedule,
     pad_plan,
     schedule_spectral_lambda,
     stack_hypers,
@@ -430,9 +441,190 @@ def cohort_check(rows) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Accuracy-vs-bytes frontier: the compressor as a sweep axis
+# ---------------------------------------------------------------------------
+
+COMM_N, COMM_D, COMM_M, COMM_T0 = 8, 64, 16, 5
+COMM_TOPK_RATES, COMM_QSGD_BITS, COMM_EF_STEP = [0.05, 0.1, 0.25, 0.5], \
+    [2, 4, 8], 0.3
+
+
+def comm_config(fused: str = "auto") -> DepositumConfig:
+    return DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5,
+                           comm_period=COMM_T0, prox_name="l1",
+                           prox_kwargs={"lam": 1e-5}, fused=fused)
+
+
+def comm_data(seed: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """Least squares ``A (N, M, D)``, ``b = A w_true`` from a numpy seed
+    (the reference draws them with threefry)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((COMM_N, COMM_M, COMM_D)).astype(np.float32)
+    w_true = rng.standard_normal(COMM_D).astype(np.float32)
+    return A, np.einsum("nmd,d->nm", A, w_true)
+
+
+def comm_points(device="cuda", rates=COMM_TOPK_RATES, bits=COMM_QSGD_BITS,
+                uniforms=None) -> list:
+    """(name, kind, level, native one-kind schedule) a grid point, on a
+    ring of ``COMM_N``; ``uniforms`` replaces every spec's hashed draws."""
+    dev = resolve_device(device)
+    base = as_schedule(MixPlan.from_topology("ring", COMM_N, device=dev))
+    hook = lambda spec: dataclasses.replace(spec, uniforms=uniforms)
+    pts = [("dense", "none", 1.0, base.with_compression(
+        hook(CompressionSpec.none(device=dev))))]
+    pts += [(f"topk_{r}", "topk", r, base.with_compression(hook(
+        CompressionSpec.topk(r, ef_step=COMM_EF_STEP, device=dev))))
+        for r in rates]
+    pts += [(f"qsgd_{b}b", "qsgd", b, base.with_compression(hook(
+        CompressionSpec.qsgd(b, ef_step=COMM_EF_STEP, device=dev))))
+        for b in bits]
+    return pts
+
+
+def comm_grad_fn(A: torch.Tensor, b: torch.Tensor):
+    """Full-batch least-squares gradients ``A_i^T (A_i w_i - b_i) / M``."""
+    def grad_fn(x, batch):
+        r = torch.einsum("nmd,nd->nm", A, x["w"]) - b
+        return {"w": torch.einsum("nmd,nm->nd", A, r) / A.shape[1]}, {}
+
+    return grad_fn
+
+
+def comm_metrics(A: torch.Tensor, b: torch.Tensor):
+    """Loss of the client mean and consensus of x (the reference's)."""
+    def metrics(state, hyper, operand):
+        x = state.x["w"]
+        xbar = torch.mean(x, dim=0)
+        r = torch.einsum("nmd,d->nm", A, xbar) - b
+        return {"loss": torch.mean(r ** 2),
+                "consensus_x": torch.mean((x - xbar[None]) ** 2)}
+
+    return metrics
+
+
+@dataclasses.dataclass
+class Comm:
+    """The frontier's operands: the config, the points (name, kind, level,
+    native one-kind schedule), their stack (the ``mixed`` form) and the
+    least-squares data on the device."""
+
+    config: DepositumConfig
+    points: list
+    grid: MixSchedule
+    A: torch.Tensor          # (N, M, D)
+    b: torch.Tensor          # (N, M)
+
+    def operands(self, rounds: int) -> tuple:
+        """(params0, grad_fn, batches, metrics_fn) of a ``rounds`` run."""
+        dev = self.A.device
+        return ({"w": torch.zeros(COMM_D, device=dev)},
+                comm_grad_fn(self.A, self.b),
+                torch.zeros((rounds, COMM_T0, 1), device=dev),
+                comm_metrics(self.A, self.b))
+
+
+def comm_setup(device="cuda", fused: str = "auto", *, rates=COMM_TOPK_RATES,
+               bits=COMM_QSGD_BITS, data=None, uniforms=None) -> Comm:
+    """``data`` replaces :func:`comm_data`'s ``(A, b)``; ``uniforms`` as in
+    :func:`comm_points`."""
+    dev = resolve_device(device)
+    A, b = comm_data() if data is None else data
+    A, b = (torch.as_tensor(np.array(v, np.float32), device=dev)
+            for v in (A, b))
+    pts = comm_points(dev, rates, bits, uniforms)
+    return Comm(config=comm_config(fused), points=pts,
+                grid=stack_schedules([sched for *_, sched in pts]), A=A, b=b)
+
+
+def comm_run(rounds: int = 30, sequential: bool = False, device="cuda",
+             fused: str = "auto", **setup):
+    """The frontier as one sweep (every kind in the ``mixed`` form), or
+    with ``sequential`` one native-kind run a point (``setup`` as in
+    :func:`comm_setup`).  Bytes are priced from the native schedules; each
+    row also carries the stacked grid's bytes for the check."""
+    c = comm_setup(device, fused, **setup)
+    params0, grad_fn, batches, metrics_fn = c.operands(rounds)
+    hyper = c.config.hyper()
+    t0 = time.perf_counter()
+    if sequential:
+        runs = [sweep_run_sequential(params0, grad_fn, c.config, sched,
+                                     hyper, batches, n_clients=COMM_N,
+                                     metrics_fn=metrics_fn)[1]
+                for *_, sched in c.points]
+        outs = {k: torch.cat([o[k] for o in runs]) for k in runs[0]}
+    else:
+        validate_schedule(c.grid, COMM_N)
+        _final, outs = sweep_run(params0, grad_fn, c.config, c.grid,
+                                 stack_hypers([hyper] * len(c.points)),
+                                 batches, n_clients=COMM_N,
+                                 metrics_fn=metrics_fn)
+    outs = {k: v.cpu().numpy() for k, v in outs.items()}
+    _sync(c.A.device)
+    wall = time.perf_counter() - t0
+    stacked = sweep_round_bytes(c.grid, d=COMM_D, n=COMM_N)
+    rows = []
+    for s, (name, kind, lvl, sched) in enumerate(c.points):
+        bytes_rd = float(round_wire_bytes(sched, d=COMM_D, n=COMM_N))
+        curves = {"round": list(range(1, rounds + 1)),
+                  "loss": [float(v) for v in outs["loss"][s]],
+                  "consensus_x": [float(v) for v in outs["consensus_x"][s]],
+                  "wall_s": wall / len(c.points), "iters": rounds * COMM_T0,
+                  "sweep_group_id": None if sequential else 0,
+                  "sweep_group_size": len(c.points),
+                  "sweep_group_wall_s": wall}
+        rows.append({
+            "name": name, "kind": kind, "level": lvl,
+            "bytes_per_round": bytes_rd,
+            "stacked_bytes_per_round": float(stacked[s]),
+            "bits_per_coord": float(spec_bits_per_coord(sched.compress,
+                                                        COMM_D)),
+            "total_mb": bytes_rd * rounds / 1e6,
+            "final_loss": curves["loss"][-1],
+            "first_loss": curves["loss"][0],
+            "final_consensus_x": curves["consensus_x"][-1],
+            **_group_fields(curves)})
+    return rows
+
+
+def comm_check(rows) -> dict:
+    """The reference's ``fig_comm_frontier.check``."""
+    dense = next(r for r in rows if r["kind"] == "none")
+    topk = sorted((r for r in rows if r["kind"] == "topk"),
+                  key=lambda r: r["level"])
+    qsgd = [r for r in rows if r["kind"] == "qsgd"]
+    stacked = np.asarray([r["stacked_bytes_per_round"] for r in rows])
+    native = np.asarray([r["bytes_per_round"] for r in rows])
+    return {
+        "single_program":
+            len({r["sweep_group_id"] for r in rows}) == 1
+            if rows[0]["sweep_group_id"] is not None else False,
+        "kinds_swept": len({r["kind"] for r in rows}),
+        "compressed_points": len(topk) + len(qsgd),
+        "stacked_accounting_matches_native":
+            bool(np.max(np.abs(stacked - native)) < 1e-6 * max(native)),
+        "topk_bytes_monotone":
+            all(a["bytes_per_round"] < b["bytes_per_round"]
+                for a, b in zip(topk, topk[1:])),
+        "topk_bytes_at_most_dense":
+            all(r["bytes_per_round"] <= dense["bytes_per_round"]
+                for r in topk),
+        "qsgd_bytes_below_dense":
+            all(r["bytes_per_round"] < dense["bytes_per_round"]
+                for r in qsgd),
+        "all_points_converge":
+            all(r["final_loss"] < r["first_loss"] for r in rows),
+        "dense_converges_fast":
+            dense["final_loss"] < 0.2 * dense["first_loss"],
+        "grid_points": len(rows),
+    }
+
+
 FIGURES = {"3": (fig3_run, None, 60), "4": (fig4_run, None, 50),
            "6": (fig6_run, fig6_check, 40), "8": (fig8_run, fig8_check, 30),
-           "cohort": (cohort_run, cohort_check, 30)}
+           "cohort": (cohort_run, cohort_check, 30),
+           "comm": (comm_run, comm_check, 30)}
 
 
 def main(argv=None):

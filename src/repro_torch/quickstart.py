@@ -27,6 +27,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core import (
     DepositumConfig,
     MixPlan,
+    as_schedule,
     init,
     local_then_comm_round,
     make_dense_mixer,
@@ -111,13 +112,15 @@ class Prepared:
 
 
 def prepare(cfg: ExperimentConfig, *, params0: dict | None = None,
-            device="cuda") -> Prepared:
+            compress=None, device="cuda") -> Prepared:
     """Data, model, initial state, mixer and every round's minibatches.
 
     ``params0`` (name -> tensor) replaces the seeded initial weights.  The
     minibatches are drawn up front from the reference's rng stream
     (``seed + 7``) and placed on the device, so a round loop copies nothing
-    from the host.
+    from the host.  ``compress`` (a CompressionSpec) makes the mixer a
+    constant schedule over the same W carrying it, and gives the state its
+    error-feedback memory.
     """
     dev = resolve_device(device)
     ds = make_classification(
@@ -136,11 +139,15 @@ def prepare(cfg: ExperimentConfig, *, params0: dict | None = None,
     rng = np.random.default_rng(cfg.seed + 7)
     draws = [ds.stacked_batches(rng, cfg.batch, cfg.depositum.comm_period)
              for _ in range(cfg.rounds)]
+    mixer = (make_dense_mixer(W, device=dev) if compress is None else
+             as_schedule(MixPlan.dense(W, device=dev)).with_compression(
+                 compress.to(dev)))
     return Prepared(
-        model=model, state=init(params0, cfg.n_clients, device=dev),
+        model=model,
+        state=init(params0, cfg.n_clients, compress=compress, device=dev),
         grad_fn=client_grad_fn(model),
         grad_fns=stationarity_grad_fns(model, xs_full, ys_full),
-        mixer=make_dense_mixer(W, device=dev), W=W,
+        mixer=mixer, W=W,
         bx=torch.from_numpy(np.stack([d[0] for d in draws])).to(dev),
         by=torch.from_numpy(np.stack([d[1] for d in draws])).to(dev),
         all_x=xs_full.reshape(-1, cfg.n_features), all_y=ys_full.reshape(-1))
@@ -165,15 +172,16 @@ def classifier_metrics(model, grad_fns: dict, all_x: torch.Tensor,
 
 def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
                   metrics_every: int | None = None, params0: dict | None = None,
-                  device="cuda"):
+                  compress=None, device="cuda"):
     """Run ``cfg.rounds`` DEPOSITUM rounds on ``device``.
 
     Returns ``(final_state, curves)``; ``curves`` holds per-round loss,
     accuracy and the stationarity terms every ``metrics_every`` rounds (and
     at the last), plus ``wall_s`` (the round loop, metrics included),
-    ``iters`` and ``spectral_lambda``.  ``params0`` as in :func:`prepare`.
+    ``iters`` and ``spectral_lambda``.  ``params0`` and ``compress`` as in
+    :func:`prepare`.
     """
-    p = prepare(cfg, params0=params0, device=device)
+    p = prepare(cfg, params0=params0, compress=compress, device=device)
     dep, state = cfg.depositum, p.state
     metrics = classifier_metrics(p.model, p.grad_fns, p.all_x, p.all_y, dep)
     curves: dict[str, list] = {k: [] for k in

@@ -17,6 +17,9 @@ is ``(S, C, ...)`` (S configurations, C clients), and one call of
 * Gradients are ``torch.func.vmap(grad_fn, in_dims=(0, batch_axis))``
   over the client ``grad_fn``.
 * Metrics run per point on views of the state (eval, not the round).
+* A schedule carrying a compression spec (a stacked mixed spec for a
+  compressor grid) gives every point CHOCO error-feedback memory, the
+  ``none`` point of a mixed grid included.
 
 Shapes:
   hypers        Hyper with (S,) values, or unstacked (broadcast)
@@ -43,12 +46,14 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 import torch
 from torch.func import vmap
 
+from repro_torch.core.compression import CommMemory
 from repro_torch.core.depositum import (
     _KERNEL_DTYPES,
     DepositumConfig,
     DepositumState,
     fused_eligibility,
     init as dep_init,
+    initial_comm,
     local_then_comm_round,
 )
 from repro_torch.core.hyper import Hyper, n_sweep, stack_hypers
@@ -210,8 +215,11 @@ def _hyper_point(hypers: Hyper, s: int) -> Hyper:
 
 
 def _state_point(state: DepositumState, s: int) -> DepositumState:
-    return DepositumState(*({k: v[s] for k, v in getattr(state, f).items()}
-                            for f in _FIELDS), t=state.t, comm=state.comm)
+    point = lambda tree: {k: v[s] for k, v in tree.items()}
+    comm = {v: CommMemory(*(point(t) for t in mem))
+            for v, mem in state.comm.items()} if state.comm else ()
+    return DepositumState(*(point(getattr(state, f)) for f in _FIELDS),
+                          t=state.t, comm=comm)
 
 
 def _stack_outs(per_point: list) -> dict:
@@ -241,9 +249,11 @@ def sweep_init(params0, n_clients: int, n: int, compress: Any = None, *,
                params_axis: Optional[int] = None) -> DepositumState:
     """Initial sweep state: leaves (n, n_clients, ...) on ``params0``'s
     device, x the same for every client (and, unless ``params_axis`` maps
-    per-point initial params, for every point); auxiliaries zero."""
-    if compress is not None:
-        raise _later_slice("sweep_init(compress=...)", 6, "compression")
+    per-point initial params, for every point); auxiliaries zero.
+
+    ``compress`` (a CompressionSpec or a schedule carrying one) allocates
+    the CHOCO memory on every point, as :func:`sweep_run` does: pass the
+    swept schedule here when driving :func:`make_sweep_round` by hand."""
 
     def x_leaf(p):
         if params_axis is None:
@@ -255,7 +265,8 @@ def sweep_init(params0, n_clients: int, n: int, compress: Any = None, *,
 
     x = {k: x_leaf(v) for k, v in params0.items()}
     z = lambda: {k: torch.zeros_like(v) for k, v in x.items()}
-    return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0, comm=())
+    return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0,
+                          comm=initial_comm(compress, x))
 
 
 def make_sweep_round(grad_fn: GradFn, config: DepositumConfig, mixer, *,
@@ -265,9 +276,11 @@ def make_sweep_round(grad_fn: GradFn, config: DepositumConfig, mixer, *,
 
     Returns ``round_fn(states, hypers, batches, plan=None) -> (states,
     aux)`` with state leaves ``(S, C, ...)``.  ``mixer`` may be a Mixer
-    closure or a (possibly stacked) MixPlan / MixSchedule.  The plan is an
-    operand of each call: ``plan=`` swaps in another same-structure plan
-    (a new topology grid, a reseeded cohort) for that round.  ``hypers``
+    closure or a (possibly stacked) MixPlan / MixSchedule; a compressing
+    schedule needs states from ``sweep_init(..., compress=schedule)``.
+    The plan is an operand of each call: ``plan=`` swaps in another
+    same-structure plan (a new topology grid, a reseeded cohort, another
+    compressor grid) for that round.  ``hypers``
     may be stacked or unstacked (broadcast).  ``batch_axis=0`` matches
     :func:`broadcast_batches` / :func:`sweep_batch_iter` (leaves (S, T0,
     C, ...)); ``batch_axis=None`` takes (T0, C, ...) batches shared by the
@@ -348,7 +361,8 @@ def sweep_run(
         batches = _map(lambda v: v.movedim(batch_axis, 2), batches)
     if torch.as_tensor(hypers.alpha).ndim == 0:
         hypers = Hyper(*(torch.as_tensor(v).expand(S) for v in hypers))
-    state = sweep_init(params0, n_clients, S, params_axis=params_axis)
+    state = sweep_init(params0, n_clients, S, params_axis=params_axis,
+                       compress=plan)
     sgrad = _sweep_grad(grad_fn, batch_axis)
     mix = _sweep_mixer(legacy, plan, backend)
     metrics = _metrics_caller(metrics_fn)
@@ -396,7 +410,7 @@ def sweep_run_sequential(
         mixer_s = legacy if legacy is not None else backend.mixer_for(plan_s)
         batches_s = _take(batches, s, batch_axis)
         state = dep_init(_take(params0, s, params_axis), n_clients,
-                         device=dev)
+                         compress=plan_s, device=dev)
         outs = []
         for r in range(rounds):
             state, _ = local_then_comm_round(
@@ -406,10 +420,14 @@ def sweep_run_sequential(
                 outs.append(metrics(state, hyper_s, plan_s))
         finals.append(state)
         per_point.append(outs)
+    stack = lambda trees: {k: torch.stack([t[k] for t in trees])
+                           for k in trees[0]}
+    comm = finals[0].comm and {
+        v: CommMemory(*(stack([f.comm[v][i] for f in finals])
+                        for i in range(2))) for v in ("x", "y")}
     final = DepositumState(
-        *({k: torch.stack([getattr(f, name)[k] for f in finals])
-           for k in getattr(finals[0], name)} for name in _FIELDS),
-        t=finals[0].t, comm=())
+        *(stack([getattr(f, name) for f in finals]) for name in _FIELDS),
+        t=finals[0].t, comm=comm)
     return final, _stack_outs(per_point)
 
 

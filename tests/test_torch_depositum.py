@@ -214,24 +214,26 @@ def test_init_padding_and_conversion_round_trip():
 
 
 def test_later_slices_and_missing_cuda_raise():
-    """Compressed gossip waits for its slice (schedules arrived with the
-    sweep engine: ``tests/test_torch_schedule.py``)."""
+    """Compressed gossip has landed: a compressing schedule over a state
+    without error-feedback memory raises as the reference does, a
+    schedule refuses what is not a CompressionSpec, and ``init`` gives no
+    memory to an operand that carries no spec (the compressed round itself
+    is tested in ``tests/test_torch_compressed_depositum.py``)."""
+    from repro_torch.core import CompressionSpec
+
     params_np, state_np, batches = _problem()
     st = state_from_numpy(state_np, device="cpu")
     bt = {k: torch.from_numpy(v[0]) for k, v in batches.items()}
-
-    class CompressionSpec:
-        pass
-
-    with pytest.raises(NotImplementedError, match="compression slice"):
-        tdep.step(st, bt, _t_grad_fn(), tdep.DepositumConfig(**_cfg()),
-                  CompressionSpec())
-    with pytest.raises(NotImplementedError, match="compression slice"):
-        TSchedule.constant(TPlan.dense(mixing_matrix("ring", C),
-                                       device="cpu")).with_compression(None)
-    with pytest.raises(NotImplementedError, match="compression"):
-        tdep.init(params_from_numpy(params_np, device="cpu"), C,
-                  compress=object(), device="cpu")
+    sched = TSchedule.constant(TPlan.dense(mixing_matrix("ring", C),
+                                           device="cpu"))
+    with pytest.raises(ValueError, match="error-feedback memory"):
+        tdep.step(st._replace(t=T0 - 1), bt, _t_grad_fn(),
+                  tdep.DepositumConfig(**_cfg()), sched.with_compression(
+                      CompressionSpec.topk(0.5, device="cpu")))
+    with pytest.raises(TypeError, match="CompressionSpec"):
+        sched.with_compression(object())
+    assert tdep.init(params_from_numpy(params_np, device="cpu"), C,
+                     compress=object(), device="cpu").comm == ()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             tdep.init(params_from_numpy(params_np, device="cpu"), C)

@@ -41,6 +41,7 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                 "repro_torch.kernels.flash_attention.kernel",
                 "repro_torch.models.transformer",
                 "repro_torch.serving.serve", "repro_torch.launch.serve",
-                "repro_torch.kernels.prox.ops", "repro_torch.quickstart"):
+                "repro_torch.kernels.prox.ops", "repro_torch.quickstart",
+                "repro_torch.core.compression", "repro_torch.analysis.comm"):
         assert mod in names
     assert int(count) == len(names) >= 30

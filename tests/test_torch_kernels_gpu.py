@@ -14,7 +14,10 @@ kernels sum their online softmax blockwise: fp32 (``flash_fwd.cu``) at
 2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2.
 The sweep rounds hold fused against unfused bit for bit, and the card
 against the CPU at rtol 1e-4 / atol 1e-6 (products summed in another
-order).
+order).  Compressed rounds (CHOCO, ``core/compression.py``) hold fused
+against unfused bit for bit with their memory, a comm step on the card
+against the CPU from one state at atol 1e-5, and a CUDA graph of
+``choco_mix`` bit for bit against the eager call.
 """
 import numpy as np
 import pytest
@@ -514,3 +517,145 @@ def test_gated_cohort_sweep_round_on_the_card():
         torch.testing.assert_close(
             getattr(out[("cuda", "require")], f)["w"].cpu(),
             getattr(out[("cpu", "require")], f)["w"], rtol=1e-4, atol=1e-6)
+
+
+def _lsq_ops(dev, n=8, d=16, m=8, seed=0):
+    rng = np.random.default_rng(seed)
+    A = torch.from_numpy(rng.standard_normal((n, m, d)).astype(
+        np.float32)).to(dev)
+    b = A @ torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(
+        dev)
+
+    def grad_fn(x, batch):
+        r = torch.einsum("nmd,nd->nm", A, x["w"]) - b
+        return {"w": torch.einsum("nmd,nm->nd", A, r) / m}, {}
+
+    return grad_fn
+
+
+def _leaves_with_memory(st):
+    out = [getattr(st, f)["w"] for f in ("x", "y", "nu", "g")]
+    return out + [getattr(st.comm[v], f)["w"] for v in ("x", "y")
+                  for f in ("xhat", "s")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["topk", "qsgd"])
+def test_compressed_round_on_the_card(kind):
+    """A compressed one-config round and a compressed mixed-kind sweep
+    (none / top-k / QSGD) of least squares on the card: one launch of each
+    sweep kernel a step (for all S), fused bit-equal to unfused with the
+    memory; the comm step from one state on the card and on the CPU (the
+    same hashed draws) within atol 1e-5 (products summed in another
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.core import (CompressionSpec, DepositumConfig, MixPlan,
+                                  as_schedule, init, local_then_comm_round,
+                                  stack_hypers, stack_schedules, step)
+    from repro_torch.training.sweep import sweep_run
+
+    n, d, T0, R = 8, 16, 3, 2
+
+    def spec(dev):
+        return (CompressionSpec.topk(0.25, device=dev) if kind == "topk"
+                else CompressionSpec.qsgd(4, seed=3, device=dev))
+
+    def sched(dev):
+        return as_schedule(MixPlan.from_topology(
+            "ring", n, device=dev)).with_compression(spec(dev))
+
+    out = {}
+    for mode in ("require", "off"):
+        cfg = DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5,
+                              comm_period=T0, fused=mode)
+        grad_fn = _lsq_ops("cuda")
+        st = init({"w": torch.ones(d, device="cuda")}, n,
+                  compress=spec("cuda"), device="cuda")
+        tk.reset_launch_counts()
+        for _ in range(R):
+            st, _ = local_then_comm_round(st, torch.zeros((T0, 1)), grad_fn,
+                                          cfg, sched("cuda"))
+        base = as_schedule(MixPlan.from_topology("ring", n, device="cuda"))
+        grid = stack_schedules([base.with_compression(s) for s in (
+            CompressionSpec.none(device="cuda"), spec("cuda"))])
+        sw, _ = sweep_run({"w": torch.ones(d, device="cuda")}, grad_fn, cfg,
+                          grid, stack_hypers([cfg.hyper()] * 2),
+                          torch.zeros((R, T0, 1), device="cuda"),
+                          n_clients=n)
+        torch.cuda.synchronize()
+        want = 2 * R * T0 if mode == "require" else 0
+        assert tk.LAUNCH_COUNTS["fused_sweep"] == want
+        assert tk.LAUNCH_COUNTS["tracking_sweep"] == want
+        out[mode] = (st, sw)
+    for a, b in zip(out["require"], out["off"]):
+        for u, v in zip(_leaves_with_memory(a), _leaves_with_memory(b)):
+            assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+    st = out["require"][0]
+    comm_step = {}
+    for dev in ("cuda", "cpu"):
+        mv = lambda t: {k: v.to(dev) for k, v in t.items()}
+        s_dev = st._replace(
+            **{f: mv(getattr(st, f)) for f in ("x", "y", "nu", "mu", "g")},
+            comm={v: type(m)(*(mv(t) for t in m))
+                  for v, m in st.comm.items()}, t=R * T0 + T0 - 1)
+        cfg = DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5,
+                              comm_period=T0, fused="require")
+        comm_step[dev], _ = step(s_dev, None, _lsq_ops(dev), cfg, sched(dev))
+    for u, v in zip(_leaves_with_memory(comm_step["cuda"]),
+                    _leaves_with_memory(comm_step["cpu"])):
+        torch.testing.assert_close(u.cpu(), v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["topk", "qsgd", "mixed"])
+def test_choco_mix_replays_in_a_cuda_graph(kind):
+    """One CHOCO exchange captured in a CUDA graph (capture fails on a host
+    sync) replays bit-equal to the eager call, also on new inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.core import (CommMemory, CompressionSpec, MixPlan,
+                                  apply_mix_sweep, choco_mix,
+                                  comm_round_keys, stack_specs)
+
+    S, n = 3, 6
+    plan = MixPlan.from_topology("ring", n, device="cuda")
+    if kind == "mixed":
+        spec = stack_specs([CompressionSpec.none(device="cuda"),
+                            CompressionSpec.topk(0.2, device="cuda"),
+                            CompressionSpec.qsgd(3, device="cuda")])
+    else:
+        spec = (CompressionSpec.topk(0.2, device="cuda") if kind == "topk"
+                else CompressionSpec.qsgd(4, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x, xhat, s = ({"a": torch.randn((S, n, 5, 7), generator=g,
+                                    device="cuda"),
+                   "b": torch.randn((S, n, 3), generator=g, device="cuda")}
+                  for _ in range(3))
+    key = comm_round_keys(spec, 1)[1]
+
+    def call():
+        o, m = choco_mix(spec, lambda t: apply_mix_sweep(plan, t), x,
+                         CommMemory(xhat, s), key, lead=2)
+        return [o, m.xhat, m.s]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    for replay in range(2):
+        if replay:
+            for t in (x, xhat, s):
+                for v in t.values():
+                    v.copy_(torch.randn(v.shape, generator=g, device="cuda"))
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager):
+            for k in a:
+                assert torch.equal(a[k].view(torch.int32),
+                                   b[k].view(torch.int32))

@@ -163,8 +163,9 @@ def test_stacking_densifying_and_validation_match_reference():
     with pytest.raises(ValueError, match="rows"):
         validate_schedule(MixSchedule.lazy(MixPlan.dense(bad, device="cpu"),
                                            0.5, rounds=2), N)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _build("t", "constant").with_compression(object())
+    for pkg in ("j", "t"):
+        with pytest.raises(TypeError, match="CompressionSpec"):
+            _build(pkg, "constant").with_compression(object())
     for fn, args in ((shard_schedule_body, (tg, 0, None, "clients", N)),
                      (wire_supported, (tg,)),
                      (shard_compressed_qmix, (tg, 0, None, "clients", N))):
@@ -219,8 +220,8 @@ def test_swept_schedule_equals_each_point_alone(kind):
 
 
 def test_step_runs_a_schedule_like_its_plan():
-    """A constant schedule runs exactly its plan's ops; CompressionSpec
-    waits for the compression slice."""
+    """A constant schedule runs exactly its plan's ops, and so does one
+    carrying a ``none`` CompressionSpec (the dense path, no memory)."""
     def grad_fn(x, batch):
         return {k: 0.1 * v for k, v in x.items()}, {}
 
@@ -236,11 +237,13 @@ def test_step_runs_a_schedule_like_its_plan():
     assert torch.equal(a.x["w"], b.x["w"]) and torch.equal(a.y["w"],
                                                             b.y["w"])
 
-    class CompressionSpec:
-        pass
+    from repro_torch.core import CompressionSpec
 
-    with pytest.raises(NotImplementedError, match="compression"):
-        step(st, {}, grad_fn, cfg, CompressionSpec())
+    c, _ = step(st, {}, grad_fn, cfg, MixSchedule.constant(
+        plan).with_compression(CompressionSpec.none(device="cpu")))
+    assert torch.equal(a.x["w"], c.x["w"]) and torch.equal(a.y["w"],
+                                                            c.y["w"])
+    assert c.comm == ()
 
 
 # ---------------------------------------------------------------------------

@@ -357,8 +357,12 @@ def test_later_slices_raise_naming_their_queue_item():
     with pytest.raises(NotImplementedError, match="item 7"):
         sweep_run_fedalg(object(), params0, lsq_grad_fn, hypers, batches,
                          n_clients=N)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sweep_init(params0, N, 3, compress=object())
+    from repro_torch.core import CompressionSpec, as_schedule
+    from repro_torch.core.schedule import wire_supported
+    with pytest.raises(NotImplementedError, match="item 5"):
+        wire_supported(as_schedule(MixPlan.from_topology(
+            "ring", N, device="cpu")).with_compression(
+                CompressionSpec.qsgd(4, device="cpu")))
 
 
 def test_one_config_step_refuses_a_stacked_hyper():
