@@ -22,7 +22,10 @@ final line):
      bit, live rows within ``ATOL`` / ``RTOL``; and the grouped launch over
      whole trees (the MLP's six leaves and a ragged tree of 0-D to 2-D
      leaves, one launch a call): fp32 bit for bit, bf16 within
-     ``BF16_ATOL`` / ``BF16_RTOL``, frozen rows bit for bit;
+     ``BF16_ATOL`` / ``BF16_RTOL``, frozen rows bit for bit; and the
+     training path's LM-head leaf (2 x 2048 x 152064 bf16) within
+     ``BF16_HEAD_ULPS`` of the plain versions, with controls (the step
+     skipped, a halved alpha or beta) that must miss that limit;
    * ``prox_cuda`` and ``fused_update_cuda``: three kinds, odd, float4 and
      0-d leaves, fp32 within ``ATOL`` / ``RTOL`` and bf16;
    * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 128 / 256, GQA
@@ -99,6 +102,30 @@ final line):
    fp32, identical weights, served on the card and on the CPU (plain
    versions there; the fp32 flash kernel on the card): identical greedy
    tokens, logits within 1e-4;
+6a. federated training (``training/train_loop.py`` through
+   ``launch/train.py``'s builder, ``fused="auto"``):
+   * ``train_llm``: full-width, full-depth ``qwen3-1.7b`` (2,032,264,192
+     parameters, bf16, remat "full", random weights from a seed) on 2
+     clients (complete), T0 4, B 2 x L 512 a client a step, one warm-up
+     round then ``TRAIN_ROUNDS`` timed rounds with donated states: each
+     sweep kernel launches ceil(311 / 48) = 7 times a step, every loss is
+     finite; prints the round walls, tokens/s, the peak memory beside the
+     ``TRAIN_PEAK_GB`` reckoning, the caching allocator's device
+     allocations in the timed rounds, one more round under
+     ``torch.profiler`` (device busy share, host phases, top kernels) and
+     the sweep pair's ms a step at these leaves against its bound; then
+     the consensus (``mean_params``) serves
+     B 2, a 64-token prompt and 8 greedy tokens through ``BatchedServer``
+     (28 launches of the bf16 flash kernel, tokens in range, logits
+     finite).  No full-width checkpoint is written (fp32 on disk: 8.1 GB);
+   * ``train_ckpt``: reduced fp32, ``launch.train --ckpt`` then
+     ``launch.serve --ckpt`` on the card: the restored params bit-equal to
+     the saved consensus, the served tokens equal to serving it directly;
+   * ``train_card_vs_cpu``: reduced fp32, 2 rounds from one state on the
+     card and on the CPU, x / y / nu / g within ``CPU_ATOL`` /
+     ``CPU_RTOL``;
+   the ``check`` phase also holds the grouped bf16 sweep pair at the LM
+   head's leaf (2 clients x 2048 x 152064) against its plain version;
 7. one DEPOSITUM step's two grouped calls (``ops.fused_local_update``,
    ``ops.fused_tracking``) captured in a ``torch.cuda.CUDAGraph`` on static
    inputs, gated and ungated: each replay equals the eager calls bit for
@@ -111,9 +138,10 @@ final line):
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused.
 
-Before each path (phases 3, 4, 4a, 4b, 5, 6) every launch count is set to
-0; it is read just after.  The kernels line's launches of the two sweep
-kernels sum the paths that run them (3, 4a and 4b).  Prints JSON lines per
+Before each path (phases 3, 4, 4a, 4b, 5, 6, 6a) every launch count is set
+to 0; it is read just after.  The kernels line's launches of the two sweep
+kernels sum the paths that run them (3, 4a, 4b and 6a), the flash
+kernels' the served paths (5, 6 and 6a).  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -137,7 +165,10 @@ ROUNDS = 30
 MLP_LEAVES = ((123, 64), (64,), (64, 32), (32,), (32, 10), (10,))
 RAGGED_LEAVES = ((), (3,), (10,), (8, 8), (123, 64), (1001,))
 ATOL, RTOL = 1e-6, 1e-6        # kernel vs plain, fp32: same ops, same order
-BF16_ATOL, BF16_RTOL = 1e-2, 1e-2   # one bf16 rounding of an fp32 result
+BF16_ATOL, BF16_RTOL = 1e-2, 1e-2   # small bf16 cases, values ~0.1
+# the LM head's bf16 leaf: the kernel and the plain version compute the same
+# fp32 result and round it once, so they may differ by one ulp at most
+BF16_HEAD_ULPS = 1
 # Fused vs unfused on the card: the unfused step divides by the round's
 # scalars on the device (a true division, as the kernel, built with
 # -fmad=false, does) and does the kernel's fp32 operations in its order, so
@@ -195,6 +226,25 @@ SWEEP_TIMING_PAIRS = 3      # sweep and sequential timed in turns
 COMM_ROUNDS = 30
 COMM_SEQ_RTOL = 1e-5
 COMM_CPU_ATOL = 1e-5
+# Federated training at full width through the launcher's own builder
+# (launch/train.py: FederatedTrainer, fused="auto"): Qwen3-1.7B, bf16,
+# remat "full", 2 clients (five bf16 trees of 4.065 GB a client: 40.65 GB
+# of state; 3 clients or fp32 do not fit on 80 GB), one warm-up round,
+# then TRAIN_ROUNDS timed rounds; the consensus then serves B 2, a 64-token
+# prompt, 8 greedy tokens.  TRAIN_PEAK_GB: the peak reckoned from the
+# trees before the first run (seven bf16 trees at once, plus activations).
+TRAIN = ["--arch", "qwen3-1.7b", "--clients", "2", "--topology", "complete",
+         "--batch", "2", "--seq", "512", "--t0", "4", "--alpha", "0.02",
+         "--beta", "1.0", "--gamma", "0.8", "--momentum", "polyak",
+         "--prox", "l1", "--lam", "1e-5", "--seed", "0"]
+TRAIN_ROUNDS = 3
+TRAIN_PEAK_GB = (57.0, 66.0)
+TRAIN_SERVE = {"batch": 2, "prompt": 64, "new": 8, "cache": 128}
+# the reduced fp32 trainer: launch.train --ckpt then launch.serve --ckpt,
+# and 2 rounds on the card against the CPU from one state
+TRAIN_REDUCED = ["--arch", "qwen3-1.7b", "--reduced", "--clients", "4",
+                 "--topology", "ring", "--batch", "2", "--seq", "16",
+                 "--t0", "2", "--rounds", "2", "--seed", "1"]
 
 
 def emit(obj) -> None:
@@ -206,6 +256,19 @@ def bits_equal(a, b) -> bool:
     if a.dtype == torch.bfloat16:
         return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (int32): their bit patterns mapped to one monotone integer line, so
+    +0 and -0 are 0 apart and neighbours across zero 2."""
+    import torch
+
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (line(a) - line(b)).abs()
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -452,9 +515,76 @@ def phase_check() -> dict:
                 grouped_equal("fused_tracking_sweep", out, ref, (y, x), m,
                               dtype)
                 grouped_cases += 1
+    # the LM head's leaf on the training path: one config's 2 client rows
+    # of (2048, 152064) bf16, 311,427,072 elements a row (lead 1), under
+    # the launcher's row (alpha 0.02, gamma 0.8, beta 1, lam 1e-5); x at
+    # the weights' scale and y, nu at a gradient's, so that x' - x
+    # (alpha |nu'| ~ 0.017) spans ~200 bf16 ulps of x.  Held at one bf16
+    # rounding: each output at most BF16_HEAD_ULPS from the plain version.
+    # Controls that must miss by more in most elements: the step skipped
+    # (the inputs returned) and, for x', the plain version under alpha / 2
+    # (a misread row), for y', under beta / 2.
+    head = (2, 2048, 152064)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.randn(head, generator=g, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    y, nu = (torch.randn(head, generator=g, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    rows = {scale: K.sweep_params_table(
+        lam=1e-5, theta=4.0, alpha=0.02 * scale, gamma=0.8, beta=scale,
+        device="cuda") for scale in (1.0, 0.5)}
+    head_ulps, head_controls = {}, {}
+
+    def hold(name, out, ref, controls):
+        """out within BF16_HEAD_ULPS of ref; each control off by more than
+        that in over half the elements."""
+        if out.shape != head or out.dtype != torch.bfloat16:
+            raise AssertionError(f"{name} at the LM head: {tuple(out.shape)}"
+                                 f" {out.dtype}")
+        d = bf16_ulps(out, ref)
+        worst_ulps, n_diff = int(d.max()), int((d > 0).sum())
+        head_ulps[name] = {"max_ulps": worst_ulps, "differing": n_diff}
+        if worst_ulps > BF16_HEAD_ULPS:
+            raise AssertionError(f"{name} at the LM head: {worst_ulps} ulps "
+                                 f"from plain ({n_diff} elements differ)")
+        for label, c in controls.items():
+            share = float((bf16_ulps(c, ref) > BF16_HEAD_ULPS).float().mean())
+            head_controls[f"{name} {label}"] = share
+            if share <= 0.5:
+                raise AssertionError(f"{name} at the LM head: control "
+                                     f"{label!r} is within the limit in "
+                                     f"{1 - share:.1%} of the elements")
+
+    (xo,), (nuo,) = K.fused_update_sweep_grouped([x], [y], [nu], rows[1.0],
+                                                 kind="l1", lead=1)
+    (xr,), (nur,) = K.fused_update_sweep_grouped_plain(
+        [x], [y], [nu], rows[1.0], kind="l1", lead=1)
+    torch.cuda.synchronize()
+    (xa,), _ = K.fused_update_sweep_grouped_plain([x], [y], [nu], rows[0.5],
+                                                  kind="l1", lead=1)
+    hold("x'", xo, xr, {"step skipped": x, "alpha / 2": xa})
+    del xa
+    hold("nu'", nuo, nur, {"step skipped": nu})
+    del xo, nuo, xr, nur
+    (yo,), (kept,) = K.fused_tracking_sweep_grouped([y], [nu], [x], rows[1.0],
+                                                    lead=1)
+    (yr,), _ = K.fused_tracking_sweep_grouped_plain([y], [nu], [x],
+                                                    rows[1.0], lead=1)
+    torch.cuda.synchronize()
+    (yb,), _ = K.fused_tracking_sweep_grouped_plain([y], [nu], [x],
+                                                    rows[0.5], lead=1)
+    hold("y'", yo, yr, {"step skipped": y, "beta / 2": yb})
+    if kept is not nu:
+        raise AssertionError("tracking at the LM head: ungated g_kept is "
+                             "not g_new")
+    del yo, yr, yb, kept, x, y, nu
+    torch.cuda.empty_cache()
     return {"phase": "check", "cases": cases, "grouped_cases": grouped_cases,
-            "max_abs_err": worst, "atol": ATOL, "rtol": RTOL,
-            "bf16_atol": BF16_ATOL, "bf16_rtol": BF16_RTOL}
+            "lm_head_case": list(head), "lm_head_ulps": head_ulps,
+            "lm_head_controls_missed": head_controls,
+            "lm_head_ulps_limit": BF16_HEAD_ULPS, "max_abs_err": worst,
+            "atol": ATOL, "rtol": RTOL, "bf16_atol": BF16_ATOL,
+            "bf16_rtol": BF16_RTOL}
 
 
 def phase_check_prox() -> dict:
@@ -1806,6 +1936,249 @@ def phase_round_time_comm() -> dict:
             "round_ms": walls, "profiled": prof}
 
 
+def _gb(nbytes) -> float:
+    return nbytes / 1e9
+
+
+def phase_train_llm() -> tuple[dict, dict]:
+    """Full-width Qwen3-1.7B trained by DEPOSITUM on 2 bf16 clients through
+    launch/train.py's builder (FederatedTrainer, fused="auto", donated
+    rounds), then the consensus served through BatchedServer."""
+    import torch
+    from repro_torch.kernels.prox import kernel as K
+    from repro_torch.kernels.prox.ops import (fused_local_update,
+                                              fused_tracking,
+                                              hyper_param_vec)
+    from repro_torch.launch import train
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.profile_round import profile_window
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = train.parse_args(TRAIN + ["--rounds", str(1 + TRAIN_ROUNDS)])
+    trainer, cfg, state, it = train.build(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v[0].numel() for v in state.x.values())
+    n_leaves = len(state.x)
+    state_gb = _gb(sum(v.numel() * v.element_size() for f in
+                       ("x", "y", "nu", "mu", "g")
+                       for v in getattr(state, f).values()))
+    init_peak_gb = _gb(torch.cuda.max_memory_allocated() - base)
+    per_step = -(-n_leaves // K.MAX_LEAVES)
+    T0 = args.t0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = trainer.run(state, it, 1, donate=True)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    warm = read_counts()
+    expect_counts("train_llm warm-up", warm, {
+        "fused_update_sweep": per_step * T0,
+        "fused_tracking_sweep": per_step * T0})
+    losses = [hist[-1]["loss"]]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+                  "num_sync_all_streams")
+    stats0 = torch.cuda.memory_stats()
+    walls = []
+    for _ in range(TRAIN_ROUNDS):
+        t0 = time.perf_counter()
+        state, hist = trainer.run(state, it, 1, donate=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(hist[-1]["loss"])
+    launches = read_counts()
+    peak_gb = _gb(torch.cuda.max_memory_allocated() - base)
+    stats1 = torch.cuda.memory_stats()
+    allocator = {k: stats1.get(k, 0) - stats0.get(k, 0) for k in alloc_keys}
+    expect_counts("train_llm", launches, {
+        "fused_update_sweep": per_step * T0 * TRAIN_ROUNDS,
+        "fused_tracking_sweep": per_step * T0 * TRAIN_ROUNDS})
+    tokens = args.clients * args.batch * args.seq * T0
+
+    # one more round under torch.profiler: device busy share, host time
+    # in the annotated phases, the costliest kernels
+    box = [state]
+
+    def advance(_):
+        box[0], h = trainer.run(box[0], it, 1, donate=True)
+        losses.append(h[-1]["loss"])
+
+    del state
+    profiled = profile_window(advance, 1, "cuda", top=12)
+    state = box.pop()
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"train_llm: a loss is not finite: {losses}")
+
+    # the sweep pair at these leaves: one step's two grouped calls (device
+    # time by CUDA events) against their bound, state and outputs in place
+    hp = hyper_param_vec(trainer.cfg.depositum.hyper(), device="cuda")
+    step_bytes = {"fused_update_sweep": 5, "fused_tracking_sweep": 4}
+    tree_bytes = sum(v.numel() * v.element_size() for v in state.x.values())
+    sweep = {}
+    reset_counts()
+    fns = {"fused_update_sweep": lambda: fused_local_update(
+               state.x, state.y, state.nu, hp, kind="l1"),
+           "fused_tracking_sweep": lambda: fused_tracking(
+               state.y, state.g, state.nu, hp)}
+    for name, fn in fns.items():
+        ms = time_ms(fn, iters=5, warmup=1)
+        bound = step_bytes[name] * tree_bytes / HBM_BYTES_PER_S * 1e3
+        sweep[name] = {"ms": ms, "bound_ms": bound,
+                       "share_of_bound": bound / ms,
+                       "launches_per_call": per_step}
+        torch.cuda.empty_cache()
+
+    mean = trainer.mean_params(state)
+    del state, fns
+    torch.cuda.empty_cache()
+    ts = TRAIN_SERVE
+    srv = BatchedServer(trainer.model, mean, ServeConfig(
+        max_new_tokens=ts["new"], cache_capacity=ts["cache"]))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (ts["batch"], ts["prompt"]),
+                            generator=gen, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = read_counts()
+    expect_counts("train_llm serve", serve_launches,
+                  {"flash_attention": cfg.n_layers})
+    with torch.inference_mode():
+        logits, _ = srv.prefill(prompts)
+    if toks.shape != (ts["batch"], ts["new"]) or not bool(
+            ((toks >= 0) & (toks < pad_vocab(cfg.vocab_size))).all()):
+        raise AssertionError(f"train_llm: served tokens bad {toks.shape}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("train_llm: served logits are not finite")
+    del srv, mean, logits
+    torch.cuda.empty_cache()
+    path = {k: warm[k] + launches[k] for k in launches}
+    path["flash_attention"] += serve_launches["flash_attention"]
+    return path, {
+        "phase": "train_llm", "arch": cfg.name, "layers": cfg.n_layers,
+        "params": n_params, "leaves": n_leaves, "dtype": cfg.dtype,
+        "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+        "clients": args.clients, "topology": args.topology,
+        "batch": args.batch, "seq": args.seq, "t0": T0,
+        "fused": trainer.cfg.depositum.fused, "init_s": init_s,
+        "warmup_round_s": warmup_s, "round_ms": walls,
+        "tokens_per_round": tokens,
+        "tokens_per_s": [tokens / w * 1e3 for w in walls],
+        "losses": losses, "state_gb": state_gb,
+        "init_peak_gb": init_peak_gb, "train_peak_gb": peak_gb,
+        "predicted_peak_gb": list(TRAIN_PEAK_GB),
+        "card_gb": _gb(torch.cuda.get_device_properties(0).total_memory),
+        "launches_warmup": warm, "launches_timed": launches,
+        "launches_per_step": per_step, "allocator_timed": allocator,
+        "profiled_round": profiled, "sweep_step": sweep,
+        "serve": {"batch": ts["batch"], "prompt": ts["prompt"],
+                  "new_tokens": ts["new"], "generate_s": serve_s,
+                  "launches": serve_launches, "sample": toks[0].tolist()}}
+
+
+def phase_train_ckpt() -> tuple[dict, dict]:
+    """launch.train --ckpt then launch.serve --ckpt on the card (reduced
+    fp32): the restored params bit-equal to the saved consensus, the
+    served tokens equal to serving the consensus directly."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.training import restore_checkpoint
+
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "consensus.npz")
+        reset_counts()
+        trainer, state, hist = train.main(TRAIN_REDUCED + ["--ckpt", ck])
+        torch.cuda.synchronize()
+        train_launches = read_counts()
+        steps = int(state.t)
+        expect_counts("train_ckpt", train_launches, {
+            "fused_update_sweep": steps, "fused_tracking_sweep": steps})
+        mean = trainer.mean_params(state)
+        restored, step = restore_checkpoint(
+            ck, Transformer(cfg, init_params(cfg, device="meta")[0]),
+            device="cuda")
+        for (k, a), (_, b) in zip(restored.named_parameters(),
+                                  mean.named_parameters()):
+            if not bits_equal(a, b):
+                raise AssertionError(f"train_ckpt: {k} restored != saved")
+        reset_counts()
+        served = serve.main(["--arch", "qwen3-1.7b", "--reduced", "--ckpt",
+                             ck, "--batch", "2", "--prompt-len", "8",
+                             "--max-new", "6"])
+        serve_launches = read_counts()
+        expect_counts("train_ckpt serve", serve_launches,
+                      {"flash_attention_fp32": cfg.n_layers})
+    direct = serve.generate(build_model(cfg, device="cuda"), mean, batch=2,
+                            prompt_len=8, max_new=6)
+    if not torch.equal(served, direct):
+        raise AssertionError("train_ckpt: served tokens differ from the "
+                             "consensus served directly")
+    path = {k: train_launches[k] + serve_launches[k] for k in train_launches}
+    return path, {"phase": "train_ckpt", "arch": cfg.name, "steps": steps,
+                  "step": step, "losses": [h["loss"] for h in hist],
+                  "launches": path, "tokens": served[0].tolist()}
+
+
+def phase_train_card_vs_cpu() -> tuple[dict, dict]:
+    """Reduced fp32 trainer, 2 rounds from one state on the card and on the
+    CPU (kernels there, plain versions here): x, y, nu, g within
+    CPU_ATOL / CPU_RTOL, losses within CPU_RTOL."""
+    import copy
+    import torch
+    from repro_torch.launch import train
+
+    runs, launches = {}, None
+    args = train.parse_args(TRAIN_REDUCED)
+    for dev in ("cpu", "cuda"):
+        args.device = dev
+        trainer, cfg, _, it = train.build(args)
+        if dev == "cpu":
+            module, _ = trainer.model.init(args.seed)
+            start = copy.deepcopy(module)
+        state = trainer.state_from_params(copy.deepcopy(start).to(dev))
+        if dev == "cuda":
+            reset_counts()
+        state, hist = trainer.run(state, it, args.rounds)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
+        runs[dev] = (state, [h["loss"] for h in hist])
+    (cs, cl), (gs, gl) = runs["cpu"], runs["cuda"]
+    diff = {}
+    for f in ("x", "y", "nu", "g"):
+        a, b = getattr(gs, f), getattr(cs, f)
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], atol=CPU_ATOL,
+                                       rtol=CPU_RTOL,
+                                       msg=lambda m: f"{f}/{k}: {m}")
+        diff[f] = max(float((a[k].cpu() - b[k]).abs().max()) for k in a)
+    torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl), atol=0,
+                               rtol=CPU_RTOL)
+    steps = int(gs.t)
+    expect_counts("train_card_vs_cpu", launches, {
+        "fused_update_sweep": steps, "fused_tracking_sweep": steps})
+    return launches, {"phase": "train_card_vs_cpu", "steps": steps,
+                      "atol": CPU_ATOL, "rtol": CPU_RTOL,
+                      "max_abs_diff": diff, "losses_card": gl,
+                      "losses_cpu": cl, "launches": launches}
+
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1864,6 +2237,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     card_vs_cpu = phase_card_vs_cpu()
     emit(card_vs_cpu)
+    train_paths = []
+    for phase in (phase_train_llm, phase_train_ckpt, phase_train_card_vs_cpu):
+        path_launches, line = phase()
+        emit(line)
+        train_paths.append(path_launches)
+        torch.cuda.empty_cache()
+    sweep_launches += train_paths
     timing = phase_timing()
     emit(timing)
     timing_prox = phase_timing_prox(state)
@@ -1900,9 +2280,12 @@ def main() -> int:
             "library_ms": None})
     # bf16 on the served path; fp32 on the card-vs-CPU path
     fp32_launches = sum(card_vs_cpu[arch]["launches"]["flash_attention_fp32"]
-                        for arch in ("qwen3-1.7b", "starcoder2-7b"))
+                        for arch in ("qwen3-1.7b", "starcoder2-7b")) + sum(
+        n["flash_attention_fp32"] for n in train_paths)
+    bf16_launches = serve_launches["flash_attention"] + sum(
+        n["flash_attention"] for n in train_paths)
     for name, dtype, launched, t in (
-            ("flash_attention", "bfloat16", serve_launches["flash_attention"],
+            ("flash_attention", "bfloat16", bf16_launches,
              timing_flash["served"]),
             ("flash_attention_fp32", "float32", fp32_launches,
              timing_flash["served_fp32"])):

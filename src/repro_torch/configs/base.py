@@ -1,8 +1,8 @@
 """Architecture configuration system (port of ``repro/configs/base.py``).
 
 One :class:`ModelConfig` describes a member of the model zoo; the port's
-carries the fields its families use (MoE, SSM, hybrid, enc-dec and
-numerics-of-training fields arrive with their slices).  The port
+carries the fields its families use, and the remat fields of training
+(MoE, SSM, hybrid and enc-dec fields arrive with their slices).  The port
 registers the architectures whose family it has ported (the dense decoder:
 ``qwen3-1.7b`` and ``starcoder2-7b``), each as its published config plus a
 ``reduced()`` variant for CPU tests.  Asking for an architecture of the
@@ -61,6 +61,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     # --- numerics ------------------------------------------------------------
     dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"   # full | dots (save matmul outputs)
 
     @property
     def hd(self) -> int:

@@ -31,6 +31,7 @@ REDUCED = ModelConfig(
     vocab_size=512,
     qk_norm=True,
     dtype="float32",
+    remat=False,
 )
 
 register(FULL, REDUCED)

@@ -34,6 +34,7 @@ REDUCED = ModelConfig(
     mlp_type="gelu",
     sliding_window=64,
     dtype="float32",
+    remat=False,
 )
 
 register(FULL, REDUCED)

@@ -6,7 +6,8 @@ The reference keeps parameters as a nested dict pytree (``{"l0": {"w": ..,
 at every level).  A zoo transformer's parameters are the exception: the
 reference stacks ``blocks`` over layers on axis 0, the port's
 :class:`~repro_torch.models.transformer.Transformer` keeps a list of
-per-layer trees (:func:`transformer_params_from_numpy`).  Both sides meet
+per-layer trees (:func:`transformer_params_from_numpy`, and back with
+:func:`transformer_params_to_numpy`).  Both sides meet
 as numpy arrays, so this module imports neither JAX nor the reference
 package.
 """
@@ -145,3 +146,40 @@ def transformer_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
     params["blocks"] = [walk("/blocks", tree["blocks"], want["blocks"][i], i)
                         for i in range(cfg.n_layers)]
     return params
+
+
+def _numpy32(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a float32 numpy array (bf16 upcast losslessly)."""
+    return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def transformer_params_to_numpy(params, cfg) -> dict:
+    """The port's transformer params (a :class:`~repro_torch.models.
+    transformer.Transformer`, or its params tree with ``blocks`` a list of
+    per-layer dicts) -> the reference's layout: a nested dict of float32
+    numpy arrays (bf16 upcast losslessly), ``blocks`` stacked over layers
+    on axis 0.  The inverse of :func:`transformer_params_from_numpy`."""
+    if isinstance(params, torch.nn.Module):
+        params = {name: child.tensors()
+                  for name, child in params.named_children()
+                  if name != "blocks"} | {
+            "blocks": [b.tensors() for b in params.blocks]}
+    blocks = params["blocks"]
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"{len(blocks)} blocks for {cfg.name}'s "
+                         f"{cfg.n_layers} layers")
+
+    def stack(trees):
+        first = trees[0]
+        if isinstance(first, Mapping):
+            return {k: stack([t[k] for t in trees]) for k in first}
+        return np.stack([_numpy32(t) for t in trees])
+
+    def walk(tree):
+        if isinstance(tree, Mapping):
+            return {k: walk(v) for k, v in tree.items()}
+        return _numpy32(tree)
+
+    out = {k: walk(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = stack(blocks)
+    return out

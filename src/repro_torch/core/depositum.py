@@ -33,6 +33,7 @@ sweep axis; the state then carries the memory (``init(compress=...)``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -308,14 +309,28 @@ def step(
                  hp_vec, active_mask)
 
 
+def _release(olds, live) -> None:
+    """Empty each dict of ``olds`` that is none of the dicts in ``live``:
+    the donated input state lets go of trees the step has consumed."""
+    for old in olds:
+        if all(old is not t for t in live):
+            old.clear()
+
+
 def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
-          active_mask):
+          active_mask, donate=False):
     """:func:`step` with the hyperparameters resolved and checked: ``hp``
     and ``hp_vec`` from :func:`_round_scalars`, on the state's device.
 
     A (S, 5) ``hp_vec`` is the sweep axis: leaves are ``(S, C, ...)``,
     ``hp`` holds (S,) views, ``grad_fn`` and a callable mixer take
     ``(S, C, ...)`` leaves, and ``active_mask`` is (S, C).
+
+    ``donate`` (without a mask) empties the input state's x / nu / mu
+    dicts once the local update has read them, and its y / g once the
+    tracking step has, so their memory is free for the gradients and the
+    mixed trees (what ``jax.jit``'s buffer donation does); the values
+    computed are the same.
     """
     sweep = hp_vec.ndim == 2
     # round-indexed mixers: round r = t // T0; a cohort schedule's mask
@@ -410,6 +425,9 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
             # (2) proximal descent
             x_half = prox({k: p - c(hp.alpha, p) * nu_next[k]
                            for k, p in state.x.items()})
+    donate = donate and active_mask is None
+    if donate:
+        _release((state.x, state.nu, state.mu), (x_half, nu_next, mu_next))
 
     def gossip(tree, mem, key):
         """(mixed tree, new memory): the dense mix, or the CHOCO exchange
@@ -430,6 +448,7 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         return _where(is_comm_step, out, tree), new_mem
 
     x_next, mem_x = gossip(x_half, state.comm and state.comm["x"], key_x)
+    del x_half
 
     # (3) fresh minibatch gradients at the *new* iterate
     g_next, aux = grad_fn(x_next, batch)
@@ -442,7 +461,11 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         with annotate("local_step"):
             y_half = {k: y + c(hp.beta, y) * (g_next[k] - state.g[k])
                       for k, y in state.y.items()}
+    if donate:
+        _release((state.y, state.g),
+                 (y_half, g_next, x_next, nu_next, mu_next))
     y_next, mem_y = gossip(y_half, state.comm and state.comm["y"], key_y)
+    del y_half
     comm_next = (state.comm if comm_spec is None
                  else {"x": mem_x, "y": mem_y})
 
@@ -488,6 +511,7 @@ def local_then_comm_round(
     hyper: Hyper | None = None,
     active_mask: torch.Tensor | None = None,
     sweep: bool = False,
+    donate: bool = False,
 ) -> tuple[DepositumState, Any]:
     """One FL round = (T0-1) collective-free local steps + 1 gossip step.
 
@@ -502,6 +526,10 @@ def local_then_comm_round(
     broadcasts), ``grad_fn`` and a callable ``mixer`` taking ``(S, C, ...)``
     leaves (``repro_torch.training.sweep`` vmaps a client ``grad_fn``); a
     MixPlan or MixSchedule mixer may be stacked over S or shared.
+
+    ``donate=True`` gives the input state up: its trees are emptied as the
+    round consumes them (see ``_step``), which keeps one state's worth of
+    memory off the peak.  Do not read the input state afterwards.
     """
     T0 = config.comm_period
     if hyper is None:
@@ -525,11 +553,12 @@ def local_then_comm_round(
     hp, hp_vec = _round_scalars(hp, state)
     take = lambda i: ({k: v[i] for k, v in batches.items()}
                       if isinstance(batches, dict) else batches[i])
+    run = functools.partial(_step, donate=True) if donate else _step
     for i in range(T0 - 1):
-        state, _ = _step(state, take(i), grad_fn, config, identity_mixer,
-                         False, hp, hp_vec, active_mask)
-    return _step(state, take(T0 - 1), grad_fn, config, mixer, True, hp,
-                 hp_vec, active_mask)
+        state, _ = run(state, take(i), grad_fn, config, identity_mixer,
+                       False, hp, hp_vec, active_mask)
+    return run(state, take(T0 - 1), grad_fn, config, mixer, True, hp,
+               hp_vec, active_mask)
 
 
 # ---------------------------------------------------------------------------

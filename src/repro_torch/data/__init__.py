@@ -4,5 +4,7 @@ from repro_torch.data.dirichlet import (  # noqa: F401
 )
 from repro_torch.data.synthetic import (  # noqa: F401
     SyntheticClassification,
+    SyntheticTokenStream,
     make_classification,
+    make_federated_lm_streams,
 )

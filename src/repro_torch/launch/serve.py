@@ -7,7 +7,9 @@ Example (CPU, reduced config):
 
 Without ``--device cpu`` it runs on the card (and raises without one); the
 first call on the card builds the kernels with ``nvcc``.  Weights are drawn
-from ``--seed``; prompts are uniform tokens from the same seed.
+from ``--seed``, or read from ``--ckpt`` (a checkpoint in the reference's
+format, as ``launch.train --ckpt`` writes); prompts are uniform tokens
+from the seed.
 """
 from __future__ import annotations
 
@@ -19,7 +21,24 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.serving import BatchedServer, ServeConfig
+from repro_torch.training.checkpoint import restore_checkpoint
+
+
+def generate(model, params, *, batch: int, prompt_len: int, max_new: int,
+             temperature: float = 0.0, cache: int = 256, seed: int = 0):
+    """Greedy (or sampled) tokens of ``params`` for ``batch`` prompts of
+    uniform tokens drawn from ``seed`` on the params' device."""
+    device = params.embed["table"].device
+    srv = BatchedServer(model, params, ServeConfig(
+        max_new_tokens=max_new, temperature=temperature,
+        cache_capacity=cache, seed=seed,
+    ))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = torch.randint(0, model.cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=device)
+    return srv.generate(prompts)
 
 
 def main(argv=None):
@@ -35,25 +54,22 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: checkpoints arrive with the "
-                                  "trainer slice (ROADMAP Queue 1 item 5)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg, device=device)
-    params, _ = model.init(args.seed)
-
-    srv = BatchedServer(model, params, ServeConfig(
-        max_new_tokens=args.max_new, temperature=args.temperature,
-        cache_capacity=args.cache, seed=args.seed,
-    ))
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=device)
+    if args.ckpt:
+        template = Transformer(cfg, init_params(cfg, device="meta")[0])
+        params, step = restore_checkpoint(args.ckpt, template, device=device)
+        print(f"restored {args.ckpt} (step {step})")
+    else:
+        params, _ = model.init(args.seed)
 
     t0 = time.time()
-    out = srv.generate(prompts)
+    out = generate(model, params, batch=args.batch,
+                   prompt_len=args.prompt_len, max_new=args.max_new,
+                   temperature=args.temperature, cache=args.cache,
+                   seed=args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -61,6 +77,7 @@ def main(argv=None):
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s incl. compile)")
     print("sample:", out[0].tolist())
+    return out
 
 
 if __name__ == "__main__":

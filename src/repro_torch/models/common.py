@@ -12,11 +12,17 @@ which indexes like the dict it came from, so the functions of
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 
 @dataclasses.dataclass
@@ -102,6 +108,54 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+    def tensors(self) -> dict:
+        """The tree as nested dicts of the tensors its attributes hold now
+        (under ``torch.func.functional_call``, the substituted ones)."""
+        out = {k: getattr(self, k) for k in self._parameters}
+        out.update((k, m.tensors()) for k, m in self._modules.items())
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+#: ops whose outputs the "dots" policy saves (the matmuls of a block)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def maybe_checkpoint(fn, cfg):
+    """``fn`` under ``torch.utils.checkpoint`` per the config's remat policy.
+
+    "full": save only the inputs and recompute the rest in the backward
+    pass.  "dots": also save the matmul outputs (``aten.mm`` /
+    ``aten.bmm``), as the reference's ``dots_with_no_batch_dims_saveable``
+    policy does.  Applies only while grad is enabled.  The checkpointed
+    call recomputes from the arguments it was given, so pass parameters
+    as tensors (:meth:`ParamTree.tensors`), not as a module whose
+    attributes a ``functional_call`` swaps back before the backward pass.
+    ``torch.func`` transforms reject checkpointing (saved-tensor hooks):
+    ``torch.func.grad`` of a remat config raises.
+    """
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       list(_DOTS))
+    elif cfg.remat_policy == "full":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         "have full | dots")
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn, **kwargs)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ one :class:`~repro_torch.models.common.ParamTree` per layer in an
 ``nn.ModuleList`` and loops over them eagerly.  Parameter paths match the
 reference's (``blocks.<i>.attn.wq`` for layer i of the stacked
 ``blocks/attn/wq``), so :mod:`repro_torch.convert` carries weights across
-one leaf at a time.  Remat does not apply to serving.  MoE and VLM blocks
-arrive with their slices.
+one leaf at a time.  With ``cfg.remat`` a training forward checkpoints
+each block (:func:`~repro_torch.models.common.maybe_checkpoint`, the
+reference's per-layer ``jax.checkpoint``); serving runs without grad and
+never recomputes.  MoE and VLM blocks arrive with their slices.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.models.common import (
     embed,
     init_embedding,
     init_rms_norm,
+    maybe_checkpoint,
     pad_vocab,
     rms_norm,
     split_params,
@@ -133,9 +136,10 @@ class Transformer(nn.Module):
                       use_flash: bool = False):
         """Full causal forward.  Returns (logits, aux_losses dict)."""
         x = self._embed(batch["tokens"])
+        body = maybe_checkpoint(block_train, self.cfg)
         for blk in self.blocks:
-            x = block_train(blk, x, self.cfg, window=window,
-                            use_flash=use_flash)
+            x = body(blk.tensors(), x, self.cfg, window=window,
+                     use_flash=use_flash)
         return self._logits(x), {"moe_aux": 0.0}
 
     forward = forward_train

@@ -1,1 +1,9 @@
-from repro_torch.obs.trace import PHASES, annotate  # noqa: F401
+from repro_torch.obs.trace import (  # noqa: F401
+    PHASES,
+    RoundTimer,
+    Timing,
+    annotate,
+    block_until_ready,
+    profile_capture,
+    time_fn,
+)

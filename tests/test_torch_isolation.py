@@ -42,6 +42,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                 "repro_torch.models.transformer",
                 "repro_torch.serving.serve", "repro_torch.launch.serve",
                 "repro_torch.kernels.prox.ops", "repro_torch.quickstart",
-                "repro_torch.core.compression", "repro_torch.analysis.comm"):
+                "repro_torch.core.compression", "repro_torch.analysis.comm",
+                "repro_torch.launch.steps", "repro_torch.launch.train",
+                "repro_torch.training.train_loop",
+                "repro_torch.training.checkpoint",
+                "repro_torch.training.backends", "repro_torch.obs.trace"):
         assert mod in names
     assert int(count) == len(names) >= 30

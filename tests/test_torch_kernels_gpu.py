@@ -17,7 +17,10 @@ against the CPU at rtol 1e-4 / atol 1e-6 (products summed in another
 order).  Compressed rounds (CHOCO, ``core/compression.py``) hold fused
 against unfused bit for bit with their memory, a comm step on the card
 against the CPU from one state at atol 1e-5, and a CUDA graph of
-``choco_mix`` bit for bit against the eager call.
+``choco_mix`` bit for bit against the eager call.  The training path: the
+grouped bf16 sweep pair at the LM head's leaf against its plain version
+at atol = rtol = 1e-2 (one bf16 rounding), and two reduced fp32
+``FederatedTrainer`` rounds on the card against the CPU at 1e-4.
 """
 import numpy as np
 import pytest
@@ -659,3 +662,98 @@ def test_choco_mix_replays_in_a_cuda_graph(kind):
             for k in a:
                 assert torch.equal(a[k].view(torch.int32),
                                    b[k].view(torch.int32))
+
+
+def _bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in ulps (int32)."""
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (line(a) - line(b)).abs()
+
+
+@pytest.mark.gpu
+def test_grouped_bf16_sweep_pair_at_the_lm_head_leaf():
+    """The training path's largest leaf: one config's 2 client rows of the
+    LM head, (2048, 152064) bf16 (311,427,072 elements a row), through
+    the grouped pair (lead 1) under the launcher's row (alpha 0.02, gamma
+    0.8, beta 1) against the plain versions.  The kernel and the plain
+    version round the same fp32 result once: at most 1 bf16 ulp apart.
+    x is at the weights' scale and y, nu at a gradient's, so x' - x spans
+    ~200 ulps of x; the inputs returned unchanged, or the plain version
+    under alpha / 2 (x') or beta / 2 (y'), miss by more than 1 ulp in
+    over half the elements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shape = (2, 2048, 152064)
+    x = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    y, nu = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    rows = [tk.sweep_params_table(lam=1e-5, theta=4.0, alpha=0.02 * s,
+                                  gamma=0.8, beta=s, device="cuda")
+            for s in (1.0, 0.5)]
+
+    def held(out, ref, *controls):
+        assert out.shape == shape and out.dtype == torch.bfloat16
+        assert int(_bf16_ulps(out, ref).max()) <= 1
+        for c in controls:
+            assert float((_bf16_ulps(c, ref) > 1).float().mean()) > 0.5
+
+    before = dict(tk.LAUNCH_COUNTS)
+    (xo,), (nuo,) = tk.fused_update_sweep_grouped([x], [y], [nu], rows[0],
+                                                  kind="l1", lead=1)
+    (xr,), (nur,) = tk.fused_update_sweep_grouped_plain(
+        [x], [y], [nu], rows[0], kind="l1", lead=1)
+    (xa,), _ = tk.fused_update_sweep_grouped_plain([x], [y], [nu], rows[1],
+                                                   kind="l1", lead=1)
+    held(xo, xr, x, xa)
+    held(nuo, nur, nu)
+    del xo, nuo, xr, nur, xa
+    (yo,), (kept,) = tk.fused_tracking_sweep_grouped([y], [nu], [x], rows[0],
+                                                     lead=1)
+    (yr,), _ = tk.fused_tracking_sweep_grouped_plain([y], [nu], [x], rows[0],
+                                                     lead=1)
+    (yb,), _ = tk.fused_tracking_sweep_grouped_plain([y], [nu], [x], rows[1],
+                                                     lead=1)
+    held(yo, yr, y, yb)
+    assert kept is nu                           # ungated: g_kept is g_new
+    assert tk.LAUNCH_COUNTS["fused_sweep"] == before.get("fused_sweep", 0) + 1
+    assert tk.LAUNCH_COUNTS["tracking_sweep"] == \
+        before.get("tracking_sweep", 0) + 1
+
+
+@pytest.mark.gpu
+def test_reduced_trainer_round_on_the_card_matches_the_cpu():
+    """Reduced fp32 qwen3 through FederatedTrainer (fused auto: the sweep
+    kernels on the card, their plain versions on the CPU), 2 rounds from
+    one state: x, y, nu, g within atol = rtol = 1e-4 (products summed in
+    another order), one grouped launch of each kernel a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    import copy
+
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--arch", "qwen3-1.7b", "--reduced",
+                             "--clients", "4", "--batch", "2", "--seq", "16",
+                             "--t0", "2", "--seed", "2"])
+    states, start = {}, None
+    for dev in ("cpu", "cuda"):
+        args.device = dev
+        trainer, _, _, it = train.build(args)
+        if start is None:
+            start = trainer.model.init(args.seed)[0]
+        before = dict(tk.LAUNCH_COUNTS)
+        state = trainer.state_from_params(copy.deepcopy(start).to(dev))
+        states[dev], _ = trainer.run(state, it, 2)
+    torch.cuda.synchronize()
+    assert tk.LAUNCH_COUNTS["fused_sweep"] - before.get("fused_sweep", 0) \
+        == states["cuda"].t == 4
+    for f in ("x", "y", "nu", "g"):
+        a, b = getattr(states["cuda"], f), getattr(states["cpu"], f)
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], atol=1e-4,
+                                       rtol=1e-4)
