@@ -113,7 +113,10 @@ final line):
      ``TRAIN_PEAK_GB`` reckoning, the caching allocator's device
      allocations in the timed rounds, one more round under
      ``torch.profiler`` (device busy share, host phases, top kernels) and
-     the sweep pair's ms a step at these leaves against its bound; then
+     the sweep pair's ms a step at these leaves against its bound, and
+     ``TRAIN_TEL_PAIRS`` pairs of rounds in turns with ``telemetry`` on
+     and off (round wall and peak memory each, every recorded metric
+     finite); then
      the consensus (``mean_params``) serves
      B 2, a 64-token prompt and 8 greedy tokens through ``BatchedServer``
      (28 launches of the bf16 flash kernel, tokens in range, logits
@@ -126,6 +129,27 @@ final line):
      ``CPU_RTOL``;
    the ``check`` phase also holds the grouped bf16 sweep pair at the LM
    head's leaf (2 clients x 2048 x 152064) against its plain version;
+6b. the paper's baselines and remaining figures, and telemetry:
+   * ``table3``: Table III at its published constants (MLP 64 -> 64 -> 32
+     -> 10, 10 clients, 30 rounds, T0 5, SCAD; IID / Dir(1) / Dir(0.1);
+     seeds 0 / 1 / 2 as S = 3 a cell) through ``figures.table3_run``,
+     DEPOSITUM OPTION I with ``fused="require"``: each sweep kernel
+     launches 3 x 30 x 5 = 450 times (OPTION II, Nesterov, runs unfused:
+     the kernels cover Polyak only); the rows, ``check`` and each cell's
+     wall; ``sweep_vs_sequential`` of one DEPOSITUM and one FedDR cell in
+     turns (launches counted apart); both cells on the card against the
+     CPU, x within ``T3_CPU_REL`` (a limit a cell), which the same cell
+     with TF32 matmuls must miss;
+   * ``fig5`` / ``fig7``: the two grids at their published constants
+     through ``run_depositum_grid`` (four static groups of
+     ``FIG_GROUP_ITERS`` steps: 1,600 launches of each kernel a figure),
+     rows and ``check``;
+   * ``telemetry``: the Fig. 6 sweep with ``Telemetry.jsonl`` at log_every
+     1: bit-equal to the unrecorded run, four streams of 40 rows, the
+     JSONL valid, ``wire_bytes`` equal to ``analysis/comm.py``,
+     ceil(40 / B) host copies, 800 launches, round walls on and off in
+     turns; the reduced fp32 trainer with ``telemetry=True`` bit-equal to
+     off;
 7. one DEPOSITUM step's two grouped calls (``ops.fused_local_update``,
    ``ops.fused_tracking``) captured in a ``torch.cuda.CUDAGraph`` on static
    inputs, gated and ungated: each replay equals the eager calls bit for
@@ -138,9 +162,9 @@ final line):
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused.
 
-Before each path (phases 3, 4, 4a, 4b, 5, 6, 6a) every launch count is set
-to 0; it is read just after.  The kernels line's launches of the two sweep
-kernels sum the paths that run them (3, 4a, 4b and 6a), the flash
+Before each path (phases 3, 4, 4a, 4b, 5, 6, 6a, 6b) every launch count is
+set to 0; it is read just after.  The kernels line's launches of the two
+sweep kernels sum the paths that run them (3, 4a, 4b, 6a and 6b), the flash
 kernels' the served paths (5, 6 and 6a).  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
@@ -239,12 +263,33 @@ TRAIN = ["--arch", "qwen3-1.7b", "--clients", "2", "--topology", "complete",
          "--prox", "l1", "--lam", "1e-5", "--seed", "0"]
 TRAIN_ROUNDS = 3
 TRAIN_PEAK_GB = (57.0, 66.0)
+# then TRAIN_TEL_PAIRS pairs of rounds in turns, one recorded
+# (telemetry=True, every round) and one not: round wall and peak memory
+TRAIN_TEL_PAIRS = 2
 TRAIN_SERVE = {"batch": 2, "prompt": 64, "new": 8, "cache": 128}
 # the reduced fp32 trainer: launch.train --ckpt then launch.serve --ckpt,
 # and 2 rounds on the card against the CPU from one state
 TRAIN_REDUCED = ["--arch", "qwen3-1.7b", "--reduced", "--clients", "4",
                  "--topology", "ring", "--batch", "2", "--seq", "16",
                  "--t0", "2", "--rounds", "2", "--seed", "1"]
+# Table III (table3_algorithms.py) at its published constants: 5 columns x
+# 3 partitions, the 3 seeds of a cell as S = 3.  OPTION I runs the sweep
+# kernels (one grouped launch a step for the 3 seeds); OPTION II is Nesterov
+# momentum, which the kernels do not cover (Polyak only, in the reference
+# as here), so it runs the unfused step.  Card against CPU: one DEPOSITUM
+# and one FedDR cell (Dir(0.1)) from the same weights and batches, x by
+# relative L2 after the cell's 150 steps, within a limit a cell.  Each
+# limit lies between the sound reading and that of a control that must
+# miss it: the same cell on the card with TF32 matmuls, a card-side fault
+# of about a part in a thousand a product.
+T3_CPU_REL = {"depositum-I": 1.2e-3, "feddr": 1e-5}
+T3_TIMING_PAIRS = 2        # sweep and sequential timed in turns
+# Figs. 5 and 7 at their published constants: 4 static groups of 400
+# iterations each, one grouped launch a step
+FIG_GROUP_ITERS = 400
+# telemetry: the Fig. 6 sweep recorded at log_every 1, buffer B
+TELEMETRY_BUFFER = 8
+TELEMETRY_TIMING_PAIRS = 2  # on / off timed in turns
 
 
 def emit(obj) -> None:
@@ -2003,6 +2048,45 @@ def phase_train_llm() -> tuple[dict, dict]:
         "fused_tracking_sweep": per_step * T0 * TRAIN_ROUNDS})
     tokens = args.clients * args.batch * args.seq * T0
 
+    # recorded rounds in turns with unrecorded ones: round wall and peak
+    # memory with round_values on the full-width state
+    from repro_torch.obs import DEFAULT_METRICS, Telemetry
+    tel = {"off": {"round_ms": [], "peak_gb": []},
+           "on": {"round_ms": [], "peak_gb": []}}
+    reset_counts()
+    for turn in range(TRAIN_TEL_PAIRS):
+        for key in (("off", "on") if turn % 2 == 0 else ("on", "off")):
+            trainer.telemetry = Telemetry.memory() if key == "on" else None
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, hist = trainer.run(state, it, 1, donate=True)
+            torch.cuda.synchronize()
+            tel[key]["round_ms"].append((time.perf_counter() - t0) * 1e3)
+            tel[key]["peak_gb"].append(
+                _gb(torch.cuda.max_memory_allocated() - base))
+            losses.append(hist[-1]["loss"])
+            if key == "on":
+                # the run's one recorded row (its final round, off cadence),
+                # numbered by the state's own round count: a run on a state
+                # that has trained already merges none into ``history``
+                events = trainer.telemetry.events(0)
+                want_round = state.t // T0
+                bad = [m for m in DEFAULT_METRICS if not events or
+                       not abs(events[-1].get(m, float("nan")))
+                       < float("inf")]
+                if (len(events) != 1 or events[0]["round"] != want_round
+                        or bad):
+                    raise AssertionError(
+                        f"train_llm telemetry: want one row of round "
+                        f"{want_round}, every metric finite ({bad} not): "
+                        f"{events}")
+                tel["recorded"] = events[0]
+    trainer.telemetry = None
+    tel_launches = read_counts()
+    expect_counts("train_llm telemetry", tel_launches, {
+        "fused_update_sweep": per_step * T0 * 2 * TRAIN_TEL_PAIRS,
+        "fused_tracking_sweep": per_step * T0 * 2 * TRAIN_TEL_PAIRS})
+
     # one more round under torch.profiler: device busy share, host time
     # in the annotated phases, the costliest kernels
     box = [state]
@@ -2062,7 +2146,7 @@ def phase_train_llm() -> tuple[dict, dict]:
         raise AssertionError("train_llm: served logits are not finite")
     del srv, mean, logits
     torch.cuda.empty_cache()
-    path = {k: warm[k] + launches[k] for k in launches}
+    path = {k: warm[k] + launches[k] + tel_launches[k] for k in launches}
     path["flash_attention"] += serve_launches["flash_attention"]
     return path, {
         "phase": "train_llm", "arch": cfg.name, "layers": cfg.n_layers,
@@ -2079,6 +2163,7 @@ def phase_train_llm() -> tuple[dict, dict]:
         "predicted_peak_gb": list(TRAIN_PEAK_GB),
         "card_gb": _gb(torch.cuda.get_device_properties(0).total_memory),
         "launches_warmup": warm, "launches_timed": launches,
+        "telemetry": tel, "launches_telemetry": tel_launches,
         "launches_per_step": per_step, "allocator_timed": allocator,
         "profiled_round": profiled, "sweep_step": sweep,
         "serve": {"batch": ts["batch"], "prompt": ts["prompt"],
@@ -2179,6 +2264,236 @@ def phase_train_card_vs_cpu() -> tuple[dict, dict]:
 
 
 
+def _x_rel(a: dict, b: dict) -> float:
+    """Relative L2 of a whole x tree (a on the card, b anywhere)."""
+    import torch
+    num = sum(float(torch.sum((a[k].double().cpu() - b[k].double().cpu())
+                              ** 2)) for k in a)
+    den = sum(float(torch.sum(b[k].double().cpu() ** 2)) for k in a)
+    return (num / den) ** 0.5
+
+
+def phase_table3() -> tuple[dict, dict]:
+    """Table III at its published constants through ``figures.table3_run``
+    on the card, DEPOSITUM OPTION I with ``fused="require"``: each sweep
+    kernel launches 3 partitions x 30 rounds x T0 5 = 450 times (one
+    grouped launch a step for the three seeds; OPTION II runs unfused).
+    Then, counted apart, ``sweep_vs_sequential`` of one DEPOSITUM and one
+    FedDR cell (Dir(0.1)) timed in turns, and both cells on the CPU
+    against the card from the same weights and batches."""
+    import torch
+    from repro_torch import figures as F
+
+    reset_counts()
+    rows, wall = _timed(lambda: F.table3_run(device="cuda",
+                                             fused="require"))
+    want = len(F.T3_PARTITIONS) * F.T3_ROUNDS * F.T3_T0
+    launches = _sweep_counts("table3", want)
+    check = F.table3_check(rows)
+    theta = F.T3_PARTITIONS["Dir(0.1)"]
+    timing, seq_launches = {}, {}
+    for alg in ("depositum-I", "feddr"):
+        walls = {"sweep_s": [], "sequential_s": []}
+        for turn in range(T3_TIMING_PAIRS):
+            order = (("sequential_s", True), ("sweep_s", False))
+            for key, seq in (order if turn % 2 == 0 else order[::-1]):
+                reset_counts()
+                cell = F.table3_cell(alg, theta, sequential=seq,
+                                     device="cuda", fused="require")
+                walls[key].append(cell["wall_s"])
+                n = read_counts()["fused_update_sweep"]
+                seq_launches[f"{alg} {key}"] = n
+        timing[alg] = {**walls, "sweep_vs_sequential": [
+            q / w for q, w in zip(walls["sequential_s"], walls["sweep_s"])]}
+    dep_steps = F.T3_ROUNDS * F.T3_T0
+    if seq_launches != {"depositum-I sequential_s": 3 * dep_steps,
+                        "depositum-I sweep_s": dep_steps,
+                        "feddr sequential_s": 0, "feddr sweep_s": 0}:
+        raise AssertionError(f"table3 timing launches {seq_launches}")
+    cpu_vs_card = {}
+    for alg, limit in T3_CPU_REL.items():
+        card = F.table3_cell(alg, theta, device="cuda", fused="require")
+        cpu = F.table3_cell(alg, theta, device="cpu", fused="require")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = F.table3_cell(alg, theta, device="cuda",
+                                    fused="require")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        for k, v in card["x"].items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"table3 {alg}: x.{k} not finite")
+        cpu_vs_card[alg] = {
+            "x_rel_l2": _x_rel(card["x"], cpu["x"]), "limit": limit,
+            "tf32_control_x_rel_l2": _x_rel(control["x"], cpu["x"]),
+            "accs_card": card["accs"], "accs_cpu": cpu["accs"]}
+    for alg, tie in cpu_vs_card.items():
+        if not tie["x_rel_l2"] <= tie["limit"] < tie["tf32_control_x_rel_l2"]:
+            raise AssertionError(f"table3 {alg}: card vs CPU x, sound and "
+                                 f"control readings against the limit: "
+                                 f"{cpu_vs_card}")
+    return launches, {
+        "phase": "table3", "seconds": wall, "launches": launches,
+        "want_launches": want,
+        "rows": [{k: v for k, v in r.items() if not k.startswith("_")
+                  or k.endswith("_mean")} for r in rows],
+        "cell_wall_s": {r["partition"]: {a: r[f"_{a}_wall_s"]
+                                         for a in F.T3_ALGS} for r in rows},
+        "check": check, "sweep_vs_sequential": timing,
+        "timing_launches": seq_launches, "card_vs_cpu": cpu_vs_card}
+
+
+def _phase_fig(name: str, run, check) -> tuple[dict, dict]:
+    """One of Figs. 5 / 7 at its published constants through
+    ``run_depositum_grid`` (four static groups, ``FIG_GROUP_ITERS`` steps
+    each), ``fused="require"``: 4 x 400 launches of each sweep kernel."""
+    import math
+    reset_counts()
+    rows, wall = _timed(lambda: run(FIG_GROUP_ITERS, device="cuda",
+                                    fused="require"))
+    launches = _sweep_counts(name, len(rows) * FIG_GROUP_ITERS)
+    for r in rows:
+        if not all(math.isfinite(r[k]) for k in ("final_loss", "final_acc")):
+            raise AssertionError(f"{name}: non-finite row {r}")
+    return launches, {
+        "phase": name, "seconds": wall, "launches": launches,
+        "groups": len({r["sweep_group_id"] for r in rows}),
+        "group_wall_s": [r["sweep_group_wall_s"] for r in rows],
+        "rows": [{k: v for k, v in r.items() if k != "curves"}
+                 for r in rows], "check": check(rows)}
+
+
+def phase_fig5() -> tuple[dict, dict]:
+    from repro_torch import figures as F
+    return _phase_fig("fig5", F.fig5_run, F.fig5_check)
+
+
+def phase_fig7() -> tuple[dict, dict]:
+    from repro_torch import figures as F
+    return _phase_fig("fig7", F.fig7_run, F.fig7_check)
+
+
+def phase_telemetry() -> tuple[dict, dict]:
+    """The Fig. 6 sweep (S = 4, FIG6_ROUNDS rounds, ``fused="require"``)
+    with ``Telemetry.jsonl`` recording every round: the final state bit
+    for bit the unrecorded run's; four streams of FIG6_ROUNDS rows whose
+    JSONL passes ``validate_jsonl``; ``wire_bytes`` equal to
+    ``analysis/comm.py``; the buffer copied to the host ceil(rounds / B)
+    times (each copy flushes all four streams); 800 launches of each sweep
+    kernel; round walls on and off in turns.  Then the reduced fp32
+    trainer with ``telemetry=True`` against off, bit for bit."""
+    import copy
+    import math
+    import torch
+    from repro_torch.analysis.comm import round_wire_bytes
+    from repro_torch.figures import fig6_configs
+    from repro_torch.launch import train
+    from repro_torch.obs.metrics import MetricSpec
+    from repro_torch.obs.record import Telemetry
+    from repro_torch.obs.sinks import validate_jsonl
+    from repro_torch.quickstart import grid_operands
+    from repro_torch.training.sweep import sweep_run
+
+    cfgs = fig6_configs(FIG6_ROUNDS, fused="require")
+    g = grid_operands(cfgs, device="cuda")
+    dep, S, C = cfgs[0].depositum, len(cfgs), cfgs[0].n_clients
+    spec = MetricSpec(buffer=TELEMETRY_BUFFER)
+    path = ROOT / "chiprun_out" / "telemetry_fig6.jsonl"
+    if path.exists():
+        path.unlink()
+
+    def run(tel=None):
+        return sweep_run(g.params0, g.prepared.grad_fn, dep, g.plan,
+                         g.hypers, g.batches, n_clients=C, telemetry=tel)[0]
+
+    off = run()                                   # also the warm-up
+    tel = Telemetry.jsonl(str(path), spec)
+    reset_counts()
+    on, wall_on = _timed(lambda: run(tel))
+    launches = _sweep_counts("telemetry", FIG6_ROUNDS * dep.comm_period)
+    tel.close()
+    for f in ("x", "y", "nu", "mu", "g"):
+        for k, v in getattr(on, f).items():
+            if not bits_equal(v, getattr(off, f)[k]):
+                raise AssertionError(f"telemetry: {f}.{k} on != off")
+    rows = list(range(1, FIG6_ROUNDS + 1))
+    sink = tel.memory_sink
+    if sink.configs() != list(range(S)) or any(
+            sink.rounds(s) != rows for s in range(S)):
+        raise AssertionError("telemetry: streams are not 4 x 40 rows")
+    n_events = validate_jsonl(str(path), spec.names)
+    if n_events != S * FIG6_ROUNDS:
+        raise AssertionError(f"telemetry: {n_events} JSONL events")
+    d = sum(v[0, 0].numel() for v in on.x.values())
+    wire = {}
+    for s in range(S):
+        want = float(round_wire_bytes(g.plan.point(s), d, n=C))
+        got = set(sink.stream("wire_bytes", s))
+        if got != {want}:
+            raise AssertionError(f"telemetry: wire_bytes {got} != {want}")
+        wire[cfgs[s].topology] = want
+    want_copies = math.ceil(FIG6_ROUNDS / TELEMETRY_BUFFER)
+    if tel.host_copies != want_copies:
+        raise AssertionError(f"telemetry: {tel.host_copies} host copies, "
+                             f"want {want_copies}")
+    walls = {"on_s": [wall_on], "off_s": []}
+    for turn in range(TELEMETRY_TIMING_PAIRS):
+        order = (("off_s", None), ("on_s", True))
+        for key, on_flag in (order if turn % 2 == 0 else order[::-1]):
+            if key == "on_s" and len(walls["on_s"]) >= TELEMETRY_TIMING_PAIRS:
+                continue
+            t = Telemetry(spec) if on_flag else None
+            walls[key].append(_timed(lambda: run(t))[1])
+    round_ms = {k: [w / FIG6_ROUNDS * 1e3 for w in v]
+                for k, v in walls.items()}
+    last = {n: sink.stream(n, 0)[-1] for n in spec.names}
+
+    # the reduced fp32 trainer, recorded and not, from one state
+    args = train.parse_args(TRAIN_REDUCED)
+    states, trainers = {}, {}
+    start = None
+    reset_counts()
+    for flag in (False, True):
+        trainer, _, _, it = train.build(args)
+        if start is None:
+            module, _ = trainer.model.init(args.seed)
+            start = copy.deepcopy(module)
+        if flag:
+            trainer.telemetry = Telemetry.memory()
+        state = trainer.state_from_params(copy.deepcopy(start).to("cuda"))
+        states[flag], hist = trainer.run(state, it, args.rounds)
+        trainers[flag] = (trainer, hist)
+    torch.cuda.synchronize()
+    trainer_launches = read_counts()
+    steps = 2 * args.rounds * args.t0
+    expect_counts("telemetry trainer", trainer_launches, {
+        "fused_update_sweep": steps, "fused_tracking_sweep": steps})
+    for f in ("x", "y", "nu", "mu", "g"):
+        for k, v in getattr(states[True], f).items():
+            if not bits_equal(v, getattr(states[False], f)[k]):
+                raise AssertionError(f"telemetry trainer: {f}.{k} on != off")
+    tr_on, hist_on = trainers[True]
+    events = tr_on.telemetry.events(0)
+    if [e["round"] for e in events] != [h["round"] for h in hist_on] \
+            or "consensus_x" not in hist_on[-1]:
+        raise AssertionError(f"telemetry trainer: events {events}")
+    total = {k: launches[k] + trainer_launches[k] for k in launches
+             if k != "gated"}
+    return total, {
+        "phase": "telemetry", "configs": S, "rounds": FIG6_ROUNDS,
+        "log_every": 1, "buffer": TELEMETRY_BUFFER, "launches": launches,
+        "events": n_events, "host_copies": tel.host_copies,
+        "want_host_copies": want_copies, "wire_bytes": wire,
+        "final_round_config0": last, "jsonl": str(path.relative_to(ROOT)),
+        "round_ms": round_ms,
+        "overhead": [a / b - 1.0 for a, b in zip(round_ms["on_s"],
+                                                 round_ms["off_s"])],
+        "trainer": {"rounds": args.rounds, "launches": trainer_launches,
+                    "events": len(events),
+                    "consensus_x_last": hist_on[-1]["consensus_x"],
+                    "host_copies": tr_on.telemetry.host_copies}}
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2244,6 +2559,11 @@ def main() -> int:
         train_paths.append(path_launches)
         torch.cuda.empty_cache()
     sweep_launches += train_paths
+    for phase in (phase_table3, phase_fig5, phase_fig7, phase_telemetry):
+        path_launches, line = phase()
+        emit(line)
+        sweep_launches.append(path_launches)
+        torch.cuda.empty_cache()
     timing = phase_timing()
     emit(timing)
     timing_prox = phase_timing_prox(state)

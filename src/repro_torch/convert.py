@@ -1,4 +1,5 @@
-"""Carry parameters and DEPOSITUM state between the reference and the port.
+"""Carry parameters and DEPOSITUM / fedopt state between the reference and
+the port.
 
 The reference keeps parameters as a nested dict pytree (``{"l0": {"w": ..,
 "b": ..}, ..}``); the port as a flat dict with dotted names
@@ -21,6 +22,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.compression import CommMemory
 from repro_torch.core.depositum import DepositumState
+from repro_torch.core.fedopt.baselines import FedState
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -89,6 +91,23 @@ def state_to_numpy(state: DepositumState) -> dict:
     out["comm"] = {v: {f: params_to_numpy(getattr(mem, f))
                        for f in CommMemory._fields}
                    for v, mem in state.comm.items()} if state.comm else ()
+    return out
+
+
+def fed_state_from_numpy(state: Any, *, device="cuda") -> FedState:
+    """A reference fedopt ``FedState`` (or a dict with its fields) whose
+    leaves are numpy arrays -> the port's :class:`~repro_torch.core.fedopt.
+    FedState` on ``device``."""
+    trees = {f: params_from_numpy(_field(state, f), device=device)
+             for f in ("x", "aux1", "aux2")}
+    return FedState(**trees, t=int(np.asarray(_field(state, "t"))))
+
+
+def fed_state_to_numpy(state: FedState) -> dict:
+    """The port's ``FedState`` -> dict of nested numpy trees (``t`` as
+    int32, as the reference keeps it)."""
+    out = {f: params_to_numpy(getattr(state, f)) for f in ("x", "aux1", "aux2")}
+    out["t"] = np.asarray(state.t, np.int32)
     return out
 
 

@@ -49,7 +49,7 @@ draws from its own seed.  A spec's ``uniforms`` hook replaces the hash
 
 The packed wire payloads (:func:`pack_payload` / :func:`unpack_payload`)
 round-trip exactly; their consumer, the per-shard mixer, arrives with the
-backends slice (ROADMAP Queue 1 item 5).
+backends slice (ROADMAP Queue 1 item 5c).
 """
 from __future__ import annotations
 

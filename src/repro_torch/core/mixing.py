@@ -16,7 +16,7 @@ and offsets are static structure.  Kinds:
 :func:`apply_mix_sweep` on dicts of ``(S, n, ...)`` tensors: S sweep points
 at once, each with its own plan point (a stacked plan) or one shared plan.
 The per-shard form ``shard_body`` (collectives over a process group) comes
-with the backends slice (ROADMAP Queue 1 item 5).
+with the backends slice (ROADMAP Queue 1 item 5c).
 """
 from __future__ import annotations
 

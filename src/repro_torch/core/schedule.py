@@ -33,7 +33,7 @@ then run the CHOCO error-feedback exchange of
 :mod:`repro_torch.core.compression` (``repro_torch.core.depositum``).  The
 per-shard execution (``shard_schedule_body``, ``wire_supported``,
 ``shard_compressed_qmix``) raises until the backends slice (ROADMAP Queue
-1 item 5).
+1 item 5c).
 """
 from __future__ import annotations
 
@@ -482,7 +482,7 @@ class ScheduleMixer:
 def _backends_slice(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{name} is not ported yet: per-shard execution over a process "
-        "group arrives with the backends slice (ROADMAP Queue 1 item 5)")
+        "group arrives with the backends slice (ROADMAP Queue 1 item 5c)")
 
 
 def shard_schedule_body(sched: MixSchedule, r, x_blk, axis_name, n: int):

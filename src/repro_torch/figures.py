@@ -11,8 +11,13 @@ W and stacked: six schedules) and ``fig_cohort.py`` (n in {8, 32, 128,
 least squares) and ``fig_comm_frontier.py`` (the accuracy-vs-bytes
 frontier: a dense baseline, top-k at rates {0.05, 0.1, 0.25, 0.5} and QSGD
 at {2, 4, 8} bits as one mixed-kind sweep over CHOCO-compressed gossip,
-least squares on a ring).  Each ``*_run(rounds, sequential, device)``
-returns one row a grid point as the reference's ``run`` does;
+least squares on a ring), ``fig5_period.py`` (T0 in {1, 5, 10, 20} at
+400 iterations), ``fig7_speedup.py`` (n in {4, 9, 16, 25} clients at
+Corollary 1's alpha, gamma and B; each T0 and each n its own static group)
+and Table III (``table3_algorithms.py``: DEPOSITUM OPTION I / II against
+FedMiD, FedDR and FedADMM on three partitions, the three seeds of a cell
+as one S = 3 run).  Each ``*_run(rounds, sequential, device)`` returns one
+row a grid point (Table III: a partition) as the reference's ``run`` does;
 ``sequential=True`` runs every point alone through the one-config round
 program instead.
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import time
 
 import numpy as np
@@ -35,13 +41,19 @@ from repro_torch.analysis.comm import (
     spec_bits_per_coord,
     sweep_round_bytes,
 )
+from torch.func import functional_call
+
 from repro_torch.core import (
     CohortSampler,
     CompressionSpec,
     DepositumConfig,
+    Hyper,
     MixPlan,
     MixSchedule,
     as_stacked_schedule,
+    init as dep_init,
+    local_then_comm_round,
+    make_dense_mixer,
     mixing_matrix,
     as_schedule,
     pad_plan,
@@ -50,6 +62,7 @@ from repro_torch.core import (
     stack_schedules,
     validate_schedule,
 )
+from repro_torch.core.fedopt import FedAlgConfig, make_algorithm
 from repro_torch.data import make_classification
 from repro_torch.models.classifier import (
     MODELS,
@@ -63,7 +76,11 @@ from repro_torch.quickstart import (
     run_depositum,
     run_depositum_grid,
 )
-from repro_torch.training.sweep import sweep_run, sweep_run_sequential
+from repro_torch.training.sweep import (
+    sweep_run,
+    sweep_run_fedalg,
+    sweep_run_sequential,
+)
 
 
 def _sync(device) -> None:
@@ -71,11 +88,11 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _grid_curves(cfgs, sequential, device):
+def _grid_curves(cfgs, sequential, device, params0=None):
     if sequential:
-        return [run_depositum(c, metrics_every=1, device=device)[1]
-                for c in cfgs]
-    return run_depositum_grid(cfgs, device=device)
+        return [run_depositum(c, metrics_every=1, params0=params0,
+                              device=device)[1] for c in cfgs]
+    return run_depositum_grid(cfgs, params0=params0, device=device)
 
 
 def _group_fields(c) -> dict:
@@ -621,16 +638,298 @@ def comm_check(rows) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Fig. 5: communication period T0 at a fixed iteration count
+# ---------------------------------------------------------------------------
+
+FIG5_PERIODS, FIG5_ITERS = [1, 5, 10, 20], 400
+
+
+def fig5_configs(iters: int = FIG5_ITERS, fused: str = "auto"):
+    """``fig5_period.py``: the same ``iters`` iterations, T0 in
+    ``FIG5_PERIODS`` (each period its own static group: T0 and the round
+    count change the round program)."""
+    return [
+        ExperimentConfig(
+            model="mlp", n_clients=10, topology="ring", theta=1.0,
+            n_classes=10, rounds=iters // T0,
+            depositum=DepositumConfig(alpha=0.05, beta=0.5, gamma=0.5,
+                                      comm_period=T0, prox_name="mcp",
+                                      prox_kwargs={"lam": 1e-4,
+                                                   "theta": 4.0},
+                                      fused=fused))
+        for T0 in FIG5_PERIODS]
+
+
+def fig5_run(iters: int = FIG5_ITERS, sequential: bool = False,
+             device="cuda", fused: str = "auto", *,
+             params0: dict | None = None):
+    cfgs = fig5_configs(iters, fused)
+    curves = _grid_curves(cfgs, sequential, device, params0)
+    return [{"T0": T0, "communications": iters // T0,
+             "final_loss": c["loss"][-1], "final_acc": c["accuracy"][-1],
+             "final_consensus_x": c["consensus_x"][-1], **_group_fields(c)}
+            for T0, c in zip(FIG5_PERIODS, curves)]
+
+
+def fig5_check(rows) -> dict:
+    """Similar loss at the same iteration count; consensus error rises
+    with T0 (the reference's ``check``)."""
+    losses = [r["final_loss"] for r in rows]
+    cons = [r["final_consensus_x"] for r in rows]
+    return {
+        "loss_spread": max(losses) - min(losses),
+        "similar_loss": max(losses) - min(losses) < 0.5,
+        "consensus_grows_with_T0": cons[-1] >= cons[0],
+        "comm_reduction": rows[0]["communications"]
+        / rows[-1]["communications"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Fig. 7 / Corollary 1: linear speedup in the number of clients
+# ---------------------------------------------------------------------------
+
+FIG7_CLIENTS, FIG7_ITERS, FIG7_T0 = [4, 9, 16, 25], 400, 10
+
+
+def corollary1_params(n: int, T: int = FIG7_ITERS, L: float = 5.0):
+    """Corollary 1's alpha ~ sqrt(n), 1 - gamma ~ sqrt(n), B = sqrt(n)."""
+    alpha = math.sqrt(n) / (24 * L * math.sqrt(T + 1))
+    gamma = 1.0 - math.sqrt(n) / math.sqrt(T + 1)
+    B = max(int(round(math.sqrt(n))), 1)
+    return alpha, gamma, B
+
+
+def fig7_configs(iters: int = FIG7_ITERS, fused: str = "auto"):
+    """``fig7_speedup.py``: n clients at Corollary 1's hyperparameters,
+    alpha scaled x 40 (keeping its sqrt(n) ratio), batch 8 B; each n its
+    own static group."""
+    out = []
+    for n in FIG7_CLIENTS:
+        alpha, gamma, B = corollary1_params(n, iters)
+        out.append(ExperimentConfig(
+            model="mlp", n_clients=n, topology="ring", theta=1.0,
+            n_classes=10, rounds=iters // FIG7_T0, batch=8 * B,
+            depositum=DepositumConfig(alpha=alpha * 40, beta=1.0,
+                                      gamma=gamma, comm_period=FIG7_T0,
+                                      prox_name="mcp",
+                                      prox_kwargs={"lam": 1e-4,
+                                                   "theta": 4.0},
+                                      fused=fused)))
+    return out
+
+
+def fig7_run(iters: int = FIG7_ITERS, sequential: bool = False,
+             device="cuda", fused: str = "auto", *,
+             params0: dict | None = None):
+    cfgs = fig7_configs(iters, fused)
+    curves = _grid_curves(cfgs, sequential, device, params0)
+    return [{"n_clients": cfg.n_clients,
+             "alpha": round(cfg.depositum.alpha, 5),
+             "gamma": round(cfg.depositum.gamma, 4), "batch": cfg.batch,
+             "final_loss": c["loss"][-1], "final_acc": c["accuracy"][-1],
+             "final_stationarity": c["stationarity"][-1],
+             **_group_fields(c)}
+            for cfg, c in zip(cfgs, curves)]
+
+
+def fig7_check(rows) -> dict:
+    """More clients reach a lower (or equal) loss after T iterations."""
+    losses = [r["final_loss"] for r in rows]
+    return {"monotone_trend": losses[-1] <= losses[0] + 0.05,
+            "loss_n4": losses[0], "loss_n25": losses[-1]}
+
+
+# ---------------------------------------------------------------------------
+# Table III: DEPOSITUM (OPTION I / II) against FedMiD / FedDR / FedADMM
+# ---------------------------------------------------------------------------
+
+T3_PARTITIONS = {"IID": np.inf, "Dir(1)": 1.0, "Dir(0.1)": 0.1}
+T3_ALGS = ["depositum-I", "depositum-II", "fedmid", "feddr", "fedadmm"]
+T3_CLIENTS, T3_ROUNDS, T3_T0, T3_SEEDS = 10, 30, 5, (0, 1, 2)
+T3_PROX = ("scad", {"lam": 1e-4, "theta": 4.0})
+T3_FEATURES, T3_CLASSES, T3_SAMPLES, T3_BATCH = 64, 10, 4096, 32
+
+
+@dataclasses.dataclass
+class Table3Problem:
+    """One seed's problem: its data (test split: the last 25%), initial
+    weights and every round's minibatches, on the device."""
+
+    ds: object
+    params0: dict
+    bx: torch.Tensor         # (rounds, T0, C, batch, d)
+    by: torch.Tensor
+
+
+def table3_problem(theta: float, seed: int, rounds: int = T3_ROUNDS,
+                   device="cuda", params0=None) -> Table3Problem:
+    """``table3_algorithms._seed_problem``: the seed's dataset, weights
+    (``params0(seed)`` when given) and minibatches drawn from
+    ``default_rng(seed + 13)``, one T0 block a round."""
+    dev = resolve_device(device)
+    ds = make_classification(n_samples=T3_SAMPLES, n_features=T3_FEATURES,
+                             n_classes=T3_CLASSES, n_clients=T3_CLIENTS,
+                             theta=theta, seed=seed)
+    model = MODELS["mlp"](T3_FEATURES, T3_CLASSES)
+    p0 = (init_params(model, seed, device=dev) if params0 is None
+          else {k: v.to(dev) for k, v in params0(seed).items()})
+    rng = np.random.default_rng(seed + 13)
+    draws = [ds.stacked_batches(rng, T3_BATCH, T3_T0) for _ in range(rounds)]
+    return Table3Problem(
+        ds=ds, params0=p0,
+        bx=torch.from_numpy(np.stack([d[0] for d in draws])).to(dev),
+        by=torch.from_numpy(np.stack([d[1] for d in draws])).to(dev))
+
+
+def table3_dep_config(alg: str, fused: str = "auto") -> DepositumConfig:
+    """OPTION I (Polyak) takes ``fused``; OPTION II (Nesterov) runs the
+    unfused step: the sweep kernels cover Polyak momentum only, in the
+    reference as here."""
+    prox_name, prox_kwargs = T3_PROX
+    polyak = alg.endswith("-I")
+    return DepositumConfig(alpha=0.1, beta=1.0, gamma=0.5,
+                           momentum="polyak" if polyak else "nesterov",
+                           comm_period=T3_T0, prox_name=prox_name,
+                           prox_kwargs=prox_kwargs,
+                           fused=fused if polyak else "off")
+
+
+def table3_algorithm(alg: str):
+    """A baseline as the table runs it: eta 0.5 on the complete graph."""
+    prox_name, prox_kwargs = T3_PROX
+    return make_algorithm(alg, FedAlgConfig(
+        alpha=0.1, local_steps=T3_T0, prox_name=prox_name,
+        prox_kwargs=prox_kwargs, eta=0.5,
+        W=mixing_matrix("complete", T3_CLIENTS)))
+
+
+def _t3_hyper() -> Hyper:
+    _, kw = T3_PROX
+    return Hyper.create(alpha=0.1, lam=kw["lam"], theta=kw["theta"])
+
+
+def _test_accuracy(model, x: dict, ds) -> float:
+    """The client mean's accuracy on the held-out last 25% of samples."""
+    dev = next(iter(x.values())).device
+    pbar = {k: torch.mean(v, 0) for k, v in x.items()}
+    cut = int(len(ds.y) * 0.75)
+    logits = functional_call(model, pbar,
+                             (torch.from_numpy(ds.x[cut:]).to(dev),))
+    y = torch.from_numpy(ds.y[cut:]).to(dev)
+    return float(torch.mean((torch.argmax(logits, -1) == y).to(
+        torch.float32)))
+
+
+def table3_cell(alg: str, theta: float, rounds: int = T3_ROUNDS,
+                sequential: bool = False, device="cuda",
+                fused: str = "auto", params0=None) -> dict:
+    """One (algorithm, partition) cell over ``T3_SEEDS``.
+
+    Batched (the default): the seeds (datasets, weights, minibatch
+    streams) stacked as S = 3 on the sweep axis (``params_axis=0``,
+    ``batch_axis=0``), one ``sweep_run`` (DEPOSITUM) or
+    ``sweep_run_fedalg`` (baselines).  ``sequential``: one run a seed
+    through the one-config round.  Returns ``{"accs": [...], "wall_s":
+    ..., "x": final x (S, C, ...)}``.
+    """
+    probs = [table3_problem(theta, s, rounds, device, params0)
+             for s in T3_SEEDS]
+    dev = probs[0].bx.device
+    model = MODELS["mlp"](T3_FEATURES, T3_CLASSES).to(dev)
+    grad_fn = client_grad_fn(model)
+    dep = alg.startswith("depositum")
+    t0 = time.perf_counter()
+    if sequential:
+        xs = []
+        for pr in probs:
+            if dep:
+                state = dep_init(pr.params0, T3_CLIENTS, device=dev)
+                mixer = make_dense_mixer(mixing_matrix("complete",
+                                                       T3_CLIENTS),
+                                         device=dev)
+                cfg = table3_dep_config(alg, fused)
+                for r in range(rounds):
+                    state, _ = local_then_comm_round(
+                        state, {"x": pr.bx[r], "y": pr.by[r]}, grad_fn, cfg,
+                        mixer)
+            else:
+                a = table3_algorithm(alg)
+                state = a.init(pr.params0, T3_CLIENTS, device=dev)
+                for r in range(rounds):
+                    state, _ = a.round(state, {"x": pr.bx[r], "y": pr.by[r]},
+                                       grad_fn)
+            xs.append(state.x)
+        x = {k: torch.stack([xi[k] for xi in xs]) for k in xs[0]}
+    else:
+        params0_s = {k: torch.stack([pr.params0[k] for pr in probs])
+                     for k in probs[0].params0}
+        batches = {"x": torch.stack([pr.bx for pr in probs]),
+                   "y": torch.stack([pr.by for pr in probs])}
+        kw = dict(n_clients=T3_CLIENTS, params_axis=0, batch_axis=0)
+        if dep:
+            cfg = table3_dep_config(alg, fused)
+            final, _ = sweep_run(
+                params0_s, grad_fn, cfg,
+                MixPlan.from_topology("complete", T3_CLIENTS, device=dev),
+                stack_hypers([cfg.hyper()] * len(T3_SEEDS)), batches, **kw)
+        else:
+            final, _ = sweep_run_fedalg(
+                table3_algorithm(alg), params0_s, grad_fn,
+                stack_hypers([_t3_hyper()] * len(T3_SEEDS)), batches, **kw)
+        x = final.x
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    accs = [_test_accuracy(model, {k: v[i] for k, v in x.items()}, pr.ds)
+            for i, pr in enumerate(probs)]
+    return {"accs": accs, "wall_s": wall, "x": x}
+
+
+def table3_run(rounds: int = T3_ROUNDS, sequential: bool = False,
+               device="cuda", fused: str = "auto", *, params0=None):
+    """One row a partition: mean ± std of the seeds' test accuracy a
+    column, as ``table3_algorithms.run``, plus each cell's wall time
+    (``_<alg>_wall_s``).  ``params0(seed)`` replaces the seeded weights."""
+    rows = []
+    for part, theta in T3_PARTITIONS.items():
+        row = {"partition": part}
+        for alg in T3_ALGS:
+            cell = table3_cell(alg, theta, rounds, sequential, device, fused,
+                               params0)
+            accs = cell["accs"]
+            row[alg] = f"{np.mean(accs):.4f}±{np.std(accs):.4f}"
+            row[f"_{alg}_mean"] = float(np.mean(accs))
+            row[f"_{alg}_wall_s"] = cell["wall_s"]
+        rows.append(row)
+    return rows
+
+
+def table3_check(rows) -> dict:
+    """Paper claim: DEPOSITUM best in its row (>= max(baselines) - 0.02)."""
+    ok = True
+    for row in rows:
+        dep = max(row["_depositum-I_mean"], row["_depositum-II_mean"])
+        base = max(row[f"_{a}_mean"] for a in ("fedmid", "feddr", "fedadmm"))
+        ok = ok and (dep >= base - 0.02)
+    return {"depositum_best_or_tied": ok}
+
+
 FIGURES = {"3": (fig3_run, None, 60), "4": (fig4_run, None, 50),
-           "6": (fig6_run, fig6_check, 40), "8": (fig8_run, fig8_check, 30),
+           "5": (fig5_run, fig5_check, FIG5_ITERS),
+           "6": (fig6_run, fig6_check, 40),
+           "7": (fig7_run, fig7_check, FIG7_ITERS),
+           "8": (fig8_run, fig8_check, 30),
            "cohort": (cohort_run, cohort_check, 30),
-           "comm": (comm_run, comm_check, 30)}
+           "comm": (comm_run, comm_check, 30),
+           "table3": (table3_run, table3_check, T3_ROUNDS)}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fig", required=True, choices=sorted(FIGURES))
-    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="rounds (Figs. 5 and 7: iterations)")
     ap.add_argument("--sequential", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fused", default="auto",

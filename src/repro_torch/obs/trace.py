@@ -12,8 +12,8 @@
   block, written as a Chrome trace into a directory.  Gated by an explicit
   flag (or ``REPRO_PROFILE_DIR``) because captures are large.
 
-Metrics, records and sinks come with the telemetry slice (ROADMAP Queue 1
-item 8).
+Metrics, records and sinks: :mod:`repro_torch.obs.metrics`,
+:mod:`repro_torch.obs.record` and :mod:`repro_torch.obs.sinks`.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Quickstart: DEPOSITUM rounds of the paper's MLP on a 10-client ring.
 
 Port of ``examples/quickstart.py`` and of the harness of
-``benchmarks/common.py`` (without telemetry): ``run_depositum`` runs one
-configuration, ``run_depositum_grid`` a grid of them through the sweep
-engine (one run a group of configurations that share their structure).
+``benchmarks/common.py``: ``run_depositum`` runs one configuration,
+``run_depositum_grid`` a grid of them through the sweep engine (one run a
+group of configurations that share their structure); both record the
+in-loop theory streams with ``telemetry=``.
 The default configuration is the Polyak point of the paper's Fig. 4
 (``benchmarks/fig4_momentum.py``):
 an MLP 123 -> 64 -> 32 -> 10 (ReLU, CE loss) on synthetic classification
@@ -26,7 +27,9 @@ from torch.func import functional_call
 from repro_torch._device import resolve_device
 from repro_torch.core import (
     DepositumConfig,
+    Hyper,
     MixPlan,
+    MixSchedule,
     as_schedule,
     init,
     local_then_comm_round,
@@ -46,6 +49,7 @@ from repro_torch.models.classifier import (
     init_params,
     stationarity_grad_fns,
 )
+from repro_torch.obs.metrics import round_values
 
 METRIC_KEYS = ("prox_grad_sq", "consensus_x", "consensus_y", "consensus_nu",
                "grad_est_err", "stationarity")
@@ -170,9 +174,21 @@ def classifier_metrics(model, grad_fns: dict, all_x: torch.Tensor,
     return metrics
 
 
+def _recorded(telemetry, curves: dict, config: int = 0) -> None:
+    """The recorder's streams of ``config`` into ``curves`` as
+    ``recorded_round`` and ``recorded_<name>`` lists."""
+    sink = telemetry.memory_sink
+    telemetry.sync()
+    if sink is not None:
+        curves["recorded_round"] = sink.rounds(config)
+        for name in telemetry.spec.names:
+            curves[f"recorded_{name}"] = sink.stream(name, config)
+
+
 def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
                   metrics_every: int | None = None, params0: dict | None = None,
-                  compress=None, device="cuda"):
+                  compress=None, telemetry=None, log_every: int = 1,
+                  device="cuda"):
     """Run ``cfg.rounds`` DEPOSITUM rounds on ``device``.
 
     Returns ``(final_state, curves)``; ``curves`` holds per-round loss,
@@ -180,6 +196,12 @@ def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
     at the last), plus ``wall_s`` (the round loop, metrics included),
     ``iters`` and ``spectral_lambda``.  ``params0`` and ``compress`` as in
     :func:`prepare`.
+
+    ``telemetry`` (a :class:`~repro_torch.obs.record.Telemetry`) also
+    records the in-loop theory streams on the device every ``log_every``
+    rounds (no host read a round; the exact-gradient metrics above keep
+    their own cadence) and adds them to the curves as ``recorded_<name>``
+    lists.
     """
     p = prepare(cfg, params0=params0, compress=compress, device=device)
     dep, state = cfg.depositum, p.state
@@ -187,10 +209,23 @@ def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
     curves: dict[str, list] = {k: [] for k in
                                ("round", "loss", "accuracy") + METRIC_KEYS}
     every = metrics_every if metrics_every else max(cfg.rounds // 20, 1)
+    dev = p.all_x.device
+    if telemetry is not None:
+        # the recorder prices the gossip of the round's own operand: a
+        # constant schedule over the run's W (or its compressed schedule)
+        sched = (p.mixer if isinstance(p.mixer, MixSchedule) else
+                 MixSchedule.constant(MixPlan.dense(p.W, device=dev)))
+        hp = Hyper(*(v.to(dev) for v in dep.hyper()))
+        carry = telemetry.init_carry(device=dev)
     t0 = time.perf_counter()
     for r in range(cfg.rounds):
         state, _ = local_then_comm_round(state, p.batches(r), p.grad_fn, dep,
                                          p.mixer)
+        if telemetry is not None:
+            vals = round_values(state, dep, hyper=hp, mixer=sched,
+                                n=cfg.n_clients)
+            carry = telemetry.record_and_emit(
+                carry, vals, (state.t - 1) // dep.comm_period, log_every)
         if collect_metrics and (r % every == 0 or r == cfg.rounds - 1):
             m = metrics(state)
             curves["round"].append(r + 1)
@@ -201,6 +236,8 @@ def run_depositum(cfg: ExperimentConfig, *, collect_metrics: bool = True,
     curves["wall_s"] = time.perf_counter() - t0
     curves["iters"] = cfg.rounds * dep.comm_period
     curves["spectral_lambda"] = float(spectral_lambda(p.W))
+    if telemetry is not None:
+        _recorded(telemetry, curves)
     return state, curves
 
 
@@ -236,16 +273,17 @@ class GridOperands:
     batches: dict            # leaves (rounds, T0, C, batch, ...)
 
 
-def grid_operands(cfgs: list[ExperimentConfig], *,
+def grid_operands(cfgs: list[ExperimentConfig], *, params0: dict | None = None,
                   device="cuda") -> GridOperands:
     """Operands of one static-config group (:func:`_static_key`): a
     stacked Hyper axis, and a stacked dense-W plan when the topologies
     differ.  The data, initial weights and minibatches are those of
-    :func:`run_depositum` on the first config."""
+    :func:`run_depositum` on the first config (``params0`` as in
+    :func:`prepare`)."""
     if len({_static_key(c) for c in cfgs}) != 1:
         raise ValueError("grid_operands takes configs of one static "
                          "structure (group them with run_depositum_grid)")
-    p = prepare(cfgs[0], device=device)
+    p = prepare(cfgs[0], params0=params0, device=device)
     dev = p.all_x.device
     plans = [MixPlan.from_topology(c.topology, c.n_clients, device=dev)
              for c in cfgs]
@@ -261,13 +299,16 @@ def grid_operands(cfgs: list[ExperimentConfig], *,
 
 def _run_sweep_group(cfgs: list[ExperimentConfig], group_id: int,
                      collect_metrics: bool = True, *, backend=None,
-                     device="cuda") -> list[dict]:
-    """One static-config group through the sweep engine."""
+                     params0: dict | None = None, telemetry=None,
+                     log_every: int = 1, device="cuda") -> list[dict]:
+    """One static-config group through the sweep engine; ``telemetry``
+    records a stream a config (``config`` tags in group order), added to
+    each row as ``recorded_<name>`` lists."""
     from repro_torch.training.sweep import sweep_run
 
     cfg = cfgs[0]
     dep = cfg.depositum
-    ops = grid_operands(cfgs, device=device)
+    ops = grid_operands(cfgs, params0=params0, device=device)
     p, plan = ops.prepared, ops.plan
     dev = p.all_x.device
     lambdas = plan_spectral_lambda(plan, cfg.n_clients)
@@ -278,7 +319,7 @@ def _run_sweep_group(cfgs: list[ExperimentConfig], group_id: int,
         n_clients=cfg.n_clients,
         metrics_fn=(classifier_metrics(p.model, p.grad_fns, p.all_x, p.all_y,
                                        dep) if collect_metrics else None),
-        backend=backend)
+        backend=backend, telemetry=telemetry, log_every=log_every)
     outs = {k: v.cpu().numpy() for k, v in outs.items()}   # waits
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -298,12 +339,16 @@ def _run_sweep_group(cfgs: list[ExperimentConfig], group_id: int,
         curves["sweep_group_size"] = len(cfgs)
         curves["sweep_group_wall_s"] = wall
         rows.append(curves)
+    if telemetry is not None:
+        for s, curves in enumerate(rows):
+            _recorded(telemetry, curves, s)
     return rows
 
 
 def run_depositum_grid(cfgs: list[ExperimentConfig],
                        collect_metrics: bool = True, *, backend=None,
-                       device="cuda") -> list[dict]:
+                       params0: dict | None = None, telemetry=None,
+                       log_every: int = 1, device="cuda") -> list[dict]:
     """Run a grid of experiments through the sweep engine.
 
     Configs are grouped by static structure (:func:`_static_key`); each
@@ -311,16 +356,25 @@ def run_depositum_grid(cfgs: list[ExperimentConfig],
     MixPlan operand, over a stacked dense-W topology axis too.  Returns
     per-config curve dicts in input order, shaped like
     :func:`run_depositum`'s curves, with each point's ``spectral_lambda``
-    and its group's id, size and wall time.
+    and its group's id, size and wall time.  ``params0`` replaces every
+    group's seeded initial weights.  ``telemetry`` (one static group only:
+    the ``config`` tags are a group's) adds each row's recorded streams.
     """
     groups: dict[tuple, list[int]] = {}
     for i, cfg in enumerate(cfgs):
         groups.setdefault(_static_key(cfg), []).append(i)
+    if telemetry is not None and len(groups) > 1:
+        # config tags are per group; one recorder cannot keep two groups'
+        # streams apart
+        raise ValueError(
+            f"telemetry needs a single static-config group, got "
+            f"{len(groups)}; run groups separately with fresh recorders")
     out: list = [None] * len(cfgs)
     for gid, idxs in enumerate(groups.values()):
         rows = _run_sweep_group([cfgs[i] for i in idxs], gid,
                                 collect_metrics, backend=backend,
-                                device=device)
+                                params0=params0, telemetry=telemetry,
+                                log_every=log_every, device=device)
         for i, row in zip(idxs, rows):
             out[i] = row
     return out

@@ -17,6 +17,12 @@ is ``(S, C, ...)`` (S configurations, C clients), and one call of
 * Gradients are ``torch.func.vmap(grad_fn, in_dims=(0, batch_axis))``
   over the client ``grad_fn``.
 * Metrics run per point on views of the state (eval, not the round).
+* ``telemetry=`` records the in-loop theory metrics
+  (:func:`repro_torch.obs.metrics.round_values`) of all S points from the
+  one batched round into a device ring buffer, one stream a point
+  (``config = s``), copied to the host once every B logged rows; the
+  recorder only reads the post-round state, so trajectories are bit for
+  bit those of a run without it.
 * A schedule carrying a compression spec (a stacked mixed spec for a
   compressor grid) gives every point CHOCO error-feedback memory, the
   ``none`` point of a mixed grid included.
@@ -35,8 +41,8 @@ program, so the engine's equivalence tests compare two real code paths.
 Static structure (momentum kind, prox family, T0, the ``fused`` policy)
 lives in the one ``DepositumConfig`` the sweep shares.
 
-``sweep_run_fedalg`` raises until the baselines slice (ROADMAP Queue 1
-item 7), ``telemetry=`` until the telemetry slice (item 8).
+:func:`sweep_run_fedalg` runs a fedopt baseline (Table III) over the same
+sweep axis.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from repro_torch.core.depositum import (
 from repro_torch.core.hyper import Hyper, n_sweep, stack_hypers
 from repro_torch.core.mixing import MixPlan, validate_plan
 from repro_torch.core.schedule import MixSchedule, validate_schedule
+from repro_torch.obs.metrics import round_values
 from repro_torch.training.backends import ExecutionBackend, StackedVmapBackend
 
 GradFn = Callable[[Any, Any], tuple[Any, Any]]
@@ -77,12 +84,6 @@ def _first(tree) -> torch.Tensor:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
     return tree
-
-
-def _later_slice(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {name} slice "
-        f"(ROADMAP Queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -245,15 +246,11 @@ def _sweep_mixer(legacy, plan, backend: ExecutionBackend):
     return backend.mixer_for(plan, sweep=True)
 
 
-def sweep_init(params0, n_clients: int, n: int, compress: Any = None, *,
-               params_axis: Optional[int] = None) -> DepositumState:
-    """Initial sweep state: leaves (n, n_clients, ...) on ``params0``'s
-    device, x the same for every client (and, unless ``params_axis`` maps
-    per-point initial params, for every point); auxiliaries zero.
-
-    ``compress`` (a CompressionSpec or a schedule carrying one) allocates
-    the CHOCO memory on every point, as :func:`sweep_run` does: pass the
-    swept schedule here when driving :func:`make_sweep_round` by hand."""
+def _sweep_x(params0, n_clients: int, n: int,
+             params_axis: Optional[int] = None) -> dict:
+    """x of a sweep's initial state: leaves (n, n_clients, ...), the same
+    for every client (and, unless ``params_axis`` maps per-point initial
+    params, for every point)."""
 
     def x_leaf(p):
         if params_axis is None:
@@ -263,7 +260,19 @@ def sweep_init(params0, n_clients: int, n: int, compress: Any = None, *,
         return p[:, None].expand(
             (n, n_clients) + tuple(p.shape[1:])).clone()
 
-    x = {k: x_leaf(v) for k, v in params0.items()}
+    return {k: x_leaf(v) for k, v in params0.items()}
+
+
+def sweep_init(params0, n_clients: int, n: int, compress: Any = None, *,
+               params_axis: Optional[int] = None) -> DepositumState:
+    """Initial sweep state: leaves (n, n_clients, ...) on ``params0``'s
+    device, x the same for every client (and, unless ``params_axis`` maps
+    per-point initial params, for every point); auxiliaries zero.
+
+    ``compress`` (a CompressionSpec or a schedule carrying one) allocates
+    the CHOCO memory on every point, as :func:`sweep_run` does: pass the
+    swept schedule here when driving :func:`make_sweep_round` by hand."""
+    x = _sweep_x(params0, n_clients, n, params_axis)
     z = lambda: {k: torch.zeros_like(v) for k, v in x.items()}
     return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0,
                           comm=initial_comm(compress, x))
@@ -305,12 +314,10 @@ def make_sweep_round(grad_fn: GradFn, config: DepositumConfig, mixer, *,
 
 
 def _prepare(params0, config, mixer, hypers, batches, n_clients,
-             batch_axis, params_axis, backend, telemetry):
+             batch_axis, params_axis, backend):
     """What :func:`sweep_run` and :func:`sweep_run_sequential` share: the
     host-side checks, the operands on ``params0``'s device, the round
     count."""
-    if telemetry is not None:
-        raise _later_slice("sweep telemetry", 8, "telemetry")
     backend = backend or StackedVmapBackend()
     config.validate(hypers)
     _check_fused_boundary(config, params0, backend)
@@ -324,6 +331,30 @@ def _prepare(params0, config, mixer, hypers, batches, n_clients,
     batches = _map(lambda v: v.to(dev), batches)
     rounds = _first(batches).shape[1 if batch_axis == 0 else 0]
     return backend, legacy, plan, hypers, S, batches, rounds
+
+
+def _recorder(telemetry, config, hypers, plan, n_clients: int,
+              log_every: int, rounds: int, device, S: Optional[int], *,
+              tag=None):
+    """``record(state, aux, r)`` of a run with ``telemetry`` (None
+    without): the post-round state's :func:`~repro_torch.obs.metrics.
+    round_values` into a device buffer (one ring a point when ``S``), the
+    final round always.  The Hyper is put on the device once here."""
+    if telemetry is None:
+        return None
+    hp = Hyper(*(torch.as_tensor(v, dtype=torch.float32).to(device)
+                 for v in hypers))
+    carry = telemetry.init_carry(S, device=device)
+
+    def record(state, aux, r):
+        nonlocal carry
+        vals = round_values(state, config, hyper=hp, mixer=plan, aux=aux,
+                            n=n_clients, sweep=S is not None)
+        carry = telemetry.record_and_emit(
+            carry, vals, (state.t - 1) // config.comm_period, log_every,
+            tag=tag, force=r == rounds - 1)
+
+    return record
 
 
 def sweep_run(
@@ -353,10 +384,15 @@ def sweep_run(
     Runs on ``params0``'s device.  Returns the final state (leaves (S, C,
     ...)) and the per-round metrics ``{name: (S, rounds)}`` (empty without
     ``metrics_fn``).
+
+    ``telemetry`` (a :class:`~repro_torch.obs.record.Telemetry`) records
+    the theory metrics of every point from each batched round at the
+    cadence ``log_every`` (the final round always), one event stream a
+    point (``config = s``); the run ends with ``telemetry.sync()``.
     """
     backend, legacy, plan, hypers, S, batches, rounds = _prepare(
         params0, config, mixer, hypers, batches, n_clients, batch_axis,
-        params_axis, backend, telemetry)
+        params_axis, backend)
     if batch_axis is not None:                 # rounds first: (R, T0, S, ..)
         batches = _map(lambda v: v.movedim(batch_axis, 2), batches)
     if torch.as_tensor(hypers.alpha).ndim == 0:
@@ -366,16 +402,22 @@ def sweep_run(
     sgrad = _sweep_grad(grad_fn, batch_axis)
     mix = _sweep_mixer(legacy, plan, backend)
     metrics = _metrics_caller(metrics_fn)
+    record = _recorder(telemetry, config, hypers, plan, n_clients,
+                       log_every, rounds, _first(params0).device, S)
     per_point = [[] for _ in range(S)]
     for r in range(rounds):
-        state, _ = local_then_comm_round(
+        state, aux = local_then_comm_round(
             state, _map(lambda v: v[r], batches), sgrad, config, mix,
             hyper=hypers, sweep=True)
+        if record is not None:
+            record(state, aux, r)
         if metrics is not None:
             for s in range(S):
                 per_point[s].append(metrics(_state_point(state, s),
                                             _hyper_point(hypers, s),
                                             plan.point(s)))
+    if telemetry is not None:
+        telemetry.sync()
     return state, _stack_outs(per_point)
 
 
@@ -398,10 +440,12 @@ def sweep_run_sequential(
     """Reference path: the same computation one sweep point at a time,
     each through the one-config round program (``(C, ...)`` leaves, its
     own grouped launches), re-stacked on the sweep axis.  Used by the
-    equivalence tests and the sweep-vs-sequential wall-clock ratio."""
+    equivalence tests and the sweep-vs-sequential wall-clock ratio.
+    ``telemetry`` records each point's stream (``config = s``) from its own
+    one-config rounds."""
     backend, legacy, plan, hypers, S, batches, rounds = _prepare(
         params0, config, mixer, hypers, batches, n_clients, batch_axis,
-        params_axis, backend, telemetry)
+        params_axis, backend)
     dev = _first(params0).device
     metrics = _metrics_caller(metrics_fn)
     finals, per_point = [], []
@@ -411,13 +455,19 @@ def sweep_run_sequential(
         batches_s = _take(batches, s, batch_axis)
         state = dep_init(_take(params0, s, params_axis), n_clients,
                          compress=plan_s, device=dev)
+        record = _recorder(telemetry, config, hyper_s, plan_s, n_clients,
+                           log_every, rounds, dev, None, tag=s)
         outs = []
         for r in range(rounds):
-            state, _ = local_then_comm_round(
+            state, aux = local_then_comm_round(
                 state, _map(lambda v: v[r], batches_s), grad_fn, config,
                 mixer_s, hyper=hyper_s)
+            if record is not None:
+                record(state, aux, r)
             if metrics is not None:
                 outs.append(metrics(state, hyper_s, plan_s))
+        if telemetry is not None:
+            telemetry.sync()
         finals.append(state)
         per_point.append(outs)
     stack = lambda trees: {k: torch.stack([t[k] for t in trees])
@@ -431,7 +481,66 @@ def sweep_run_sequential(
     return final, _stack_outs(per_point)
 
 
-def sweep_run_fedalg(alg, params0, grad_fn: GradFn, hypers: Hyper, batches,
-                     **kwargs):
-    """A fedopt baseline's whole run over the sweep axis (Table III)."""
-    raise _later_slice("sweep_run_fedalg", 7, "baselines")
+# ---------------------------------------------------------------------------
+# Fedopt baselines through the same engine (Table III grids)
+# ---------------------------------------------------------------------------
+
+def sweep_run_fedalg(
+    alg,
+    params0,
+    grad_fn: GradFn,
+    hypers: Hyper,
+    batches,
+    *,
+    n_clients: int,
+    metrics_fn=None,
+    batch_axis: Optional[int] = None,
+    params_axis: Optional[int] = None,
+    plan=None,
+) -> tuple[Any, dict]:
+    """A fedopt baseline's whole run over the sweep axis (Table III).
+
+    ``alg`` is a :mod:`repro_torch.core.fedopt` algorithm; its ``round``
+    takes the same ``hyper`` override (and a decentralized algorithm the
+    same ``plan``) as DEPOSITUM, so a baseline grid runs as one program
+    like the DEPOSITUM grids: every round advances all S points on ``(S,
+    C, ...)`` leaves, the local SGD steps through the vmapped client
+    ``grad_fn``.  ``batches`` leaves (rounds, T0, C, B, ...), optionally
+    with an (S,) dim at ``batch_axis``; ``params_axis=0`` sweeps the
+    initialisation (Table III's per-seed runs).  A scalar Hyper broadcasts
+    over whatever defines the sweep axis.  Runs on ``params0``'s device.
+    Returns the final ``FedState`` (leaves (S, C, ...)) and the per-round
+    metrics ``{name: (S, rounds)}``.
+    """
+    dev = _first(params0).device
+    if plan is not None:
+        # the same Assumption-2 gate as sweep_run: baseline grids must not
+        # silently run an invalid W
+        _validate_operand(plan, n_clients)
+        plan = plan.to(dev)
+    n_extra = max(_mapped_len(params0, params_axis),
+                  _mapped_len(batches, batch_axis))
+    _, plan_arg, hypers, S = _normalise_operands(
+        plan if plan is not None else MixPlan.identity(), hypers, n_extra)
+    if torch.as_tensor(hypers.alpha).ndim == 0:
+        hypers = Hyper(*(torch.as_tensor(v).expand(S) for v in hypers))
+    batches = _map(lambda v: v.to(dev), batches)
+    rounds = _first(batches).shape[1 if batch_axis == 0 else 0]
+    if batch_axis is not None:                 # rounds first: (R, T0, S, ..)
+        batches = _map(lambda v: v.movedim(batch_axis, 2), batches)
+    state = alg.init_stacked(_sweep_x(params0, n_clients, S, params_axis))
+    sgrad = _sweep_grad(grad_fn, batch_axis)
+    kw = {"plan": plan_arg} if plan is not None else {}
+    metrics = _metrics_caller(metrics_fn)
+    per_point = [[] for _ in range(S)]
+    for r in range(rounds):
+        state, _ = alg.round(state, _map(lambda v: v[r], batches), sgrad,
+                             hyper=hypers, sweep=True, **kw)
+        if metrics is not None:
+            for s in range(S):
+                point = state._replace(**{f: {k: v[s] for k, v in
+                                              getattr(state, f).items()}
+                                          for f in ("x", "aux1", "aux2")})
+                per_point[s].append(metrics(point, _hyper_point(hypers, s),
+                                            plan_arg.point(s)))
+    return state, _stack_outs(per_point)

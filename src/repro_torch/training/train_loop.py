@@ -24,6 +24,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core import (
     DepositumConfig,
     DepositumState,
+    Hyper,
     init as dep_init,
     local_then_comm_round,
 )
@@ -31,6 +32,8 @@ from repro_torch.core.mixing import MixPlan, validate_plan
 from repro_torch.core.schedule import MixSchedule, validate_schedule
 from repro_torch.launch.steps import make_value_grad_fn
 from repro_torch.models.registry import Model
+from repro_torch.obs.metrics import round_values
+from repro_torch.obs.record import Telemetry
 from repro_torch.obs.trace import RoundTimer, profile_capture
 from repro_torch.training.backends import ExecutionBackend, suggest_backend
 
@@ -65,18 +68,19 @@ class FederatedTrainer:
     the whole run); :meth:`mean_params` gives a module back.
 
     Everything lives on ``device`` (default the card; ``"cpu"`` runs the
-    kernels' plain versions).  ``telemetry`` is the telemetry slice's
-    (ROADMAP Queue 1 item 8) and raises until then.
+    kernels' plain versions).  ``telemetry`` (a :class:`~repro_torch.obs.
+    record.Telemetry`, or True for an in-memory one) records the round's
+    theory metrics (:func:`~repro_torch.obs.metrics.round_values`) on the
+    device after every round at ``cfg.log_every`` (the final round
+    always); it reads the post-round state only, so the trajectory is bit
+    for bit the one without it.
     """
 
     def __init__(self, model: Model, cfg: TrainerConfig, mixer=None,
                  backend: ExecutionBackend | None = None,
                  schedule: MixSchedule | None = None,
-                 telemetry=None, *, device="cuda"):
-        if telemetry not in (None, False):
-            raise NotImplementedError(
-                "FederatedTrainer(telemetry=...) arrives with the telemetry "
-                "slice (ROADMAP Queue 1 item 8)")
+                 telemetry: Telemetry | bool | None = None, *,
+                 device="cuda"):
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -104,7 +108,9 @@ class FederatedTrainer:
                       else backend.mixer_for(operand))
         self._template: Optional[nn.Module] = None
         self._grad_fn = make_value_grad_fn(model)
-        self.telemetry = None
+        if telemetry is True:
+            telemetry = Telemetry.memory()
+        self.telemetry = telemetry or None
         self.timer = RoundTimer()
 
     def _round(self, state, batches, *, donate: bool = False):
@@ -159,22 +165,40 @@ class FederatedTrainer:
         History has one record per :meth:`_logged_rounds` entry with
         ``round``, ``wall_s``, ``loss`` (the mean over clients of the
         model's ``ce`` aux when it has one, else of the loss) and any
-        ``eval_fn`` keys.  ``profile_dir`` opts into a ``torch.profiler``
+        ``eval_fn`` keys; with telemetry attached, the recorded metric
+        streams (consensus errors, prox-gradient norm, bytes on the wire,
+        ...) merge in by round.  ``profile_dir`` opts into a ``torch.profiler``
         capture of the whole loop.  ``self.timer`` accumulates the rounds'
         dispatch and blocked times.  ``donate=True`` gives ``state`` up to
         the first round (its trees are emptied as they are consumed, and
         every later round's input likewise): the run then holds one state
         less at its peak.
         """
+        tel = self.telemetry
         logged = set(self._logged_rounds(n_rounds))
         history: list[dict] = []
+        by_round: dict[int, dict] = {}
         t0 = time.perf_counter()
         timer = self.timer
+        if tel is not None:
+            carry = tel.init_carry(device=self.device)
+            hp = Hyper(*(v.to(self.device)
+                         for v in self.cfg.depositum.hyper()))
         with profile_capture(profile_dir, enabled=profile_dir is not None):
             for r in range(n_rounds):
                 batches = next(batch_iter)
                 with timer.round():
                     state, aux = self._round(state, batches, donate=donate)
+                    if tel is not None:
+                        # reads the post-round state; writes its buffer only
+                        vals = round_values(
+                            state, self.cfg.depositum, hyper=hp,
+                            mixer=self._mix_operand, aux=aux,
+                            n=self.cfg.n_clients)
+                        carry = tel.record_and_emit(
+                            carry, vals,
+                            (state.t - 1) // self.cfg.depositum.comm_period,
+                            self.cfg.log_every, force=r == n_rounds - 1)
                 if (r + 1) in logged:
                     rec = {"round": r + 1,
                            "wall_s": time.perf_counter() - t0}
@@ -186,8 +210,15 @@ class FederatedTrainer:
                             torch.as_tensor(loss, dtype=torch.float32)))
                     if eval_fn is not None:
                         rec.update(eval_fn(state, r + 1))
+                    by_round[r + 1] = rec
                     history.append(rec)
         timer.block_on(state)
+        if tel is not None:
+            for event in tel.events(0):
+                rec = by_round.get(event["round"])
+                if rec is not None:
+                    rec.update((k, v) for k, v in event.items()
+                               if k not in ("config", "round"))
         return state, history
 
     def mean_params(self, state: DepositumState):

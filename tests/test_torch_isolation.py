@@ -46,6 +46,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                 "repro_torch.launch.steps", "repro_torch.launch.train",
                 "repro_torch.training.train_loop",
                 "repro_torch.training.checkpoint",
-                "repro_torch.training.backends", "repro_torch.obs.trace"):
+                "repro_torch.training.backends", "repro_torch.obs.trace",
+                "repro_torch.core.fedopt", "repro_torch.core.fedopt.baselines",
+                "repro_torch.core.extensions", "repro_torch.training.sweep",
+                "repro_torch.obs.metrics", "repro_torch.obs.record",
+                "repro_torch.obs.sinks", "repro_torch.figures"):
         assert mod in names
     assert int(count) == len(names) >= 30

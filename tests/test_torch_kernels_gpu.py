@@ -20,7 +20,9 @@ against the CPU from one state at atol 1e-5, and a CUDA graph of
 ``choco_mix`` bit for bit against the eager call.  The training path: the
 grouped bf16 sweep pair at the LM head's leaf against its plain version
 at atol = rtol = 1e-2 (one bf16 rounding), and two reduced fp32
-``FederatedTrainer`` rounds on the card against the CPU at 1e-4.
+``FederatedTrainer`` rounds on the card against the CPU at 1e-4.  A Table
+III DEPOSITUM cell launches each sweep kernel once a step for its three
+seeds, and recording its telemetry leaves it bit for bit unchanged.
 """
 import numpy as np
 import pytest
@@ -757,3 +759,49 @@ def test_reduced_trainer_round_on_the_card_matches_the_cpu():
         for k in a:
             torch.testing.assert_close(a[k].cpu(), b[k], atol=1e-4,
                                        rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_table3_cell_and_its_telemetry_on_the_card():
+    """One Table III DEPOSITUM cell (OPTION I, Dir(0.1), 2 rounds, the
+    three seeds as S = 3) with ``fused="require"``: one grouped launch of
+    each sweep kernel a step for the three seeds; the same cell through
+    ``sweep_run`` with a recorder attached is bit for bit the cell without
+    one, and its buffer reaches the host once (2 rows, B = 8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch import figures as F
+    from repro_torch.core import MixPlan, stack_hypers
+    from repro_torch.models.classifier import MLP, client_grad_fn
+    from repro_torch.obs.record import Telemetry
+    from repro_torch.training.sweep import sweep_run
+
+    rounds = 2
+    tk.reset_launch_counts()
+    cell = F.table3_cell("depositum-I", 0.1, rounds=rounds, device="cuda",
+                         fused="require")
+    torch.cuda.synchronize()
+    steps = rounds * F.T3_T0
+    assert tk.LAUNCH_COUNTS["fused_sweep"] == steps
+    assert tk.LAUNCH_COUNTS["tracking_sweep"] == steps
+    probs = [F.table3_problem(0.1, s, rounds, "cuda") for s in F.T3_SEEDS]
+    params0 = {k: torch.stack([p.params0[k] for p in probs])
+               for k in probs[0].params0}
+    batches = {"x": torch.stack([p.bx for p in probs]),
+               "y": torch.stack([p.by for p in probs])}
+    cfg = F.table3_dep_config("depositum-I", "require")
+    grad_fn = client_grad_fn(MLP(F.T3_FEATURES, F.T3_CLASSES).cuda())
+    plan = MixPlan.from_topology("complete", F.T3_CLIENTS, device="cuda")
+    hypers = stack_hypers([cfg.hyper()] * len(F.T3_SEEDS))
+    kw = dict(n_clients=F.T3_CLIENTS, params_axis=0, batch_axis=0)
+    off, _ = sweep_run(params0, grad_fn, cfg, plan, hypers, batches, **kw)
+    tel = Telemetry.memory()
+    on, _ = sweep_run(params0, grad_fn, cfg, plan, hypers, batches,
+                      telemetry=tel, **kw)
+    for f in ("x", "y", "nu", "mu", "g"):
+        for k, v in getattr(on, f).items():
+            assert torch.equal(v, getattr(off, f)[k]), (f, k)
+    for k, v in off.x.items():
+        assert torch.equal(v, cell["x"][k]), k
+    assert tel.host_copies == 1
+    assert [tel.memory_sink.rounds(s) for s in range(3)] == [[1, 2]] * 3

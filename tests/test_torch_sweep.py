@@ -350,13 +350,22 @@ def test_host_side_errors_come_before_any_step(error):
 
 
 def test_later_slices_raise_naming_their_queue_item():
+    """Baselines (item 7) and telemetry (item 8) have landed: the sweep
+    takes a recorder and ``sweep_run_fedalg`` runs (both held against the
+    reference in ``test_torch_obs.py`` / ``test_torch_fedopt.py``); the
+    distributed wire path (item 5c) still raises."""
+    from repro_torch.core.fedopt import FedAlgConfig, make_algorithm
+    from repro_torch.obs.record import Telemetry
+
     params0, mixer, hypers, batches, _ = _case("zipped")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sweep_run(params0, lsq_grad_fn, _cfg(), mixer, hypers, batches,
-                  n_clients=N, telemetry=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sweep_run_fedalg(object(), params0, lsq_grad_fn, hypers, batches,
-                         n_clients=N)
+    tel = Telemetry.memory()
+    sweep_run(params0, lsq_grad_fn, _cfg(), mixer, hypers, batches,
+              n_clients=N, telemetry=tel)
+    assert tel.memory_sink.configs() == [0, 1, 2]
+    final, _ = sweep_run_fedalg(
+        make_algorithm("fedmid", FedAlgConfig(local_steps=T0)), params0,
+        lsq_grad_fn, hypers, batches, n_clients=N)
+    assert final.t == R and final.x["w"].shape == (3, N, DL)
     from repro_torch.core import CompressionSpec, as_schedule
     from repro_torch.core.schedule import wire_supported
     with pytest.raises(NotImplementedError, match="item 5"):

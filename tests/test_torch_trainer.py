@@ -596,10 +596,17 @@ def test_backends_of_one_process():
 
 
 def test_trainer_guards():
+    """Telemetry (item 8) has landed: ``telemetry=True`` gives an
+    in-memory recorder (held against the reference in
+    ``test_torch_obs.py``); without a card the default device raises."""
+    from repro_torch.obs.record import Telemetry
+
     tmodel = _ls_models()[1]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FederatedTrainer(tmodel, TrainerConfig(n_clients=2), telemetry=True,
-                         device="cpu")
+    tr = FederatedTrainer(tmodel, TrainerConfig(n_clients=2), telemetry=True,
+                          device="cpu")
+    assert isinstance(tr.telemetry, Telemetry)
+    assert FederatedTrainer(tmodel, TrainerConfig(n_clients=2),
+                            device="cpu").telemetry is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FederatedTrainer(tmodel, TrainerConfig(n_clients=2))
