@@ -25,7 +25,9 @@ final line):
      ``BF16_ATOL`` / ``BF16_RTOL``, frozen rows bit for bit; and the
      training path's LM-head leaf (2 x 2048 x 152064 bf16) within
      ``BF16_HEAD_ULPS`` of the plain versions, with controls (the step
-     skipped, a halved alpha or beta) that must miss that limit;
+     skipped, a halved alpha or beta) that must miss that limit, ungated
+     and gated as the async learner runs it (a (1, 2) mask of downweight
+     values: the live row held so, the frozen row bit for bit);
    * ``prox_cuda`` and ``fused_update_cuda``: three kinds, odd, float4 and
      0-d leaves, fp32 within ``ATOL`` / ``RTOL`` and bf16;
    * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 128 / 256, GQA
@@ -150,6 +152,32 @@ final line):
      ceil(40 / B) host copies, 800 launches, round walls on and off in
      turns; the reduced fp32 trainer with ``telemetry=True`` bit-equal to
      off;
+6c. the async runtime (``training/async_runtime.py``, ``fused="require"``:
+   every learner round is one masked round whose staleness weights gate
+   both sweep kernels on every step, counted in ``GATED_LAUNCH_COUNTS``):
+   * ``async_throughput``: ``figures.py --fig async`` at its full size
+     (least squares, 8 clients, d 512, 24 rounds, T0 2; 240 launches of
+     each kernel, 192 gated): the exponential round-throughput ratio at
+     least 1.3, tau 0 with zero delay ``torch.equal`` to the synchronous
+     trainer, virtual times and event logs equal to the CPU's;
+   * ``async_mlp``: the Fig. 4 MLP point at published widths through
+     ``classification_batch_iterator`` and ``tabulate_batches``, 30
+     learner rounds under exponential stragglers with drops, duplicates
+     and a dead client, tau 2, downweight 0.5, telemetry on (600
+     launches, all gated, from two runs; a TF32 control's 300 are
+     counted apart): bounded
+     staleness, the dead client's rows bit for bit, the recorded
+     staleness equal to the replay, replay determinism, the CPU's event
+     log, x within ``ASYNC_MLP_CPU_REL`` of the CPU's (the TF32 run
+     misses it);
+   * ``async_llm``, inside ``train_llm`` on its model and state: one
+     warm-up and ``ASYNC_LLM_ROUNDS`` learner rounds, donated (7 gated
+     launches of each kernel a step: 112): round walls, applied tokens/s,
+     peak memory beside ``ASYNC_LLM_PEAK_GB``, cohorts and staleness;
+     losses finite and each unapplied client's rows unchanged;
+   * ``async_threaded``: ``run_threaded`` on the figure's problem with a
+     dead client and a deadline: every tick, bounded staleness, the dead
+     client never applied (48 gated launches);
 7. one DEPOSITUM step's two grouped calls (``ops.fused_local_update``,
    ``ops.fused_tracking``) captured in a ``torch.cuda.CUDAGraph`` on static
    inputs, gated and ungated: each replay equals the eager calls bit for
@@ -162,10 +190,10 @@ final line):
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused.
 
-Before each path (phases 3, 4, 4a, 4b, 5, 6, 6a, 6b) every launch count is
-set to 0; it is read just after.  The kernels line's launches of the two
-sweep kernels sum the paths that run them (3, 4a, 4b, 6a and 6b), the flash
-kernels' the served paths (5, 6 and 6a).  Prints JSON lines per
+Before each path (phases 3, 4, 4a, 4b, 5, 6, 6a, 6b, 6c) every launch
+count is set to 0; it is read just after.  The kernels line's launches of
+the two sweep kernels sum the paths that run them (3, 4a, 4b, 6a, 6b and
+6c), the flash kernels' the served paths (5, 6 and 6a).  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -290,6 +318,29 @@ FIG_GROUP_ITERS = 400
 # telemetry: the Fig. 6 sweep recorded at log_every 1, buffer B
 TELEMETRY_BUFFER = 8
 TELEMETRY_TIMING_PAIRS = 2  # on / off timed in turns
+# The async runtime (training/async_runtime.py), fused="require": every
+# learner round is one masked round through the gated sweep kernels.
+# async_mlp: the Fig. 4 MLP point at published widths, ASYNC_MLP_ROUNDS
+# learner rounds under exponential stragglers with faults and a dead
+# client, tau 2, downweight 0.5.  Card against CPU: x by relative L2 after
+# the run (300 steps), within ASYNC_MLP_CPU_REL, a limit set before the
+# first run on the card between the sound reading and that of the same run
+# on the card with TF32 matmuls, which must miss it (both predicted on the
+# CPU: the matmuls computed in float64 and rounded, against TF32-rounded
+# operands in every product of the forward and backward).
+ASYNC_MLP_ROUNDS = 30
+ASYNC_MLP_CPU_REL = 1.8e-3
+# async_llm: train_llm's model and state, tau 1 downweight, 2 clients
+# under exponential(1.0) stragglers; one warm-up and ASYNC_LLM_ROUNDS timed
+# learner rounds, donated.  ASYNC_LLM_PEAK_GB: the peak reckoned from the
+# trees before the first run: eight bf16 trees of 8.13 GB at the gated
+# tracking kernel (old y, mu, g; x, nu'; g_new; y', g_kept), 65.0 GB, where
+# the round without item 3's donation would hold ten (81.3 GB).
+ASYNC_LLM_ROUNDS = 3
+ASYNC_LLM_PEAK_GB = (64.0, 69.0)
+# async_threaded: run_threaded on the async figure's problem, one dead
+# client, a deadline
+ASYNC_THREADED_DEADLINE_S = 30.0
 
 
 def emit(obj) -> None:
@@ -580,12 +631,14 @@ def phase_check() -> dict:
         device="cuda") for scale in (1.0, 0.5)}
     head_ulps, head_controls = {}, {}
 
-    def hold(name, out, ref, controls):
-        """out within BF16_HEAD_ULPS of ref; each control off by more than
-        that in over half the elements."""
+    def hold(name, out, ref, controls, live=slice(None)):
+        """out within BF16_HEAD_ULPS of ref on the ``live`` client rows;
+        each control off by more than that in over half their elements."""
         if out.shape != head or out.dtype != torch.bfloat16:
             raise AssertionError(f"{name} at the LM head: {tuple(out.shape)}"
                                  f" {out.dtype}")
+        out, ref = out[live], ref[live]
+        controls = {label: c[live] for label, c in controls.items()}
         d = bf16_ulps(out, ref)
         worst_ulps, n_diff = int(d.max()), int((d > 0).sum())
         head_ulps[name] = {"max_ulps": worst_ulps, "differing": n_diff}
@@ -622,10 +675,51 @@ def phase_check() -> dict:
     if kept is not nu:
         raise AssertionError("tracking at the LM head: ungated g_kept is "
                              "not g_new")
+    del yo, yr, yb, kept
+    # the same leaf under the async learner's gate: a (1, 2) mask of
+    # downweight values, client 0 at 0.5 (live: the kernels gate on
+    # mask > 0, so it takes the full step) and client 1 at 0 (frozen).
+    # The live row is held as above, with the same controls; the frozen
+    # row of x', nu', y' and g_kept must be the inputs bit for bit, and the
+    # live row of g_kept g_new bit for bit.
+    gate = torch.tensor([[0.5, 0.0]], device="cuda")
+    live, frozen = slice(0, 1), slice(1, 2)
+
+    def frozen_equal(name, out, inp):
+        if not bits_equal(out[frozen], inp[frozen]):
+            raise AssertionError(f"gated {name} at the LM head: the frozen "
+                                 "row changed")
+
+    (xo,), (nuo,) = K.fused_update_sweep_grouped([x], [y], [nu], rows[1.0],
+                                                 gate, kind="l1", lead=1)
+    (xr,), (nur,) = K.fused_update_sweep_grouped_plain(
+        [x], [y], [nu], rows[1.0], gate, kind="l1", lead=1)
+    torch.cuda.synchronize()
+    (xa,), _ = K.fused_update_sweep_grouped_plain([x], [y], [nu], rows[0.5],
+                                                  gate, kind="l1", lead=1)
+    hold("gated x'", xo, xr, {"step skipped": x, "alpha / 2": xa}, live)
+    hold("gated nu'", nuo, nur, {"step skipped": nu}, live)
+    frozen_equal("x'", xo, x)
+    frozen_equal("nu'", nuo, nu)
+    del xo, nuo, xr, nur, xa
+    (yo,), (kept,) = K.fused_tracking_sweep_grouped([y], [nu], [x], rows[1.0],
+                                                    gate, lead=1)
+    (yr,), _ = K.fused_tracking_sweep_grouped_plain([y], [nu], [x],
+                                                    rows[1.0], gate, lead=1)
+    torch.cuda.synchronize()
+    (yb,), _ = K.fused_tracking_sweep_grouped_plain([y], [nu], [x],
+                                                    rows[0.5], gate, lead=1)
+    hold("gated y'", yo, yr, {"step skipped": y, "beta / 2": yb}, live)
+    frozen_equal("y'", yo, y)
+    frozen_equal("g_kept", kept, x)
+    if not bits_equal(kept[live], nu[live]):
+        raise AssertionError("gated tracking at the LM head: the live row "
+                             "of g_kept is not g_new")
     del yo, yr, yb, kept, x, y, nu
     torch.cuda.empty_cache()
     return {"phase": "check", "cases": cases, "grouped_cases": grouped_cases,
-            "lm_head_case": list(head), "lm_head_ulps": head_ulps,
+            "lm_head_case": list(head), "lm_head_gate": gate.tolist(),
+            "lm_head_ulps": head_ulps,
             "lm_head_controls_missed": head_controls,
             "lm_head_ulps_limit": BF16_HEAD_ULPS, "max_abs_err": worst,
             "atol": ATOL, "rtol": RTOL, "bf16_atol": BF16_ATOL,
@@ -1985,10 +2079,12 @@ def _gb(nbytes) -> float:
     return nbytes / 1e9
 
 
-def phase_train_llm() -> tuple[dict, dict]:
+def phase_train_llm() -> tuple[dict, dict, dict, dict]:
     """Full-width Qwen3-1.7B trained by DEPOSITUM on 2 bf16 clients through
     launch/train.py's builder (FederatedTrainer, fused="auto", donated
-    rounds), then the consensus served through BatchedServer."""
+    rounds), then ``phase_async_llm`` on the same model and state, then
+    the consensus served through BatchedServer.  Returns its launches and
+    line, and the async phase's."""
     import torch
     from repro_torch.kernels.prox import kernel as K
     from repro_torch.kernels.prox.ops import (fused_local_update,
@@ -2120,6 +2216,10 @@ def phase_train_llm() -> tuple[dict, dict]:
                        "launches_per_call": per_step}
         torch.cuda.empty_cache()
 
+    # the async learner on this model and state (its own launches, line)
+    async_launches, async_line, state = phase_async_llm(
+        trainer, state, it, args, base)
+
     mean = trainer.mean_params(state)
     del state, fns
     torch.cuda.empty_cache()
@@ -2148,7 +2248,7 @@ def phase_train_llm() -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     path = {k: warm[k] + launches[k] + tel_launches[k] for k in launches}
     path["flash_attention"] += serve_launches["flash_attention"]
-    return path, {
+    return (path, {
         "phase": "train_llm", "arch": cfg.name, "layers": cfg.n_layers,
         "params": n_params, "leaves": n_leaves, "dtype": cfg.dtype,
         "remat": cfg.remat, "remat_policy": cfg.remat_policy,
@@ -2168,7 +2268,8 @@ def phase_train_llm() -> tuple[dict, dict]:
         "profiled_round": profiled, "sweep_step": sweep,
         "serve": {"batch": ts["batch"], "prompt": ts["prompt"],
                   "new_tokens": ts["new"], "generate_s": serve_s,
-                  "launches": serve_launches, "sample": toks[0].tolist()}}
+                  "launches": serve_launches, "sample": toks[0].tolist()}},
+        async_launches, async_line)
 
 
 def phase_train_ckpt() -> tuple[dict, dict]:
@@ -2494,6 +2595,359 @@ def phase_telemetry() -> tuple[dict, dict]:
                     "host_copies": tr_on.telemetry.host_copies}}
 
 
+TREES = ("x", "y", "nu", "mu", "g")
+
+
+def _async_checks(path, events, state, init, dead, tau) -> dict:
+    """The async invariants of one run: bounded staleness and exactly-once
+    applies over its event log, every tick there, the dead clients never
+    applied and their rows of every tree bit for bit ``init``'s, every
+    tree finite.  Returns the run's replayed cohorts and staleness."""
+    import torch
+    from repro_torch.core import (check_bounded_staleness, replay_cohorts,
+                                  replay_staleness)
+    check_bounded_staleness(events, tau)
+    ticks = [e["round"] for e in events if e["type"] == "tick"]
+    cohorts = replay_cohorts(events)
+    if ticks != list(range(len(cohorts))):
+        raise AssertionError(f"{path}: ticks {ticks}")
+    if any(c in cohort for cohort in cohorts for c in dead):
+        raise AssertionError(f"{path}: a dead client {dead} was applied")
+    for f in TREES:
+        for k, v in getattr(state, f).items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{path}: {f}.{k} not finite")
+            for c in dead:
+                if not torch.equal(v[c], getattr(init, f)[k][c]):
+                    raise AssertionError(f"{path}: dead client {c} moved "
+                                         f"in {f}.{k}")
+    return {"cohort_sizes": [len(c) for c in cohorts],
+            "staleness": replay_staleness(events),
+            "applies": sum(e["type"] == "apply" for e in events),
+            "rejects": sum(e["type"] == "reject" for e in events),
+            "drops": sum(e["type"] == "drop" for e in events)}
+
+
+def _copy_state(state):
+    return state._replace(**{f: {k: v.clone() for k, v in
+                                 getattr(state, f).items()} for f in TREES})
+
+
+def phase_async_throughput() -> tuple[dict, dict]:
+    """``figures.py --fig async`` at its full size on the card with
+    ``fused="require"`` (one leaf: one launch of each sweep kernel a step;
+    24 rounds x T0 2 a run, five runs, the four async ones gated): the
+    exponential ratio at least the reference's headline, tau 0 with zero
+    delay ``torch.equal`` to the synchronous trainer, and every row's
+    virtual times and event log equal to the same code's on the CPU."""
+    from repro_torch import figures as F
+
+    reset_counts()
+    rows, wall = _timed(lambda: F.async_run(F.ASYNC_ROUNDS, device="cuda",
+                                            fused="require"))
+    steps = F.ASYNC_ROUNDS * F.ASYNC_T0
+    launches = _sweep_counts("async_throughput", 5 * steps, gated=4 * steps)
+    check = F.async_check(rows)
+    cpu = F.async_run(F.ASYNC_ROUNDS, device="cpu", fused="require")
+    keys = ("distribution", "async_virtual_time", "sync_virtual_time",
+            "events")
+    same = [all(a.get(k) == b.get(k) for k in keys)
+            for a, b in zip(rows, cpu)]
+    if not (check["zero_sync_equal"] and check["headline_met"]
+            and len(rows) == len(cpu) == 4 and all(same)):
+        raise AssertionError(f"async_throughput: check {check}, card = CPU "
+                             f"{same}")
+    return launches, {
+        "phase": "async_throughput", "seconds": wall, "launches": launches,
+        "rows": [{k: v for k, v in r.items() if k != "events"}
+                 for r in rows],
+        "check": check, "card_equals_cpu": same}
+
+
+def _async_mlp_setup(device: str):
+    """(trainer, initial state, batch_fn) of the async MLP cell: the Fig. 4
+    Polyak point (``quickstart.mlp_config``: MLP 123 -> 64 -> 32 -> 10, 10
+    clients on a ring, batch 32, T0 10, MCP) through
+    ``classification_batch_iterator`` and ``tabulate_batches``, under
+    exponential(1.0) stragglers with drops and duplicates at 0.05 and
+    client 3 dead, tau 2, downweight 0.5, telemetry on."""
+    from repro_torch.core import StragglerModel
+    from repro_torch.data import make_classification
+    from repro_torch.models.classifier import MODELS, ce_loss, init_params
+    from repro_torch.models.registry import Model
+    from repro_torch.obs import Telemetry
+    from repro_torch.quickstart import mlp_config
+    from repro_torch.training import (AsyncConfig, AsyncTrainer,
+                                      TrainerConfig,
+                                      classification_batch_iterator,
+                                      tabulate_batches)
+
+    ec = mlp_config(ASYNC_MLP_ROUNDS, fused="require")
+    ds = make_classification(
+        n_samples=ec.n_samples, n_features=ec.n_features,
+        n_classes=ec.n_classes, n_clients=ec.n_clients, theta=ec.theta,
+        seed=ec.seed)
+    net = MODELS["mlp"](ec.n_features, ec.n_classes, ec.hidden).to(device)
+    model = Model(
+        cfg=None, init=lambda seed: (init_params(net, seed, device=device),
+                                     None),
+        forward_train=None, loss=lambda p, b: (ce_loss(net, p, b), {}),
+        forward_decode=None, init_decode_cache=None)
+    tcfg = TrainerConfig(n_clients=ec.n_clients, topology=ec.topology,
+                         depositum=ec.depositum, log_every=1)
+    sm = StragglerModel.exponential(1.0, ec.n_clients, seed=0).with_faults(
+        p_drop=0.05, p_dup=0.05, dead=(3,))
+    tr = AsyncTrainer(model, tcfg, straggler=sm,
+                      async_cfg=AsyncConfig(tau=2, mode="downweight",
+                                            decay=0.5),
+                      telemetry=Telemetry.memory(), device=device)
+    bf = tabulate_batches(classification_batch_iterator(
+        ds, tcfg, ec.batch, seed=ec.seed, device=device), ASYNC_MLP_ROUNDS)
+    return tr, tr.init_state(ec.seed), bf
+
+
+def phase_async_mlp() -> tuple[dict, dict]:
+    """The async MLP cell (``_async_mlp_setup``) on the card, twice, and
+    once more with TF32 matmuls, every round through the gated sweep
+    kernels (10 launches each a round, all gated; the path's launches
+    are the two sound runs', the control's are counted apart): bounded
+    staleness, client 3's rows bit for bit, the recorded ``staleness``
+    stream equal to ``replay_staleness`` of the log; the second run's
+    events and state
+    equal to the first's (replay determinism); the same cell on the CPU
+    with the same event log and virtual time, x within
+    ``ASYNC_MLP_CPU_REL``, which the TF32 run must miss."""
+    import numpy as np
+    import torch
+    from repro_torch.core import replay_staleness
+
+    runs = []
+    reset_counts()
+    for tf32 in (False, False, True):
+        if tf32:
+            # the path's launches are the two sound runs'; the TF32
+            # control's are counted apart
+            T0 = runs[0][0].cfg.depositum.comm_period
+            want = len(runs) * ASYNC_MLP_ROUNDS * T0
+            launches = _sweep_counts("async_mlp", want, gated=want)
+            reset_counts()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            tr, state0, bf = _async_mlp_setup("cuda")
+            init = _copy_state(state0)
+            (state, hist), wall = _timed(
+                lambda: tr.run(state0, bf, ASYNC_MLP_ROUNDS))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        runs.append((tr, state, hist, wall, init))
+    want = ASYNC_MLP_ROUNDS * T0
+    control_launches = _sweep_counts("async_mlp TF32 control", want,
+                                     gated=want)
+    tr, state, hist, wall, init = runs[0]
+    summary = _async_checks("async_mlp", tr.events, state, init, (3,), 2)
+    recorded = tr.telemetry.stream("staleness")
+    replayed = replay_staleness(tr.events)
+    if [np.float32(v) for v in recorded] != [np.float32(v)
+                                             for v in replayed]:
+        raise AssertionError(f"async_mlp: recorded staleness {recorded}, "
+                             f"replayed {replayed}")
+    if not any(v > 0 for v in replayed):
+        raise AssertionError("async_mlp: no stale apply; vacuous")
+    tr2, state2 = runs[1][0], runs[1][1]
+    replay_equal = tr2.events == tr.events and all(
+        torch.equal(v, getattr(state2, f)[k]) for f in TREES
+        for k, v in getattr(state, f).items())
+    tr_cpu, s0, bf = _async_mlp_setup("cpu")
+    cpu, _ = tr_cpu.run(s0, bf, ASYNC_MLP_ROUNDS)
+    rel = _x_rel(state.x, cpu.x)
+    control = _x_rel(runs[2][1].x, cpu.x)
+    losses = [h["loss"] for h in hist]
+    if not (replay_equal and tr_cpu.events == tr.events
+            and tr_cpu.virtual_time == tr.virtual_time
+            and all(np.isfinite(losses))):
+        raise AssertionError(f"async_mlp: replay {replay_equal}, card = CPU "
+                             f"events {tr_cpu.events == tr.events}, "
+                             f"losses {losses}")
+    if ASYNC_MLP_CPU_REL is None or not rel <= ASYNC_MLP_CPU_REL < control:
+        raise AssertionError(f"async_mlp: card vs CPU x {rel}, TF32 control "
+                             f"{control}, limit {ASYNC_MLP_CPU_REL}")
+    return launches, {
+        "phase": "async_mlp", "rounds": ASYNC_MLP_ROUNDS,
+        "run_s": [r[3] for r in runs], "launches": launches,
+        "tf32_control_launches": control_launches,
+        "virtual_time": tr.virtual_time, **summary,
+        "recorded_staleness": recorded, "losses": losses,
+        "replay_equal": replay_equal, "card_vs_cpu_x_rel": rel,
+        "tf32_control_x_rel": control, "limit": ASYNC_MLP_CPU_REL}
+
+
+def _row_prints(state, rows) -> dict:
+    """A fingerprint of each client row of every leaf: the int64 sum of
+    the row's raw 16-bit words (any change of one element's bits changes
+    it)."""
+    import torch
+    return {(f, k, c): int(v[c].reshape(-1).view(torch.int16).to(
+        torch.int32).sum(dtype=torch.int64))
+        for f in TREES for k, v in getattr(state, f).items() for c in rows}
+
+
+def phase_async_llm(trainer, state, it, args, base) -> tuple:
+    """``AsyncTrainer`` on ``train_llm``'s model, config and state
+    (full-width Qwen3-1.7B, 2 bf16 clients, T0 4): exponential(1.0)
+    stragglers, tau 1, downweight; one warm-up and ``ASYNC_LLM_ROUNDS``
+    timed learner rounds in one donated run, every step through the gated
+    sweep pair (7 launches each a step).  Each round's wall (synchronised)
+    and cohort, the caching allocator's work in it; a client left out of
+    a round keeps its rows of all five trees (their fingerprints,
+    ``_row_prints``); losses finite; the peak memory beside
+    ``ASYNC_LLM_PEAK_GB``.  Then, counted apart, the gated sweep pair at
+    these leaves against the ungated one (ms, bound).  Returns (launches,
+    line, state)."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.core import StragglerModel
+    from repro_torch.kernels.prox import kernel as K
+    from repro_torch.kernels.prox.ops import (fused_local_update,
+                                              fused_tracking,
+                                              hyper_param_vec)
+    from repro_torch.training import (AsyncConfig, AsyncTrainer,
+                                      tabulate_batches)
+
+    n, T0 = args.clients, args.t0
+    rounds = 1 + ASYNC_LLM_ROUNDS
+    cfg = dataclasses.replace(trainer.cfg, depositum=dataclasses.replace(
+        trainer.cfg.depositum, fused="require"))
+    atr = AsyncTrainer(trainer.model, cfg,
+                       straggler=StragglerModel.exponential(1.0, n, seed=0),
+                       async_cfg=AsyncConfig(tau=1, mode="downweight"),
+                       device="cuda")
+    # the synchronous trainer's template (the module on meta) and its
+    # gradients: a second state_from_params would hold another state
+    atr._template, atr._grad_fn = trainer._template, trainer._grad_fn
+    bf = tabulate_batches(it, rounds)
+    record = []
+    apply_cohort = atr._apply_cohort
+
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+    def observed(st, carry, cohort, batch_fn, force, hp=None,
+                 donate=False):
+        frozen = [c for c in range(n) if c not in cohort]
+        before = _row_prints(st, frozen)
+        torch.cuda.synchronize()
+        stats0 = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        out = apply_cohort(st, carry, cohort, batch_fn, force, hp, donate)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        stats1 = torch.cuda.memory_stats()
+        loss = out[1].get("ce", out[1].get("loss"))
+        record.append({"cohort": sorted(cohort), "round_ms": wall,
+                       "staleness": out[3],
+                       "loss": float(torch.mean(loss.float())),
+                       "allocator": {k: stats1.get(k, 0) - stats0.get(k, 0)
+                                     for k in alloc_keys},
+                       "frozen_kept": _row_prints(out[0], frozen) == before})
+        return out
+
+    atr._apply_cohort = observed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, _ = atr.run(state, bf, rounds, donate=True)
+    torch.cuda.synchronize()
+    peak_gb = _gb(torch.cuda.max_memory_allocated() - base)
+    per_step = -(-len(state.x) // K.MAX_LEAVES)
+    want = per_step * T0 * rounds
+    launches = _sweep_counts("async_llm", want, gated=want)
+    losses = [r["loss"] for r in record]
+    if not all(math.isfinite(v) for v in losses) or not all(
+            r["frozen_kept"] for r in record) or len(record) != rounds:
+        raise AssertionError(f"async_llm: losses {losses}, rounds {record}")
+    tokens = [len(r["cohort"]) * args.batch * args.seq * T0 for r in record]
+    timed = record[1:]
+
+    # the gated pair at these leaves (the weights of rounds 1-3: client 1
+    # frozen) against the ungated one, in turns: one step's two grouped
+    # calls by CUDA events, the state in place; gated tracking also writes
+    # g_kept (five trees moved, where ungated moves four)
+    hp = hyper_param_vec(cfg.depositum.hyper(), device="cuda")
+    gate = torch.tensor([1.0, 0.0], device="cuda")
+    tree_bytes = sum(v.numel() * v.element_size() for v in state.x.values())
+    fns = {"fused_update_sweep": lambda m: fused_local_update(
+               state.x, state.y, state.nu, hp, m, kind="l1"),
+           "fused_tracking_sweep": lambda m: fused_tracking(
+               state.y, state.g, state.nu, hp, m)}
+    trees = {("fused_update_sweep", False): 5,
+             ("fused_update_sweep", True): 5,
+             ("fused_tracking_sweep", False): 4,
+             ("fused_tracking_sweep", True): 5}
+    sweep = {}
+    for name, fn in fns.items():
+        for gated in (False, True, True, False):
+            key = f"{name} {'gated' if gated else 'ungated'}"
+            ms = time_ms(lambda: fn(gate if gated else None), iters=5,
+                         warmup=1)
+            bound = trees[name, gated] * tree_bytes / HBM_BYTES_PER_S * 1e3
+            sweep.setdefault(key, {"ms": [], "bound_ms": bound})["ms"].append(
+                ms)
+            torch.cuda.empty_cache()
+    for t in sweep.values():
+        t["share_of_bound"] = t["bound_ms"] / min(t["ms"])
+    return launches, {
+        "phase": "async_llm", "clients": n, "t0": T0, "tau": 1,
+        "mode": "downweight", "warmup_round_ms": record[0]["round_ms"],
+        "round_ms": [r["round_ms"] for r in timed],
+        "applied_tokens_per_s": [t / r["round_ms"] * 1e3
+                                 for t, r in zip(tokens[1:], timed)],
+        "cohorts": [r["cohort"] for r in record],
+        "staleness": [r["staleness"] for r in record],
+        "events": [{k: e[k] for k in ("type", "round", "client",
+                                      "work_round")} | (
+                   {"weight": e["weight"]} if "weight" in e else {})
+                   for e in atr.events if e["type"] in ("apply", "reject")],
+        "frozen_rows_kept": [r["frozen_kept"] for r in record],
+        "allocator": [r["allocator"] for r in record],
+        "losses": losses, "peak_gb": peak_gb, "sweep_step": sweep,
+        "predicted_peak_gb": list(ASYNC_LLM_PEAK_GB),
+        "launches": launches, "launches_per_step": per_step}, state
+
+
+def phase_async_threaded() -> tuple[dict, dict]:
+    """``run_threaded`` on the async figure's problem (least squares, 8
+    clients, d 512, T0 2) under its exponential stragglers with client 5
+    dead, tau 2, ``deadline_s`` ``ASYNC_THREADED_DEADLINE_S``: every tick
+    there, bounded staleness, client 5 never applied and its rows
+    unchanged; the actors only sleep and post, every launch (one gated
+    launch of each sweep kernel a step) on this thread."""
+    from repro_torch import figures as F
+    from repro_torch.training import (AsyncConfig, AsyncTrainer,
+                                      tabulate_batches)
+
+    R = F.ASYNC_ROUNDS
+    model, cfg, batches = F.async_problem(R, device="cuda", fused="require")
+    sm = F.async_distributions()["exponential"].with_faults(dead=(5,))
+    tr = AsyncTrainer(model, cfg, straggler=sm,
+                      async_cfg=AsyncConfig(tau=F.ASYNC_TAU), device="cuda")
+    state0 = tr.init_state(0)
+    init = _copy_state(state0)
+    reset_counts()
+    (state, events), wall = _timed(lambda: tr.run_threaded(
+        state0, tabulate_batches(iter(batches), R), R,
+        deadline_s=ASYNC_THREADED_DEADLINE_S))
+    launches = _sweep_counts("async_threaded", R * F.ASYNC_T0,
+                             gated=R * F.ASYNC_T0)
+    summary = _async_checks("async_threaded", events, state, init, (5,),
+                            F.ASYNC_TAU)
+    if len(summary["cohort_sizes"]) != R:
+        raise AssertionError(f"async_threaded: {summary}")
+    return launches, {"phase": "async_threaded", "seconds": wall,
+                      "deadline_s": ASYNC_THREADED_DEADLINE_S,
+                      "launches": launches, **summary}
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2552,14 +3006,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     card_vs_cpu = phase_card_vs_cpu()
     emit(card_vs_cpu)
-    train_paths = []
-    for phase in (phase_train_llm, phase_train_ckpt, phase_train_card_vs_cpu):
+    llm_launches, llm, async_llm_launches, async_llm = phase_train_llm()
+    emit(llm)
+    emit(async_llm)
+    train_paths = [llm_launches, async_llm_launches]
+    torch.cuda.empty_cache()
+    for phase in (phase_train_ckpt, phase_train_card_vs_cpu):
         path_launches, line = phase()
         emit(line)
         train_paths.append(path_launches)
         torch.cuda.empty_cache()
     sweep_launches += train_paths
-    for phase in (phase_table3, phase_fig5, phase_fig7, phase_telemetry):
+    for phase in (phase_table3, phase_fig5, phase_fig7, phase_telemetry,
+                  phase_async_throughput, phase_async_mlp,
+                  phase_async_threaded):
         path_launches, line = phase()
         emit(line)
         sweep_launches.append(path_launches)

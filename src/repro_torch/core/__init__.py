@@ -50,6 +50,14 @@ from repro_torch.core.prox import (  # noqa: F401
     prox_apply,
     prox_gradient,
 )
+from repro_torch.core.staleness import (  # noqa: F401
+    StalenessPolicy,
+    StragglerModel,
+    check_bounded_staleness,
+    replay_cohorts,
+    replay_staleness,
+    sync_virtual_time,
+)
 from repro_torch.core.schedule import (  # noqa: F401
     MixSchedule,
     ScheduleMixer,

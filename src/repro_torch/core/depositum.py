@@ -55,6 +55,7 @@ from repro_torch.core.momentum import MomentumKind, momentum_update
 from repro_torch.core.schedule import (
     MixSchedule,
     ScheduleMixer,
+    _active_mask,
     apply_schedule,
     apply_schedule_sweep,
     schedule_round_mask,
@@ -309,6 +310,23 @@ def step(
                  hp_vec, active_mask)
 
 
+def _mix_masks_gate(sched, r: int, sweep: bool, mask) -> bool:
+    """Does round ``r``'s mix of ``sched`` already mask every row that
+    ``mask`` freezes, so that no live row reads a frozen one?  A cohort
+    schedule's does.  A lazy schedule's does when its round row is zero
+    wherever the mask is not positive (the async learner's weights: a
+    frozen row's column weight a_i a_j is then 0); that is read from the
+    mask's values, once a comm step."""
+    if sched is None or mask is None:
+        return False
+    if sched.kind == "cohort":
+        return True
+    if sched.kind != "lazy" or sched.active is None:
+        return False
+    row = _active_mask(sched, r, sweep).to(mask.device)
+    return bool(torch.all((mask > 0) | (row == 0)))
+
+
 def _release(olds, live) -> None:
     """Empty each dict of ``olds`` that is none of the dicts in ``live``:
     the donated input state lets go of trees the step has consumed."""
@@ -326,23 +344,23 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     ``hp`` holds (S,) views, ``grad_fn`` and a callable mixer take
     ``(S, C, ...)`` leaves, and ``active_mask`` is (S, C).
 
-    ``donate`` (without a mask) empties the input state's x / nu / mu
-    dicts once the local update has read them, and its y / g once the
-    tracking step has, so their memory is free for the gradients and the
-    mixed trees (what ``jax.jit``'s buffer donation does); the values
-    computed are the same.
+    ``donate`` empties the input state's x / nu / mu dicts once the local
+    update has read them, and its y / g once the tracking step has, so
+    their memory is free for the gradients and the mixed trees (what
+    ``jax.jit``'s buffer donation does); the values computed are the same.
+    With a mask it needs the gate inside the fused kernels (the outer
+    selects read the old state after them) and raises where the gate
+    cannot ride there.
     """
     sweep = hp_vec.ndim == 2
     # round-indexed mixers: round r = t // T0; a cohort schedule's mask
-    # also gates local updates, and its mixing already masks frozen rows,
-    # which lets the gate ride inside the kernels on comm steps too
+    # also gates local updates
     sched = (mixer.schedule if isinstance(mixer, ScheduleMixer)
              else mixer if isinstance(mixer, MixSchedule) else None)
-    is_cohort_mixer = sched is not None and sched.kind == "cohort"
+    r = state.t // config.comm_period
     comm_spec = None        # the schedule's active CompressionSpec
     key_x = key_y = None
     if sched is not None:
-        r = state.t // config.comm_period
         if active_mask is None:
             active_mask = schedule_round_mask(sched, r)
         comm_spec = active_compression(sched)
@@ -402,13 +420,27 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     # The cohort gate rides *inside* the kernels (frozen rows written back
     # unchanged) whenever that is exactly equivalent to the reference
     # compute-then-select order: on collective-free steps, and on comm steps
-    # whose mixing already masks frozen contributions (cohort schedules).
-    # A generic mixer with an explicit mask keeps the outer selects, where
-    # active rows may read frozen rows' hypothetical updates.
+    # whose mixing already masks frozen contributions (_mix_masks_gate).
+    # Otherwise an explicit mask keeps the outer selects, where active rows
+    # may read frozen rows' hypothetical updates.
     kernel_mask = None
     if fused_ok and active_mask is not None and (
-            is_comm_step is False or is_cohort_mixer):
+            is_comm_step is False
+            or _mix_masks_gate(sched, r, sweep, active_mask)):
         kernel_mask = active_mask
+    if donate and active_mask is not None and kernel_mask is None:
+        if fused_mode == "off":
+            blocker = "fused='off'"
+        elif not fused_ok:
+            blocker = f"the fused kernels cannot serve this step: {why}"
+        else:
+            blocker = ("this comm step's mixer does not mask the rows the "
+                       "mask freezes (a cohort schedule does, and a lazy "
+                       "one whose round row is 0 wherever the mask is)")
+        raise ValueError(
+            "donate=True with an active mask needs the gate inside the "
+            "fused kernels (the outer selects read the old state after "
+            f"them), but {blocker}")
 
     if fused_ok:
         # (1)+(2) in one kernel pass per leaf:
@@ -425,7 +457,8 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
             # (2) proximal descent
             x_half = prox({k: p - c(hp.alpha, p) * nu_next[k]
                            for k, p in state.x.items()})
-    donate = donate and active_mask is None
+    # under the kernel gate the halves already hold every frozen row
+    # unchanged, so the post-mix keep reads them and the old trees go
     if donate:
         _release((state.x, state.nu, state.mu), (x_half, nu_next, mu_next))
 
@@ -447,7 +480,18 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
                                    for a, b in zip(new_mem, mem)))
         return _where(is_comm_step, out, tree), new_mem
 
+    def keep(new, old):
+        """Freeze inactive/padding rows: every old value where mask = 0
+        (select, not arithmetic, so active rows keep their bits exactly)."""
+        m = active_mask
+        return {k: torch.where(m.reshape(m.shape + (1,) * (
+            v.ndim - m.ndim)) > 0, v, old[k]) for k, v in new.items()}
+
     x_next, mem_x = gossip(x_half, state.comm and state.comm["x"], key_x)
+    if kernel_mask is not None and is_comm_step is not False:
+        # the mixed x's frozen rows come back from the gated half before
+        # the gradient (whose frozen rows the tracking gate drops)
+        x_next = keep(x_next, x_half)
     del x_half
 
     # (3) fresh minibatch gradients at the *new* iterate
@@ -465,26 +509,16 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         _release((state.y, state.g),
                  (y_half, g_next, x_next, nu_next, mu_next))
     y_next, mem_y = gossip(y_half, state.comm and state.comm["y"], key_y)
+    if kernel_mask is not None and is_comm_step is not False:
+        y_next = keep(y_next, y_half)
     del y_half
     comm_next = (state.comm if comm_spec is None
                  else {"x": mem_x, "y": mem_y})
 
     if active_mask is not None:
-        # freeze inactive/padding rows: keep every old value where mask = 0
-        # (select, not arithmetic, so active rows keep their bits exactly)
-        def keep(new, old):
-            return {k: torch.where(
-                active_mask.reshape(active_mask.shape + (1,) * (
-                    v.ndim - active_mask.ndim)) > 0, v, old[k])
-                for k, v in new.items()}
-
-        if kernel_mask is not None:
-            # nu / g / the pre-mix halves are already frozen in-kernel; only
-            # the mixed variables still need the post-mix select
-            if is_comm_step is not False:
-                x_next = keep(x_next, state.x)
-                y_next = keep(y_next, state.y)
-        else:
+        # under the kernel gate nu / g / the pre-mix halves were frozen
+        # in-kernel and the mixed variables from the halves above
+        if kernel_mask is None:
             x_next = keep(x_next, state.x)
             y_next = keep(y_next, state.y)
             nu_next = keep(nu_next, state.nu)

@@ -16,8 +16,11 @@ least squares on a ring), ``fig5_period.py`` (T0 in {1, 5, 10, 20} at
 Corollary 1's alpha, gamma and B; each T0 and each n its own static group)
 and Table III (``table3_algorithms.py``: DEPOSITUM OPTION I / II against
 FedMiD, FedDR and FedADMM on three partitions, the three seeds of a cell
-as one S = 3 run).  Each ``*_run(rounds, sequential, device)`` returns one
-row a grid point (Table III: a partition) as the reference's ``run`` does;
+as one S = 3 run), and ``async_throughput.py`` (``--fig async``: the async
+learner's virtual round throughput against the synchronous barrier under
+three straggler laws, least squares on 8 clients).  Each
+``*_run(rounds, sequential, device)`` returns one row a grid point (Table
+III: a partition; async: a straggler law) as the reference's ``run`` does;
 ``sequential=True`` runs every point alone through the one-config round
 program instead.
 
@@ -60,10 +63,14 @@ from repro_torch.core import (
     schedule_spectral_lambda,
     stack_hypers,
     stack_schedules,
+    sync_virtual_time,
     validate_schedule,
 )
 from repro_torch.core.fedopt import FedAlgConfig, make_algorithm
+from repro_torch.core.mixing import as_dense
+from repro_torch.core.staleness import StragglerModel
 from repro_torch.data import make_classification
+from repro_torch.models.registry import Model
 from repro_torch.models.classifier import (
     MODELS,
     client_grad_fn,
@@ -76,11 +83,17 @@ from repro_torch.quickstart import (
     run_depositum,
     run_depositum_grid,
 )
+from repro_torch.training.async_runtime import (
+    AsyncConfig,
+    AsyncTrainer,
+    tabulate_batches,
+)
 from repro_torch.training.sweep import (
     sweep_run,
     sweep_run_fedalg,
     sweep_run_sequential,
 )
+from repro_torch.training.train_loop import FederatedTrainer, TrainerConfig
 
 
 def _sync(device) -> None:
@@ -915,6 +928,116 @@ def table3_check(rows) -> dict:
     return {"depositum_best_or_tied": ok}
 
 
+# ---------------------------------------------------------------------------
+# Async round throughput (benchmarks/async_throughput.py)
+# ---------------------------------------------------------------------------
+
+# the reference's full problem: least squares, 8 clients on a ring, d 512,
+# batch 8, T0 2, l1 1e-4, alpha 0.05, 24 learner rounds at tau 2
+ASYNC_N, ASYNC_D, ASYNC_BATCH, ASYNC_T0 = 8, 512, 8, 2
+ASYNC_ROUNDS, ASYNC_TAU = 24, 2
+ASYNC_HEADLINE = 1.3        # exponential round-throughput ratio, at least
+
+
+def _ls_loss(params, batch):
+    e = batch["x"] @ params["w"] - batch["y"]
+    return torch.mean(e * e), {}
+
+
+def async_problem(rounds: int = ASYNC_ROUNDS, device="cuda",
+                  fused: str = "auto"):
+    """``async_throughput.py::_problem``: (model, trainer config, per-round
+    batches on ``device``), the batches drawn as the reference draws them
+    (so a cut run's rounds are the full run's first ones)."""
+    dev = resolve_device(device)
+    n, d, T0 = ASYNC_N, ASYNC_D, ASYNC_T0
+    model = Model(cfg=None, init=lambda seed: ({"w": torch.zeros(d)}, None),
+                  forward_train=None, loss=_ls_loss, forward_decode=None,
+                  init_decode_cache=None)
+    dep = DepositumConfig(alpha=0.05, comm_period=T0, prox_name="l1",
+                          prox_kwargs={"lam": 1e-4}, fused=fused)
+    cfg = TrainerConfig(n_clients=n, topology="ring", depositum=dep,
+                        log_every=max(1, rounds // 2))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(rounds):
+        x = rng.normal(size=(T0, n, ASYNC_BATCH, d)).astype(np.float32)
+        y = rng.normal(size=(T0, n, ASYNC_BATCH)).astype(np.float32)
+        batches.append({"x": torch.from_numpy(x).to(dev),
+                        "y": torch.from_numpy(y).to(dev)})
+    return model, cfg, batches
+
+
+def async_distributions(n: int = ASYNC_N) -> dict:
+    """``async_throughput.py::_distributions``: the straggler laws, one
+    mean delay."""
+    mean = 1.0
+    return {
+        "deterministic": StragglerModel.deterministic(
+            [mean * (i + 1) / ((n + 1) / 2) for i in range(n)]),
+        "exponential": StragglerModel.exponential(mean, n, seed=1),
+        "heavytail": StragglerModel.heavytail(mean, n, seed=1, shape=2.0),
+    }
+
+
+def async_run(rounds: int = ASYNC_ROUNDS, sequential: bool = False,
+              device="cuda", fused: str = "auto"):
+    """One row a straggler law: the async learner's and the synchronous
+    barrier's virtual times on the same draws, their round-throughput
+    ratio, applies and rejects (and the replay log, ``events``).  The
+    ``zero`` row instead holds tau 0 with zero delay against the
+    synchronous ``FederatedTrainer`` on the same batches: every tree
+    ``torch.equal``."""
+    if sequential:
+        raise ValueError("--fig async has no sequential form")
+    model, cfg, batches = async_problem(rounds, device, fused)
+    n = cfg.n_clients
+
+    def run_async(sm, tau):
+        tr = AsyncTrainer(model, cfg, straggler=sm,
+                          async_cfg=AsyncConfig(tau=tau), device=device)
+        t0 = time.perf_counter()
+        state, _ = tr.run(tr.init_state(0),
+                          tabulate_batches(iter(batches), rounds), rounds)
+        _sync(device)
+        return tr, state, time.perf_counter() - t0
+
+    plan = as_dense(MixPlan.from_topology(cfg.topology, n, device=device), n)
+    sync = FederatedTrainer(model, cfg, schedule=MixSchedule.constant(plan),
+                            device=device)
+    s_sync, _ = sync.run(sync.init_state(0), iter(batches), rounds)
+    tr0, s_async, wall = run_async(StragglerModel.zero(n), 0)
+    equal = s_sync.t == s_async.t and all(
+        torch.equal(a[k], b[k]) for f in ("x", "y", "nu", "mu", "g")
+        for a, b in [(getattr(s_sync, f), getattr(s_async, f))] for k in a)
+    rows = [{"distribution": "zero", "tau": 0, "sync_equal": equal,
+             "async_virtual_time": tr0.virtual_time,
+             "applies": sum(e["type"] == "apply" for e in tr0.events),
+             "wall_s": wall, "events": tr0.events}]
+    for name, sm in async_distributions(n).items():
+        tr, _state, wall = run_async(sm, ASYNC_TAU)
+        t_sync = sync_virtual_time(sm, rounds)
+        rows.append({
+            "distribution": name, "tau": ASYNC_TAU,
+            "async_virtual_time": tr.virtual_time,
+            "sync_virtual_time": t_sync,
+            "round_throughput_ratio": t_sync / max(tr.virtual_time, 1e-9),
+            "applies": sum(e["type"] == "apply" for e in tr.events),
+            "rejects": sum(e["type"] == "reject" for e in tr.events),
+            "wall_s": wall, "events": tr.events})
+    return rows
+
+
+def async_check(rows) -> dict:
+    """The keystone holds and the exponential ratio reaches the
+    reference's retained headline."""
+    by = {r["distribution"]: r for r in rows}
+    ratio = by["exponential"]["round_throughput_ratio"]
+    return {"zero_sync_equal": by["zero"]["sync_equal"],
+            "exponential_ratio": ratio,
+            "headline_met": ratio >= ASYNC_HEADLINE}
+
+
 FIGURES = {"3": (fig3_run, None, 60), "4": (fig4_run, None, 50),
            "5": (fig5_run, fig5_check, FIG5_ITERS),
            "6": (fig6_run, fig6_check, 40),
@@ -922,7 +1045,8 @@ FIGURES = {"3": (fig3_run, None, 60), "4": (fig4_run, None, 50),
            "8": (fig8_run, fig8_check, 30),
            "cohort": (cohort_run, cohort_check, 30),
            "comm": (comm_run, comm_check, 30),
-           "table3": (table3_run, table3_check, T3_ROUNDS)}
+           "table3": (table3_run, table3_check, T3_ROUNDS),
+           "async": (async_run, async_check, ASYNC_ROUNDS)}
 
 
 def main(argv=None):
@@ -941,7 +1065,8 @@ def main(argv=None):
     rows = run(args.rounds or rounds, args.sequential, args.device,
                args.fused)
     for r in rows:
-        print(json.dumps({k: v for k, v in r.items() if k != "curves"}))
+        print(json.dumps({k: v for k, v in r.items()
+                          if k not in ("curves", "events")}))
     if check is not None:
         print(json.dumps({"check": check(rows)}))
 

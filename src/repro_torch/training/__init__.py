@@ -1,4 +1,10 @@
-"""The trainer, its backends and checkpoints, and the sweep engine."""
+"""The trainer, its backends and checkpoints, the async runtime and the
+sweep engine."""
+from repro_torch.training.async_runtime import (  # noqa: F401
+    AsyncConfig,
+    AsyncTrainer,
+    tabulate_batches,
+)
 from repro_torch.training.backends import (  # noqa: F401
     LATENCY_BYTES_FLOOR,
     ExecutionBackend,

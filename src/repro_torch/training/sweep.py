@@ -73,11 +73,12 @@ MetricsFn = Callable[[DepositumState, Hyper], dict]
 _FIELDS = ("x", "y", "nu", "mu", "g")
 
 
-def _map(fn, tree):
-    """``fn`` on every tensor of a dict tree (or on a bare tensor)."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def _map(fn, *trees):
+    """``fn`` on every tensor of a dict tree (or on a bare tensor); with
+    several trees of one structure, on their matching tensors."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def _first(tree) -> torch.Tensor:

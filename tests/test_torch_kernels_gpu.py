@@ -19,7 +19,9 @@ against unfused bit for bit with their memory, a comm step on the card
 against the CPU from one state at atol 1e-5, and a CUDA graph of
 ``choco_mix`` bit for bit against the eager call.  The training path: the
 grouped bf16 sweep pair at the LM head's leaf against its plain version
-at atol = rtol = 1e-2 (one bf16 rounding), and two reduced fp32
+at atol = rtol = 1e-2 (one bf16 rounding), the gated pair on bf16
+leaves under the async learner's fractional weights within one ulp
+(frozen rows bit for bit), and two reduced fp32
 ``FederatedTrainer`` rounds on the card against the CPU at 1e-4.  A Table
 III DEPOSITUM cell launches each sweep kernel once a step for its three
 seeds, and recording its telemetry leaves it bit for bit unchanged.
@@ -725,6 +727,59 @@ def test_grouped_bf16_sweep_pair_at_the_lm_head_leaf():
     assert tk.LAUNCH_COUNTS["fused_sweep"] == before.get("fused_sweep", 0) + 1
     assert tk.LAUNCH_COUNTS["tracking_sweep"] == \
         before.get("tracking_sweep", 0) + 1
+
+
+@pytest.mark.gpu
+def test_gated_bf16_sweep_pair_with_fractional_weights():
+    """The async learner's gate: one config's bf16 leaves (lead 1) under a
+    (1, C) mask of downweight values (1, 0.5, 0.25) and zero rows, through
+    the grouped pair's gated instantiation against its plain version.
+    Live rows within 1 bf16 ulp (both round the same fp32 result once; the
+    inputs returned unchanged miss by more than that in over half the
+    elements); frozen rows of x', nu', y' and g_kept bit for bit the
+    inputs, live rows of g_kept bit for bit g_new."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shapes = [(5, 333), (5, 64, 33), (5,), (5, 2048, 96)]
+    mask = torch.tensor([[0.5, 0.0, 0.25, 1.0, 0.0]], device="cuda")
+    live = mask[0] > 0
+    mk = lambda sh, scale: (torch.randn(sh, generator=g, device="cuda")
+                            * scale).to(torch.bfloat16)
+    xs = [mk(sh, 0.02) for sh in shapes]
+    ys, nus, gos = ([mk(sh, 1.0) for sh in shapes] for _ in range(3))
+    row = tk.sweep_params_table(lam=1e-5, theta=4.0, alpha=0.02, gamma=0.8,
+                                beta=1.0, device="cuda")
+    before = dict(tk.LAUNCH_COUNTS)
+    gated = dict(tk.GATED_LAUNCH_COUNTS)
+    outs = tk.fused_update_sweep_grouped(xs, ys, nus, row, mask, kind="l1",
+                                         lead=1)
+    refs = tk.fused_update_sweep_grouped_plain(xs, ys, nus, row, mask,
+                                               kind="l1", lead=1)
+    tracked = tk.fused_tracking_sweep_grouped(ys, nus, gos, row, mask,
+                                              lead=1)
+    tracked_ref = tk.fused_tracking_sweep_grouped_plain(ys, nus, gos, row,
+                                                        mask, lead=1)
+    torch.cuda.synchronize()
+    for out, ref, ins in ((outs[0], refs[0], xs), (outs[1], refs[1], nus),
+                          (tracked[0], tracked_ref[0], ys)):
+        for o, r, i in zip(out, ref, ins):
+            assert o.dtype == torch.bfloat16 and o.shape == i.shape
+            assert int(_bf16_ulps(o[live], r[live]).max()) <= 1
+            assert torch.equal(o[~live].view(torch.int16),
+                               i[~live].view(torch.int16))
+        if ins is not nus:
+            moved = torch.cat([(_bf16_ulps(i[live], r[live]) > 1).flatten()
+                               for i, r in zip(ins, ref)])
+            assert float(moved.float().mean()) > 0.5
+    for k, gn, go in zip(tracked[1], nus, gos):
+        assert torch.equal(k[live].view(torch.int16),
+                           gn[live].view(torch.int16))
+        assert torch.equal(k[~live].view(torch.int16),
+                           go[~live].view(torch.int16))
+    for key in ("fused_sweep", "tracking_sweep"):
+        assert tk.LAUNCH_COUNTS[key] == before.get(key, 0) + 1
+        assert tk.GATED_LAUNCH_COUNTS[key] == gated.get(key, 0) + 1
 
 
 @pytest.mark.gpu
