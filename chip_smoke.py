@@ -34,6 +34,9 @@ final line):
      groups 1 / 2 / 8, causal with window 0 and 128 and non-causal,
      L = 1 / 17 / 200 / 1024, within ``FLASH_TOL``; every bf16 case
      launches the tensor-core kernel and every fp32 case the fp32 one;
+     and D = 32 / 80 / 96 (groups 1 / 8, L = 17 / 200 / 1024) through
+     the head-dim route (zero-padded to 64 / 128 / 128), each launch
+     counted under ``flash_fwd_padded`` too;
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
@@ -100,10 +103,28 @@ final line):
    within ``SERVE_LOGIT_ATOL`` / ``SERVE_LOGIT_RTOL``; prints prefill ms,
    decode ms a token, tokens/s and the peak memory of the ``generate``
    call (``torch.cuda.max_memory_allocated``);
+5a. ``serve_zoo``: the zoo's decoder families at full width, bf16, random
+   weights, one at a time (each freed before the next), through
+   ``BatchedServer`` with B = 4, a 1024-token prompt and 32 greedy tokens
+   (``ZOO_SERVE``): ``qwen2.5-14b`` (48 flash launches a prefill, D 128),
+   ``minitron-4b`` (32), ``qwen3-moe-235b-a22b`` at its published width
+   with its depth cut to 8 of 94 layers (``ZOO_DEPTH``; 8 launches),
+   ``phi-3-vision-4.2b`` (1024 stub vision embeds before the prompt, a
+   4096-slot cache; 32 launches through the head-dim route, D 96),
+   ``mamba2-130m`` (attention-free: none) and ``zamba2-2.7b`` (9 shared
+   block invocations through the route, D 80): launch counts exact per
+   route, tokens in range, logits finite, every flash call of a prefill
+   held against ``flash_attention_plain`` on its inputs at ``FLASH_TOL``
+   (not for mamba2); prints the end-to-end drift of the prefill logits
+   against the plain attention swapped in, prefill ms, decode ms a
+   token, tokens/s and peak memory of each;
 6. card against CPU: reduced ``qwen3-1.7b`` and reduced ``starcoder2-7b``,
    fp32, identical weights, served on the card and on the CPU (plain
    versions there; the fp32 flash kernel on the card): identical greedy
-   tokens, logits within 1e-4;
+   tokens, logits within 1e-4; ``zoo_card_vs_cpu``: the same for the
+   seven new architectures reduced (``ZOO_CPU``: prompt 96, a multiple of
+   the reduced SSD chunk), the fp32 kernel through the head-dim route at
+   D 32 for grok, qwen3-moe and zamba2;
 6a. federated training (``training/train_loop.py`` through
    ``launch/train.py``'s builder, ``fused="auto"``):
    * ``train_llm``: full-width, full-depth ``qwen3-1.7b`` (2,032,264,192
@@ -188,12 +209,16 @@ final line):
    single-leaf launches, in turns, with the grouped kernels' device time
    from ``torch.profiler``; the fp32 flash kernel at the served shape and
    at L = 8192), and the
-   DEPOSITUM round wall time fused and unfused.
+   DEPOSITUM round wall time fused and unfused; the bf16 flash kernel
+   through the head-dim route at the zoo's D 80 and D 96 served shapes
+   against SDPA and the bound at the true D.
 
-Before each path (phases 3, 4, 4a, 4b, 5, 6, 6a, 6b, 6c) every launch
-count is set to 0; it is read just after.  The kernels line's launches of
-the two sweep kernels sum the paths that run them (3, 4a, 4b, 6a, 6b and
-6c), the flash kernels' the served paths (5, 6 and 6a).  Prints JSON lines per
+Before each path (phases 3, 4, 4a, 4b, 5, 5a, 6, 6a, 6b, 6c; each
+architecture of 5a and 6) every launch count is set to 0; it is read just
+after.  The kernels line's launches of the two sweep kernels sum the paths
+that run them (3, 4a, 4b, 6a, 6b and 6c), the flash kernels' the served
+paths (5, 5a, 6 and 6a), with ``flash_fwd_padded`` the share of them
+through the head-dim route.  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -251,6 +276,35 @@ SERVE_LOGIT_ATOL, SERVE_LOGIT_RTOL = 0.1, 0.05
 CPU_ATOL = CPU_RTOL = 1e-4     # card vs CPU, fp32 reduced models
 SERVE = {"arch": "qwen3-1.7b", "batch": 4, "prompt": 1024, "new": 32,
          "cache": 2048}
+# The zoo's decoder families served at full width (bf16, random weights on
+# the card), one at a time: B 4, a 1024-token prompt (a multiple of the SSD
+# chunk 256), 32 greedy tokens.  qwen3-moe keeps its published width and
+# its depth is cut 94 -> 8 (470 GB of bf16 weights do not fit; 8 layers
+# are 42.3 GB).  phi-3-vision prefills 1024 stub vision embeds before the
+# prompt (L 2048), so its cache holds 4096 slots: a 2048-slot ring would
+# wrap during decode.  Every flash call of a served prefill is held against
+# the plain version on the same inputs at FLASH_TOL.  The end-to-end drift
+# of the prefill logits against the plain attention swapped in is printed,
+# not held at SERVE_LOGIT_*: on the card each call differs from the plain
+# version by 1-2 bf16 ulps (38% of its outputs), which grows with depth
+# (qwen2.5-14b at 12 / 28 / 48 layers: 0.105 / 0.125 / 0.158 max) and flips
+# the MoE's bf16 routing (qwen3-moe: 2.46), past SERVE_LOGIT_* in 4 of 5.
+ZOO_SERVE = {"batch": 4, "prompt": 1024, "new": 32, "cache": 2048}
+ZOO_ARCHS = ("qwen2.5-14b", "minitron-4b", "qwen3-moe-235b-a22b",
+             "phi-3-vision-4.2b", "mamba2-130m", "zamba2-2.7b")
+ZOO_DEPTH = {"qwen3-moe-235b-a22b": 8}
+ZOO_CACHE = {"phi-3-vision-4.2b": 4096}
+# the seven new architectures reduced, fp32, card against CPU: a prompt of
+# 96 (a multiple of the reduced SSD chunk 32), 8 greedy tokens
+ZOO_CPU_ARCHS = ("qwen2.5-14b", "minitron-4b", "grok-1-314b",
+                 "qwen3-moe-235b-a22b", "phi-3-vision-4.2b", "mamba2-130m",
+                 "zamba2-2.7b")
+ZOO_CPU = {"batch": 2, "prompt": 96, "new": 8, "cache": 128}
+# the bf16 kernel through the head-dim route at the two served shapes
+# that need it (zamba2: D 80, phi-3-vision: D 96), in turns with SDPA at
+# the true D
+FLASH_PADDED_SHAPES = {"zamba2_d80": (4, 1024, 32, 32, 80),
+                       "phi3_d96": (4, 2048, 32, 32, 96)}
 # The sweep paths (Fig. 6: 4 topologies, Fig. 8: 6 schedules, the cohort
 # grid: 8 padded (n, p) points).  Fused and unfused sweeps do the same
 # fp32 operations: bit-equal.  Sweep against sequential: a sweep runs S
@@ -477,12 +531,15 @@ def read_counts() -> dict:
             "prox": prox.LAUNCH_COUNTS["prox"],
             "fused_update": prox.LAUNCH_COUNTS["fused_update"],
             "flash_attention": flash.LAUNCH_COUNTS["flash_fwd_sm90"],
-            "flash_attention_fp32": flash.LAUNCH_COUNTS["flash_fwd_fp32"]}
+            "flash_attention_fp32": flash.LAUNCH_COUNTS["flash_fwd_fp32"],
+            # of both kernels' launches, those through the head-dim route
+            "flash_fwd_padded": flash.LAUNCH_COUNTS["flash_fwd_padded"]}
 
 
 def expect_counts(path: str, counts: dict, want: dict) -> None:
-    """Each kernel launched exactly ``want[name]`` times (0 if absent), and
-    the flash wrapper's total is the sum of its two routes."""
+    """Each kernel launched exactly ``want[name]`` times (0 if absent; the
+    head-dim route's count too), and the flash wrapper's total is the sum
+    of its two kernels'."""
     _, flash = _modules()
     total = counts["flash_attention"] + counts["flash_attention_fp32"]
     if flash.LAUNCH_COUNTS["flash_fwd"] != total:
@@ -764,16 +821,19 @@ def phase_check_prox() -> dict:
 
 def phase_check_flash() -> dict:
     """flash_attention_cuda against flash_attention_plain over dtypes, head
-    dims, GQA groups, masks and lengths (B = 2, 8 query heads)."""
+    dims, GQA groups, masks and lengths (B = 2, 8 query heads); the head
+    dims of no kernel instantiation (32, 80, 96) through the head-dim
+    route, each such launch counted under ``flash_fwd_padded`` too."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as F
     g = torch.Generator(device="cuda").manual_seed(23)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    cases = 0
+    cases = padded = 0
     H = 8
-    for D in (64, 128, 256):
-        for group in (1, 2, 8):
-            for L in (1, 17, 200, 1024):
+    for D in (64, 128, 256, 32, 80, 96):
+        route_pad = D not in F.HEAD_DIMS
+        for group in ((1, 8) if route_pad else (1, 2, 8)):
+            for L in ((17, 200, 1024) if route_pad else (1, 17, 200, 1024)):
                 q32 = torch.randn((2, L, H, D), generator=g, device="cuda")
                 k32, v32 = (torch.randn((2, L, H // group, D), generator=g,
                                         device="cuda") for _ in range(2))
@@ -787,9 +847,11 @@ def phase_check_flash() -> dict:
                                                      window=window)
                         route = ("flash_attention" if dtype == torch.bfloat16
                                  else "flash_attention_fp32")
+                        pad = "flash_fwd_padded"
                         expect_counts(f"flash D={D} group={group} L={L} "
                                       f"{name}", read_counts(),
-                                      {**before, route: before[route] + 1})
+                                      {**before, route: before[route] + 1,
+                                       pad: before[pad] + route_pad})
                         ref = F.flash_attention_plain(q, k, v, causal=causal,
                                                       window=window)
                         torch.cuda.synchronize()
@@ -802,8 +864,10 @@ def phase_check_flash() -> dict:
                         worst[name] = max(worst[name], float(
                             (out.float() - ref.float()).abs().max()))
                         cases += 1
-    return {"phase": "check_flash", "cases": cases, "max_abs_err": worst,
-            "tol": FLASH_TOL, "launches": read_counts()}
+                        padded += route_pad
+    return {"phase": "check_flash", "cases": cases, "padded_cases": padded,
+            "max_abs_err": worst, "tol": FLASH_TOL,
+            "launches": read_counts()}
 
 
 def phase_main_path():
@@ -1048,6 +1112,201 @@ def phase_card_vs_cpu() -> dict:
                      "max_abs_logit_diff": float(
                          (logits["cuda"] - logits["cpu"]).abs().max())}
     return {"phase": "card_vs_cpu", "atol": CPU_ATOL, "rtol": CPU_RTOL, **out}
+
+
+def _attention_layers(cfg) -> int:
+    """Flash launches a prefill makes: one a transformer layer, one a
+    hybrid group's shared block, none for the attention-free SSM."""
+    from repro_torch.models.hybrid import group_shape
+    if cfg.family == "ssm":
+        return 0
+    return group_shape(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _zoo_want(cfg, prefills: int, route: str) -> dict:
+    """Launch counts of ``prefills`` prefills of ``cfg`` on the card."""
+    from repro_torch.kernels.flash_attention import kernel as F
+    n = prefills * _attention_layers(cfg)
+    return {route: n, "flash_fwd_padded": 0 if cfg.hd in F.HEAD_DIMS else n}
+
+
+def _zoo_extra(cfg, batch: int, gen, device):
+    """A VLM's stub vision embeds drawn from ``gen``; None otherwise."""
+    import torch
+    if cfg.family != "vlm":
+        return None
+    return {"vision_embeds": torch.randn(
+        (batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+        device=device).to(cfg.torch_dtype)}
+
+
+def _serve_one(arch: str) -> tuple[dict, dict]:
+    """One zoo architecture at full width through BatchedServer; returns
+    (its launches, its line)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.serve_drift import prefill_drift
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    cfg = get_config(arch)
+    if arch in ZOO_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=ZOO_DEPTH[arch])
+    B, Lp, new = ZOO_SERVE["batch"], ZOO_SERVE["prompt"], ZOO_SERVE["new"]
+    cache_slots = ZOO_CACHE.get(arch, ZOO_SERVE["cache"])
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params, _ = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=gen,
+                            device="cuda")
+    extra = _zoo_extra(cfg, B, gen, "cuda")
+    srv = BatchedServer(model, params, ServeConfig(
+        max_new_tokens=new, cache_capacity=cache_slots))
+    with torch.inference_mode():
+        srv.prefill(prompts, extra)         # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts, extra)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_counts(f"serve_zoo {arch}", launches,
+                  _zoo_want(cfg, 1, "flash_attention"))
+    if toks.shape != (B, new) or not bool(
+            ((toks >= 0) & (toks < pad_vocab(cfg.vocab_size))).all()):
+        raise AssertionError(f"{arch}: served tokens bad: "
+                             f"{tuple(toks.shape)}")
+
+    line = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+            "head_dim": cfg.hd if cfg.n_heads else None, "params": n_params,
+            "dtype": cfg.dtype, "batch": B, "prompt_len": Lp,
+            "prefill_len": Lp + (cfg.n_vision_tokens if extra else 0),
+            "new_tokens": new, "cache": cache_slots, "init_s": init_s,
+            "launches": launches, "generate_s": generate_s,
+            "tokens_per_s": B * new / generate_s,
+            "max_memory_allocated_gb": peak_gb}
+    with torch.inference_mode():
+        logits, cache = srv.prefill(prompts, extra)
+        line["prefill_ms"] = time_ms(lambda: srv.prefill(prompts, extra),
+                                     iters=3, warmup=0)
+        step_toks = []
+
+        def decode_all():
+            lg, c = logits, cache
+            step_toks.clear()
+            for _ in range(new - 1):
+                nxt = torch.argmax(lg[:, -1].float(), dim=-1)
+                lg, c = model.forward_decode(params, {"tokens": nxt[:, None]},
+                                             c)
+                if not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"{arch}: decode logits not finite")
+                step_toks.append(nxt)
+        line["decode_ms_per_token"] = time_ms(decode_all, iters=1,
+                                              warmup=0) / (new - 1)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: prefill logits not finite")
+        if not torch.equal(torch.stack(step_toks, 1), toks[:, :new - 1]):
+            raise AssertionError(f"{arch}: the timed decode loop and "
+                                 "generate() chose different tokens")
+        if cfg.family != "ssm":
+            # every flash call of a prefill held against the plain version
+            # on its inputs; the end-to-end logit drift measured, not gated
+            drift = prefill_drift(srv, prompts, extra,
+                                  call_tol=FLASH_TOL["bfloat16"],
+                                  logit_tol=(SERVE_LOGIT_ATOL,
+                                             SERVE_LOGIT_RTOL))
+            if drift["flash_calls"] != _attention_layers(cfg):
+                raise AssertionError(f"{arch}: {drift['flash_calls']} flash "
+                                     "calls held, want "
+                                     f"{_attention_layers(cfg)}")
+            line.update(flash_call_tol=FLASH_TOL["bfloat16"], **drift)
+    line["prefill_logits_max_abs"] = float(logits.float().abs().max())
+    line["sample"] = toks[0, :8].tolist()
+    del srv, params, model, logits, cache, extra
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def phase_serve_zoo() -> tuple[dict, dict]:
+    """The zoo's decoder families at full width, one at a time, each freed
+    before the next; returns (launches summed over them, the line)."""
+    total, lines = {}, {}
+    for arch in ZOO_ARCHS:
+        launches, line = _serve_one(arch)
+        lines[arch] = line
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total, {"phase": "serve_zoo", "launches": total,
+                   "logit_atol": SERVE_LOGIT_ATOL,
+                   "logit_rtol": SERVE_LOGIT_RTOL, **lines}
+
+
+def phase_zoo_card_vs_cpu() -> tuple[dict, dict]:
+    """The seven new architectures reduced, fp32, the same weights on the
+    card and on the CPU: identical greedy tokens, teacher-forced logits
+    within CPU_ATOL / CPU_RTOL; the fp32 flash kernel counted, through the
+    head-dim route at D 32."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchedServer, ServeConfig
+    B, Lp, new, cap = (ZOO_CPU[k] for k in ("batch", "prompt", "new",
+                                            "cache"))
+    out, total = {}, {}
+    for arch in ZOO_CPU_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        prompts = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (B, Lp)))
+        extra = _zoo_extra(cfg, B, torch.Generator().manual_seed(4), "cpu")
+        params, _ = build_model(cfg, device="cpu").init(seed=3)
+        toks, logits = {}, {}
+        reset_counts()
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, device=dev)
+            p = params.to(dev)
+            ex = extra and {k: v.to(dev) for k, v in extra.items()}
+            toks[dev] = BatchedServer(model, p, ServeConfig(
+                max_new_tokens=new, cache_capacity=cap)).generate(
+                    prompts, ex).cpu()
+            with torch.inference_mode():
+                batch = {"tokens": prompts.to(dev), **(ex or {})}
+                lg, cache = model.forward_prefill(p, batch, cap)
+                seq = [lg]
+                for t in range(new - 1):
+                    lg, cache = model.forward_decode(p, {
+                        "tokens": toks[dev][:, t:t + 1].to(dev)}, cache)
+                    seq.append(lg)
+            logits[dev] = torch.cat(seq, dim=1).cpu()
+        launches = read_counts()
+        expect_counts(f"{arch} zoo card vs cpu", launches,
+                      _zoo_want(cfg, 2, "flash_attention_fp32"))
+        if not torch.equal(toks["cpu"], toks["cuda"]):
+            raise AssertionError(f"{arch}: greedy tokens differ card vs cpu: "
+                                 f"{toks['cuda'].tolist()} vs "
+                                 f"{toks['cpu'].tolist()}")
+        torch.testing.assert_close(logits["cuda"], logits["cpu"],
+                                   atol=CPU_ATOL, rtol=CPU_RTOL,
+                                   msg=lambda m: f"{arch} logits: {m}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        out[arch] = {"head_dim": cfg.hd if cfg.n_heads else None,
+                     "launches": launches, "tokens": toks["cuda"][0].tolist(),
+                     "max_abs_logit_diff": float(
+                         (logits["cuda"] - logits["cpu"]).abs().max())}
+    return total, {"phase": "zoo_card_vs_cpu", "prompt": [B, Lp],
+                   "cache": cap, "atol": CPU_ATOL, "rtol": CPU_RTOL,
+                   "launches": total, **out}
 
 
 def _state_diff(a, b) -> dict:
@@ -1339,8 +1598,10 @@ def _flash_bound_ms(B, L, H, KV, D, bytes_per_elem):
 def phase_timing_flash() -> dict:
     """Flash kernels vs the plain version vs scaled_dot_product_attention
     (enable_gqa), causal: bf16 (the tensor-core kernel) and fp32 (the
-    CUDA-core kernel), each at the served shape and at L = 8192, in turns.
-    The plain version at fp32 L = 8192 (~4.3 GB of scores) is timed once."""
+    CUDA-core kernel), each at the served shape and at L = 8192, and bf16
+    through the head-dim route at the zoo's served D 80 and D 96 shapes
+    (SDPA and the bound at the true D), in turns.  The plain version at
+    fp32 L = 8192 (~4.3 GB of scores) is timed once."""
     import torch
     import torch.nn.functional as TF
     from repro_torch.kernels.flash_attention import kernel as F
@@ -1352,7 +1613,9 @@ def phase_timing_flash() -> dict:
             ("served", served, torch.bfloat16, 20),
             ("long", long, torch.bfloat16, 5),
             ("served_fp32", served, torch.float32, 20),
-            ("long_fp32", long, torch.float32, 5)):
+            ("long_fp32", long, torch.float32, 5),
+            *((label, shape, torch.bfloat16, 20)
+              for label, shape in FLASH_PADDED_SHAPES.items())):
         q = torch.randn((B, L, H, D), generator=g, device="cuda").to(dtype)
         k, v = (torch.randn((B, L, KV, D), generator=g, device="cuda")
                 .to(dtype) for _ in range(2))
@@ -1396,6 +1659,16 @@ def phase_timing_flash() -> dict:
                           flops / min(times["library_ms"]) / 1e9,
                       "vs_library": ms / min(times["library_ms"]),
                       "max_abs_err": err}
+        if D not in F.HEAD_DIMS:
+            # the route's parts: the kernel alone on operands padded
+            # beforehand, against the whole route (pads, launch, slice)
+            Dp = F.padded_head_dim(D)
+            qp, kp, vp = (TF.pad(t, (0, Dp - D)) for t in (q, k, v))
+            out[label]["kernel_at_padded_d_ms"] = min(
+                time_ms(lambda: F.flash_attention_cuda(qp, kp, vp,
+                                                       causal=True),
+                        iters=iters, warmup=2) for _ in range(2))
+            del qp, kp, vp
         del q, k, v
         torch.cuda.empty_cache()
     return {"phase": "timing_flash", **out}
@@ -3006,6 +3279,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     card_vs_cpu = phase_card_vs_cpu()
     emit(card_vs_cpu)
+    zoo_launches, serve_zoo = phase_serve_zoo()
+    emit(serve_zoo)
+    zoo_cpu_launches, zoo_card_vs_cpu = phase_zoo_card_vs_cpu()
+    emit(zoo_card_vs_cpu)
+    torch.cuda.empty_cache()
     llm_launches, llm, async_llm_launches, async_llm = phase_train_llm()
     emit(llm)
     emit(async_llm)
@@ -3058,22 +3336,30 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
-    # bf16 on the served path; fp32 on the card-vs-CPU path
+    # bf16 on the served paths (the zoo's too); fp32 on the card-vs-CPU
+    # paths; "flash_fwd_padded": those of them through the head-dim route
     fp32_launches = sum(card_vs_cpu[arch]["launches"]["flash_attention_fp32"]
                         for arch in ("qwen3-1.7b", "starcoder2-7b")) + sum(
-        n["flash_attention_fp32"] for n in train_paths)
+        n["flash_attention_fp32"] for n in train_paths) \
+        + zoo_cpu_launches["flash_attention_fp32"]
     bf16_launches = serve_launches["flash_attention"] + sum(
-        n["flash_attention"] for n in train_paths)
-    for name, dtype, launched, t in (
+        n["flash_attention"] for n in train_paths) \
+        + zoo_launches["flash_attention"]
+    padded = {"bfloat16": zoo_launches["flash_fwd_padded"],
+              "float32": zoo_cpu_launches["flash_fwd_padded"]}
+    padded_err = max(timing_flash[label]["max_abs_err"]
+                     for label in FLASH_PADDED_SHAPES)
+    for name, dtype, launched, t, err in (
             ("flash_attention", "bfloat16", bf16_launches,
-             timing_flash["served"]),
+             timing_flash["served"], padded_err),
             ("flash_attention_fp32", "float32", fp32_launches,
-             timing_flash["served_fp32"])):
+             timing_flash["served_fp32"], 0.0)):
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCES[dtype],
             "replaces": FLASH_REPLACES, "launches": launched,
+            "flash_fwd_padded": padded[dtype],
             "max_abs_err": max(check_flash["max_abs_err"][dtype],
-                               t["max_abs_err"]),
+                               t["max_abs_err"], err),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -4,11 +4,11 @@ the port.
 The reference keeps parameters as a nested dict pytree (``{"l0": {"w": ..,
 "b": ..}, ..}``); the port as a flat dict with dotted names
 (``{"l0.w": .., "l0.b": ..}``), in the reference's leaf order (keys sorted
-at every level).  A zoo transformer's parameters are the exception: the
-reference stacks ``blocks`` over layers on axis 0, the port's
-:class:`~repro_torch.models.transformer.Transformer` keeps a list of
-per-layer trees (:func:`transformer_params_from_numpy`, and back with
-:func:`transformer_params_to_numpy`).  Both sides meet
+at every level).  A zoo model's parameters are the exception: the
+reference stacks its layers on leading axes, the port keeps lists of
+per-layer trees (:func:`model_params_from_numpy` for every decoder family;
+:func:`transformer_params_from_numpy` the transformer families' case, and
+back with :func:`transformer_params_to_numpy`).  Both sides meet
 as numpy arrays, so this module imports neither JAX nor the reference
 package.
 """
@@ -111,60 +111,79 @@ def fed_state_to_numpy(state: FedState) -> dict:
     return out
 
 
-def transformer_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
-    """The reference's transformer params (nested dict of numpy arrays,
-    ``blocks`` stacked over layers on axis 0) -> the port's params tree
-    (``blocks`` a list of per-layer dicts) of ``cfg.torch_dtype`` tensors
-    on ``device``, ready for ``Transformer(cfg, params)``.
+def _init_fn(cfg):
+    """The port's ``init_params`` of ``cfg``'s family."""
+    from repro_torch.models import hybrid, ssm, transformer
+    inits = {f: transformer.init_params for f in transformer.FAMILIES}
+    inits.update(ssm=ssm.init_params, hybrid=hybrid.init_params)
+    if cfg.family not in inits:
+        raise NotImplementedError(f"no port of family {cfg.family!r} to "
+                                  "carry parameters into")
+    return inits[cfg.family]
 
-    Every leaf is checked against the shapes the port builds for ``cfg``;
-    a missing leaf, a leaf left over, or a shape that differs raises.
+
+def model_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
+    """The reference's params of any decoder family (nested dict of numpy
+    arrays) -> the port's params tree of ``cfg.torch_dtype`` tensors on
+    ``device``, ready for the family's module (``Transformer``, ``SSM``,
+    ``Hybrid``).
+
+    Where the port keeps a list of per-layer trees the reference stacks
+    them on a leading axis: ``blocks`` over layers (dense, MoE and VLM,
+    experts ``(L, E, d, ff)``; SSM), a hybrid's ``mamba`` over ``(n_groups,
+    per_group)``; the rest (``shared``, ``embed``, ``final_norm``,
+    ``lm_head``) is carried as it is.  Every leaf is checked against the
+    shapes the port builds for ``cfg``; a missing leaf, a leaf left over,
+    or a shape that differs raises.
     """
-    from repro_torch.models.transformer import init_params
-
     dev = resolve_device(device)
-    want, _ = init_params(cfg, device="meta")
-    if not isinstance(tree, Mapping) or "blocks" not in tree:
-        raise ValueError("expected the reference's params dict with a "
-                         "'blocks' entry")
+    want, _ = _init_fn(cfg)(cfg, device="meta")
+    if not isinstance(tree, Mapping):
+        raise ValueError(f"expected the reference's params dict, got "
+                         f"{type(tree).__name__}")
 
-    def leaf(path, v, shape):
-        a = np.asarray(v)
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError(f"{path}: shape {a.shape} != {tuple(shape)} "
-                             f"for {cfg.name}")
+    def walk(path, src, ref, stacked):
+        """``stacked``: (index, count) of each list above ``ref``."""
+        if isinstance(ref, list):
+            return [walk(path, src, r, stacked + ((i, len(ref)),))
+                    for i, r in enumerate(ref)]
+        if isinstance(ref, Mapping):
+            if not isinstance(src, Mapping):
+                raise ValueError(f"{path}: expected a dict, got "
+                                 f"{type(src).__name__}")
+            extra = sorted(set(src) - set(ref))
+            missing = sorted(set(ref) - set(src))
+            if extra or missing:
+                raise ValueError(f"{path}: leaves left over {extra}, "
+                                 f"missing {missing}")
+            return {k: walk(f"{path}/{k}", src[k], r, stacked)
+                    for k, r in ref.items()}
+        a = np.asarray(src)
+        lead = tuple(n for _, n in stacked)
+        if a.shape[:len(lead)] != lead:
+            raise ValueError(f"{path}: not stacked over {lead}: {a.shape}")
+        index = tuple(i for i, _ in stacked)
+        a = a[index]
+        if tuple(a.shape) != tuple(ref.shape):
+            raise ValueError(f"{path}{list(index) if index else ''}: shape "
+                             f"{a.shape} != {tuple(ref.shape)} for "
+                             f"{cfg.name}")
         t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
         return t.to(device=dev, dtype=cfg.torch_dtype)
 
-    def walk(path, src, ref, layer=None):
-        if not isinstance(src, Mapping):
-            raise ValueError(f"{path}: expected a dict, got "
-                             f"{type(src).__name__}")
-        extra = sorted(set(src) - set(ref))
-        missing = sorted(set(ref) - set(src))
-        if extra or missing:
-            raise ValueError(f"{path}: leaves left over {extra}, missing "
-                             f"{missing}")
-        out = {}
-        for k, r in ref.items():
-            p = f"{path}/{k}"
-            if isinstance(r, Mapping):
-                out[k] = walk(p, src[k], r, layer)
-            elif layer is None:
-                out[k] = leaf(p, src[k], r.shape)
-            else:
-                a = np.asarray(src[k])
-                if a.ndim == 0 or a.shape[0] != cfg.n_layers:
-                    raise ValueError(f"{p}: not stacked over "
-                                     f"{cfg.n_layers} layers: {a.shape}")
-                out[k] = leaf(f"{p}[{layer}]", a[layer], r.shape)
-        return out
+    return walk("", tree, want, ())
 
-    top = {k: v for k, v in want.items() if k != "blocks"}
-    params = walk("", {k: v for k, v in tree.items() if k != "blocks"}, top)
-    params["blocks"] = [walk("/blocks", tree["blocks"], want["blocks"][i], i)
-                        for i in range(cfg.n_layers)]
-    return params
+
+def transformer_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
+    """The reference's transformer params (``blocks`` stacked over layers
+    on axis 0) -> the port's params tree (``blocks`` a list of per-layer
+    dicts), ready for ``Transformer(cfg, params)``: the dense, MoE and VLM
+    case of :func:`model_params_from_numpy`."""
+    from repro_torch.models.transformer import FAMILIES
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not a transformer "
+                         f"family {FAMILIES}")
+    return model_params_from_numpy(tree, cfg, device=device)
 
 
 def _numpy32(t: torch.Tensor) -> np.ndarray:

@@ -4,9 +4,17 @@ Port of ``repro/kernels/flash_attention/kernel.py``: :func:`flash_attention`
 replaces ``flash_attention`` (``_fa_kernel``), blockwise online-softmax
 attention with GQA (query head ``h`` reads kv head ``h // (H / KV)``), a
 causal mask, and a sliding window that applies only when causal.  q is
-``(B, Lq, H, D)``, k and v ``(B, Lk, KV, D)``, fp32 or bf16, D in
-{64, 128, 256}.  Unlike the Pallas wrapper there is no ``Lq % block``
-rule: any Lq and Lk.
+``(B, Lq, H, D)``, k and v ``(B, Lk, KV, D)``, fp32 or bf16, any D up to
+256.  Unlike the Pallas wrapper there is no ``Lq % block`` rule: any Lq
+and Lk.
+
+Both CUDA kernels are instantiated for D in ``HEAD_DIMS`` (64, 128, 256).
+Any other D <= 256 takes the head-dim route (:func:`pad_head_dim`): q, k
+and v zero-padded along D to the next kernel dimension (32 -> 64; 80 and
+96 -> 128), the scale ``1 / sqrt(D)`` of the true D passed to the same
+kernel, and the first D output columns returned.  That is exact: zero
+columns add nothing to ``Q K^T`` and give zero output columns.  It wastes
+the padded share of the tensor-core work (37.5% at D 80, 25% at D 96).
 
 :func:`flash_attention` dispatches by device and dtype, with no fallback
 from one route to another:
@@ -16,13 +24,14 @@ from one route to another:
 * fp32 on CUDA: ``csrc/flash_fwd.cu``, fp32 on the CUDA cores, the exact
   path the fp32 models rely on (register-tiled Q K^T and P V, K/V tiles
   streamed with ``cp.async``);
-* CPU: :func:`flash_attention_plain`;
+* CPU: :func:`flash_attention_plain` (any D; the route is never reached);
 * anything else raises.
 
 Each source is built with ``nvcc`` at first use into ``build/`` next to
 this file and loaded with ``ctypes``.  Every launch adds one to
 ``LAUNCH_COUNTS["flash_fwd"]``, and one to the route's own count
-(``"flash_fwd_sm90"`` or ``"flash_fwd_fp32"``).  The sources' header notes
+(``"flash_fwd_sm90"`` or ``"flash_fwd_fp32"``); a launch through the
+head-dim route also to ``"flash_fwd_padded"``.  The sources' header notes
 give the designs and the bounds on the card.
 """
 from __future__ import annotations
@@ -43,8 +52,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 
 #: kernel launches: "flash_fwd" counts every launch, "flash_fwd_sm90" and
-#: "flash_fwd_fp32" those of each route; a count rises only where the
-#: wrapper launches a CUDA kernel (never on the plain path)
+#: "flash_fwd_fp32" those of each kernel, "flash_fwd_padded" those through
+#: the head-dim route; a count rises only where the wrapper launches a CUDA
+#: kernel (never on the plain path)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 #: the CUDA source of each route, keyed by the C function it exports
@@ -99,8 +109,33 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v differ in device")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    """Plain PyTorch version of :func:`flash_attention_cuda`.
+def padded_head_dim(D: int) -> int:
+    """The kernel head dim that serves ``D``: the least of ``HEAD_DIMS``
+    not below it."""
+    if D < 1:
+        raise ValueError(f"flash_attention: head dim {D}")
+    for kd in HEAD_DIMS:
+        if D <= kd:
+            return kd
+    raise ValueError(f"flash_attention: head dim {D} exceeds "
+                     f"{HEAD_DIMS[-1]}, the widest kernel instantiation")
+
+
+def pad_head_dim(fn, q, k, v, *, causal: bool = True, window: int = 0):
+    """``fn`` (a flash function taking ``scale=``) on q, k, v zero-padded
+    along D to :func:`padded_head_dim`, with the true D's scale; returns
+    the first D columns of its output, contiguous."""
+    D = q.shape[-1]
+    width = padded_head_dim(D) - D
+    q, k, v = (torch.nn.functional.pad(t, (0, width)) for t in (q, k, v))
+    out = fn(q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(D))
+    return out[..., :D].contiguous()
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: float | None = None):
+    """Plain PyTorch version of :func:`flash_attention_cuda`; ``scale``
+    defaults to ``1 / sqrt(D)``.
 
     ``ref.py::attention_ref``'s operations, computed in fp32 whatever the
     storage type (as ``_fa_kernel`` and the fp32 kernel do; the ref rounds
@@ -115,7 +150,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     Lk, KV = k.shape[1], k.shape[2]
     qg = q.to(torch.float32).reshape(B, Lq, KV, H // KV, D)
     scores = torch.einsum("bikgd,bjkd->bkgij", qg, k.to(torch.float32))
-    scores = scores / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    if scale is None:
+        scores = scores / torch.sqrt(torch.tensor(D, dtype=torch.float32))
+    else:
+        scores = scores * scale
     i = torch.arange(Lq, device=q.device)[:, None]
     j = torch.arange(Lk, device=q.device)[None, :]
     mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
@@ -132,7 +170,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """The CUDA kernel of q's dtype on contiguous CUDA tensors: bf16 runs
-    ``flash_fwd_sm90.cu`` (tensor cores), fp32 ``flash_fwd.cu``."""
+    ``flash_fwd_sm90.cu`` (tensor cores), fp32 ``flash_fwd.cu``.  A head
+    dim not in ``HEAD_DIMS`` (up to 256) takes the head-dim route."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: tensors on {q.device}, "
@@ -141,11 +180,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_cuda: {name} must be "
                              "contiguous")
+    D = q.shape[3]
+    if D in HEAD_DIMS:
+        return _launch(q, k, v, causal=causal, window=window,
+                       scale=1.0 / math.sqrt(D))
+    return pad_head_dim(functools.partial(_launch, padded=True), q, k, v,
+                        causal=causal, window=window)
+
+
+def _launch(q, k, v, *, causal: bool, window: int, scale: float,
+            padded: bool = False):
+    """One launch of the kernel of q's dtype at a D of ``HEAD_DIMS``."""
     B, Lq, H, D = q.shape
     Lk, KV = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in "
-                         f"{HEAD_DIMS}")
     if q.dtype == torch.bfloat16:
         # TMA reads from 16-byte aligned addresses only
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -166,14 +213,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     fn = _kernel(fn_name)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 Lq, Lk, H, KV, D, 1.0 / math.sqrt(D), int(causal),
-                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
+                 Lq, Lk, H, KV, D, scale, int(causal), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: error {err} (a CUDA "
                            "error, or 1000 + a CUresult of the TMA "
                            "descriptor)")
     LAUNCH_COUNTS["flash_fwd"] += 1
     LAUNCH_COUNTS[route] += 1
+    if padded:
+        LAUNCH_COUNTS["flash_fwd_padded"] += 1
     return out
 
 

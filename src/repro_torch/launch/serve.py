@@ -1,15 +1,18 @@
-"""Serving launcher: batched generation with a ported zoo architecture
-(port of ``repro/launch/serve.py``).
+"""Serving launcher: batched generation with any architecture the port
+serves (port of ``repro/launch/serve.py``): every decoder family of the
+zoo (``repro_torch.configs.list_archs()``).
 
 Example (CPU, reduced config):
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
-        --reduced --device cpu --batch 4 --prompt-len 16 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+        --reduced --device cpu --batch 4 --prompt-len 32 --max-new 16
 
 Without ``--device cpu`` it runs on the card (and raises without one); the
 first call on the card builds the kernels with ``nvcc``.  Weights are drawn
-from ``--seed``, or read from ``--ckpt`` (a checkpoint in the reference's
-format, as ``launch.train --ckpt`` writes); prompts are uniform tokens
-from the seed.
+from ``--seed``, or read from ``--ckpt`` (a transformer family's checkpoint
+in the reference's format, as ``launch.train --ckpt`` writes); prompts are
+uniform tokens from the seed, and a VLM's stub vision embeds (B,
+n_vision_tokens, d) standard normal draws from it.  The SSM and hybrid
+families need a prompt length that is a multiple of ``ssm_chunk``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.models.transformer import FAMILIES, Transformer, init_params
 from repro_torch.serving import BatchedServer, ServeConfig
 from repro_torch.training.checkpoint import restore_checkpoint
 
@@ -29,16 +32,23 @@ from repro_torch.training.checkpoint import restore_checkpoint
 def generate(model, params, *, batch: int, prompt_len: int, max_new: int,
              temperature: float = 0.0, cache: int = 256, seed: int = 0):
     """Greedy (or sampled) tokens of ``params`` for ``batch`` prompts of
-    uniform tokens drawn from ``seed`` on the params' device."""
+    uniform tokens drawn from ``seed`` on the params' device (after them,
+    a VLM's vision embeds)."""
+    cfg = model.cfg
     device = params.embed["table"].device
     srv = BatchedServer(model, params, ServeConfig(
         max_new_tokens=max_new, temperature=temperature,
         cache_capacity=cache, seed=seed,
     ))
     gen = torch.Generator(device=device).manual_seed(seed)
-    prompts = torch.randint(0, model.cfg.vocab_size, (batch, prompt_len),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=device)
-    return srv.generate(prompts)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"vision_embeds": torch.randn(
+            (batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+            device=device).to(cfg.torch_dtype)}
+    return srv.generate(prompts, extra=extra)
 
 
 def main(argv=None):
@@ -59,6 +69,9 @@ def main(argv=None):
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg, device=device)
     if args.ckpt:
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"--ckpt restores the transformer families "
+                             f"{FAMILIES}, not {cfg.family!r}")
         template = Transformer(cfg, init_params(cfg, device="meta")[0])
         params, step = restore_checkpoint(args.ckpt, template, device=device)
         print(f"restored {args.ckpt} (step {step})")

@@ -1,2 +1,2 @@
-"""Models of the port: the paper's classifiers and the zoo's dense decoder."""
+"""Models of the port: the paper's classifiers and the zoo's decoder families."""
 from repro_torch.models.registry import Model, build_model  # noqa: F401

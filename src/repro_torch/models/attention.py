@@ -5,10 +5,15 @@ Port of ``repro/models/attention.py``.  Prefill computes its ``L x L``
 causal (or sliding-window) attention through the port's flash kernel
 (:func:`repro_torch.kernels.flash_attention.kernel.flash_attention`): the
 same function as the reference's ``_sdpa`` under ``causal_mask``, computed
-blockwise.  ``attention_train`` keeps the reference's ``use_flash=False``
-default.  Decode attention (one query against the cache) stays plain torch
-ops, as the reference computes it outside any kernel.  Bidirectional and
-cross attention arrive with the encoder-decoder slice.
+blockwise.  That holds for every decoder family's prefill: dense, MoE and
+VLM blocks, and the hybrid's shared block (the SSM family has no
+attention).  A head dim that the kernels are not instantiated for (32, 80,
+96: not in ``HEAD_DIMS``) goes through the kernel's head-dim route, zero
+padding along D.  ``attention_train`` keeps the reference's
+``use_flash=False`` default.  Decode attention (one query against the
+cache) stays plain torch ops, as the reference computes it outside any
+kernel.  Bidirectional and cross attention arrive with the
+encoder-decoder slice.
 """
 from __future__ import annotations
 

@@ -84,6 +84,16 @@ class Initializer:
         return ParamSpec(torch.zeros(shape, dtype=self.dtype,
                                      device=self.device), axes)
 
+    def ones(self, shape, axes):
+        return ParamSpec(torch.ones(shape, dtype=self.dtype,
+                                    device=self.device), axes)
+
+    def const(self, value, axes):
+        """``value`` (a tensor or array, computed by the caller, on any
+        device) cast to the initializer's dtype and device."""
+        return ParamSpec(torch.as_tensor(value).to(dtype=self.dtype,
+                                                   device=self.device), axes)
+
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as an ``nn.Module``.

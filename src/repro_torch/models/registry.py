@@ -2,8 +2,12 @@
 
 The port's ``params`` is the model itself, an ``nn.Module`` holding the
 weights: ``model.init(seed)`` returns ``(module, axes)`` and every callable
-takes the module where the reference takes its params pytree.  Families
-other than dense raise ``NotImplementedError`` until their slice lands.
+takes the module where the reference takes its params pytree.  Every
+decoder family builds: dense, MoE and VLM on
+:class:`~repro_torch.models.transformer.Transformer`, SSM on
+:class:`~repro_torch.models.ssm.SSM`, hybrid on
+:class:`~repro_torch.models.hybrid.Hybrid`; the encoder-decoder family
+raises ``NotImplementedError`` until its slice lands.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -40,27 +44,46 @@ class Model(NamedTuple):
 
 
 def _loss(module, batch):
-    """Mean token CE (the dense family has no router auxiliary loss)."""
+    """Mean token CE plus ``router_aux_weight`` times the router loss; a
+    VLM's logits over its vision positions are sliced off first (the
+    labels cover the text)."""
+    cfg = module.cfg
     logits, aux = module.forward_train(batch)
-    ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-    return ce, {"ce": ce, **aux}
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, logits.shape[1] - labels.shape[1]:, :]
+    ce = cross_entropy(logits, labels, batch.get("loss_mask"))
+    total = ce + cfg.router_aux_weight * aux.get("moe_aux", 0.0)
+    return total, {"ce": ce, **aux}
+
+
+#: family -> (its module, its nn.Module class)
+_BACKBONES = {
+    "dense": (transformer, transformer.Transformer),
+    "moe": (transformer, transformer.Transformer),
+    "vlm": (transformer, transformer.Transformer),
+    "ssm": (ssm, ssm.SSM),
+    "hybrid": (hybrid, hybrid.Hybrid),
+}
 
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
-    """The dense family's :class:`Model`; ``init`` and
+    """The :class:`Model` of ``cfg``'s family; ``init`` and
     ``init_decode_cache`` build on ``device`` (raises without a card unless
     ``device="cpu"``)."""
-    if cfg.family != "dense":
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family {cfg.family!r} arrives with its slice (ROADMAP Queue 1 "
-            "item 10): MoE, VLM, SSM/Mamba2, hybrid and enc-dec are still "
-            "to port")
-
+            "the encoder-decoder family (seamless-m4t-medium) arrives with "
+            "its slice (ROADMAP Queue 1 item 10), with a token-by-token "
+            "prompt path in BatchedServer")
+    if cfg.family not in _BACKBONES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    mod, cls = _BACKBONES[cfg.family]
     device = resolve_device(device)
 
     def init(seed: int = 0):
-        params, axes = transformer.init_params(cfg, seed=seed, device=device)
-        return transformer.Transformer(cfg, params), axes
+        params, axes = mod.init_params(cfg, seed=seed, device=device)
+        return cls(cfg, params), axes
 
     return Model(
         cfg=cfg,
@@ -68,9 +91,9 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
         forward_train=lambda m, b, **kw: m.forward_train(b, **kw),
         loss=_loss,
         forward_decode=lambda m, b, cache: m.forward_decode(b, cache),
-        init_decode_cache=lambda batch, capacity, **kw: (
-            transformer.init_decode_cache(cfg, batch, capacity,
-                                          device=device)),
-        forward_prefill=lambda m, b, capacity: m.forward_prefill(b, capacity),
+        # capacity: the KV slots (the SSM family needs none)
+        init_decode_cache=lambda batch, *capacity: mod.init_decode_cache(
+            cfg, batch, *capacity, device=device),
+        forward_prefill=lambda m, b, *capacity: m.forward_prefill(
+            b, *capacity),
     )
-

@@ -1,5 +1,5 @@
-"""Decoder-only transformer backbone, dense family (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer backbone: the dense, MoE and VLM families (port
+of ``repro/models/transformer.py``).
 
 The reference stacks parameters over layers and scans them; the port keeps
 one :class:`~repro_torch.models.common.ParamTree` per layer in an
@@ -9,13 +9,18 @@ reference's (``blocks.<i>.attn.wq`` for layer i of the stacked
 one leaf at a time.  With ``cfg.remat`` a training forward checkpoints
 each block (:func:`~repro_torch.models.common.maybe_checkpoint`, the
 reference's per-layer ``jax.checkpoint``); serving runs without grad and
-never recomputes.  MoE and VLM blocks arrive with their slices.
+never recomputes.  A MoE block holds ``moe`` (:func:`~repro_torch.models.
+mlp.moe`) where a dense one holds ``mlp``, and the forward returns the
+mean of its router losses over the layers as ``moe_aux``.  A VLM prepends
+the batch's ``vision_embeds`` (B, n_vision_tokens, d) to the token
+embeddings in the training forward and in prefill; decode feeds tokens.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
@@ -29,14 +34,16 @@ from repro_torch.models.common import (
     rms_norm,
     split_params,
 )
-from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe
+
+#: the families this backbone runs
+FAMILIES = ("dense", "moe", "vlm")
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} arrives with its slice (ROADMAP Queue 1 "
-            "item 10); the port's transformer runs the dense family")
+def _require_transformer(cfg: ModelConfig):
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r} is not a transformer "
+                         f"family {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -44,53 +51,75 @@ def _require_dense(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_block(ini: Initializer, cfg: ModelConfig):
-    return {
+    p = {
         "ln1": init_rms_norm(ini, cfg.d_model),
         "attn": attn.init_attention(ini, cfg),
         "ln2": init_rms_norm(ini, cfg.d_model),
-        "mlp": init_mlp(ini, cfg),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe(ini, cfg)
+    else:
+        p["mlp"] = init_mlp(ini, cfg)
+    return p
+
+
+def _ffn(params, x, cfg: ModelConfig):
+    """The block's feed-forward half: (out, router aux loss)."""
+    normed = rms_norm(x, params["ln2"]["scale"])
+    if cfg.family == "moe":
+        return moe(params["moe"], normed, cfg)
+    return mlp(params["mlp"], normed, cfg), 0.0
 
 
 def block_train(params, x, cfg: ModelConfig, *, window: int = 0,
                 use_flash: bool = False):
+    """Returns (x, router aux loss: 0.0 for a dense block)."""
     h = attn.attention_train(params["attn"], rms_norm(x, params["ln1"]["scale"]),
                              cfg, window=window, use_flash=use_flash)
     x = x + h
-    return x + mlp(params["mlp"], rms_norm(x, params["ln2"]["scale"]), cfg)
+    out, aux = _ffn(params, x, cfg)
+    return x + out, aux
 
 
 def block_decode(params, x, cache: attn.KVCache, cfg: ModelConfig):
     h, cache = attn.attention_decode(
         params["attn"], rms_norm(x, params["ln1"]["scale"]), cache, cfg)
     x = x + h
-    return x + mlp(params["mlp"], rms_norm(x, params["ln2"]["scale"]), cfg), cache
+    return x + _ffn(params, x, cfg)[0], cache
 
 
 def block_prefill(params, x, cfg: ModelConfig, capacity: int):
     h, cache = attn.attention_prefill(
         params["attn"], rms_norm(x, params["ln1"]["scale"]), cfg, capacity)
     x = x + h
-    return x + mlp(params["mlp"], rms_norm(x, params["ln2"]["scale"]), cfg), cache
+    return x + _ffn(params, x, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
 # Full model
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
+def initializer(cfg: ModelConfig, seed: int, device) -> Initializer:
+    """An :class:`Initializer` of ``cfg``'s dtype drawing from a
+    ``torch.Generator`` on ``device`` (default the card, through
+    ``resolve_device``) seeded with ``seed``; on ``"meta"`` it gives the
+    shapes without memory."""
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else torch.Generator(
+        device=dev).manual_seed(seed)
+    return Initializer(gen, cfg.torch_dtype, device=dev)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Returns (params, axes): nested dicts with ``blocks`` a per-layer list
     (each layer's leaves carry their own axes, without the reference's
     stacked ``layers`` axis).
 
     Weights are drawn from a ``torch.Generator`` on ``device`` seeded with
-    ``seed``; ``device="meta"`` gives the shapes without memory.
+    ``seed`` (:func:`initializer`).
     """
-    _require_dense(cfg)
-    dev = torch.device(device)
-    gen = None if dev.type == "meta" else torch.Generator(
-        device=dev).manual_seed(seed)
-    ini = Initializer(gen, cfg.torch_dtype, device=dev)
+    _require_transformer(cfg)
+    ini = initializer(cfg, seed, device)
     V = pad_vocab(cfg.vocab_size)
     tree = {"blocks": [init_block(ini, cfg) for _ in range(cfg.n_layers)],
             "embed": init_embedding(ini, V, cfg.d_model),
@@ -110,12 +139,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 class Transformer(nn.Module):
-    """Dense decoder over a params tree from :func:`init_params` (or from
-    :func:`repro_torch.convert.transformer_params_from_numpy`)."""
+    """Dense / MoE / VLM decoder over a params tree from :func:`init_params`
+    (or from :func:`repro_torch.convert.model_params_from_numpy`)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _require_dense(cfg)
+        _require_transformer(cfg)
         self.cfg = cfg
         self.blocks = nn.ModuleList(ParamTree(b) for b in params["blocks"])
         self.embed = ParamTree(params["embed"])
@@ -126,6 +155,14 @@ class Transformer(nn.Module):
     def _embed(self, tokens):
         return embed(self.embed, tokens).to(self.cfg.torch_dtype)
 
+    def _embed_inputs(self, batch: dict):
+        """tokens (+ a VLM's vision embeds prepended) -> (B, L, d)."""
+        x = self._embed(batch["tokens"])
+        if self.cfg.family == "vlm" and "vision_embeds" in batch:
+            vis = batch["vision_embeds"].to(self.cfg.torch_dtype)
+            x = torch.cat([vis, x], dim=1)
+        return x
+
     def _logits(self, x):
         x = rms_norm(x, self.final_norm["scale"])
         if self.cfg.tie_embeddings:
@@ -134,13 +171,17 @@ class Transformer(nn.Module):
 
     def forward_train(self, batch: dict, *, window: int = 0,
                       use_flash: bool = False):
-        """Full causal forward.  Returns (logits, aux_losses dict)."""
-        x = self._embed(batch["tokens"])
+        """Full causal forward.  Returns (logits, aux_losses dict):
+        ``moe_aux`` is the router loss's mean over layers (0.0 when dense)."""
+        x = self._embed_inputs(batch)
         body = maybe_checkpoint(block_train, self.cfg)
+        moe_aux = 0.0
         for blk in self.blocks:
-            x = body(blk.tensors(), x, self.cfg, window=window,
-                     use_flash=use_flash)
-        return self._logits(x), {"moe_aux": 0.0}
+            x, a = body(blk.tensors(), x, self.cfg, window=window,
+                        use_flash=use_flash)
+            moe_aux = moe_aux + a
+        return self._logits(x), {"moe_aux": moe_aux / max(self.cfg.n_layers,
+                                                          1)}
 
     forward = forward_train
 
@@ -160,7 +201,7 @@ class Transformer(nn.Module):
     def forward_prefill(self, batch: dict, capacity: int):
         """Full forward + cache materialisation; logits of the last position
         only (the final norm is per row, so it is applied to that row)."""
-        x = self._embed(batch["tokens"])
+        x = self._embed_inputs(batch)
         caches = []
         for blk in self.blocks:
             x, c = block_prefill(blk, x, self.cfg, capacity)

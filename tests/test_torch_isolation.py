@@ -50,6 +50,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                 "repro_torch.core.fedopt", "repro_torch.core.fedopt.baselines",
                 "repro_torch.core.extensions", "repro_torch.training.sweep",
                 "repro_torch.obs.metrics", "repro_torch.obs.record",
-                "repro_torch.obs.sinks", "repro_torch.figures"):
+                "repro_torch.obs.sinks", "repro_torch.figures",
+                "repro_torch.models.mamba2", "repro_torch.models.ssm",
+                "repro_torch.models.hybrid", "repro_torch.configs.zamba2_2_7b",
+                "repro_torch.configs.grok_1_314b",
+                "repro_torch.serve_drift"):
         assert mod in names
     assert int(count) == len(names) >= 30

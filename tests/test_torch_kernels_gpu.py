@@ -11,11 +11,13 @@ Tolerance: the prox kernels and their plain versions do the same fp32
 operations in the same order (built with -fmad=false), held at atol = rtol
 = 1e-6; frozen rows of the cohort gate are held bit for bit.  The flash
 kernels sum their online softmax blockwise: fp32 (``flash_fwd.cu``) at
-2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2.
-The sweep rounds hold fused against unfused bit for bit, and the card
-against the CPU at rtol 1e-4 / atol 1e-6 (products summed in another
-order).  Compressed rounds (CHOCO, ``core/compression.py``) hold fused
-against unfused bit for bit with their memory, a comm step on the card
+2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2;
+the head-dim route (D 32, 80, 96: both kernels on zero-padded operands)
+at the same two.  The sweep rounds hold fused against unfused bit for
+bit, and the card against the CPU at rtol 1e-4 / atol 1e-6 (products
+summed in another order).  Compressed rounds (CHOCO,
+``core/compression.py``) hold fused against unfused bit for bit with
+their memory, a comm step on the card
 against the CPU from one state at atol 1e-5, and a CUDA graph of
 ``choco_mix`` bit for bit against the eager call.  The training path: the
 grouped bf16 sweep pair at the LM head's leaf against its plain version
@@ -398,6 +400,86 @@ def test_flash_kernel_matches_plain_version(D):
     torch.cuda.synchronize()
     assert fk.LAUNCH_COUNTS["flash_fwd"] == sum(cases.values())
     assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == cases[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 80, 96])
+def test_flash_head_dim_route_matches_plain_version(D):
+    """Head dims the kernels are not built for go through the route: q, k,
+    v zero-padded to 64 or 128 and the true D's scale.  Both kernels,
+    against the plain version at the true D at the flash tolerances; every
+    launch counted under its kernel and under "flash_fwd_padded"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device="cuda").manual_seed(D)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+    fk.reset_launch_counts()
+    cases = {torch.float32: 0, torch.bfloat16: 0}
+    for B, Lq, Lk, H, KV in ((2, 17, 17, 4, 2), (1, 200, 200, 8, 1),
+                             (1, 40, 17, 4, 4), (2, 129, 129, 8, 8),
+                             (1, 1024, 1024, 4, 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(
+                dtype)
+            k, v = (torch.randn((B, Lk, KV, D), generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                out = fk.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+                ref = fk.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+                assert out.shape == q.shape and out.is_contiguous()
+                torch.testing.assert_close(
+                    out, ref, atol=tols[dtype], rtol=tols[dtype],
+                    msg=lambda m: (f"D={D} {dtype} q {tuple(q.shape)} k "
+                                   f"{tuple(k.shape)} causal={causal} "
+                                   f"window={window}: {m}"))
+                cases[dtype] += 1
+    torch.cuda.synchronize()
+    n = sum(cases.values())
+    assert fk.LAUNCH_COUNTS["flash_fwd"] == fk.LAUNCH_COUNTS[
+        "flash_fwd_padded"] == n
+    assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == cases[torch.bfloat16]
+    assert fk.LAUNCH_COUNTS["flash_fwd_fp32"] == cases[torch.float32]
+    q = torch.zeros((1, 4, 2, 257), device="cuda")
+    with pytest.raises(ValueError, match="exceeds"):
+        fk.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["grok-1-314b", "zamba2-2.7b"])
+def test_reduced_zoo_server_on_the_card_matches_the_cpu(arch):
+    """A reduced MoE and the reduced hybrid (head dim 32: the fp32 kernel
+    through the head-dim route) in fp32, the same weights on the card and
+    on the CPU: identical greedy tokens, prefill logits within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import build_model
+    from repro_torch.models.hybrid import group_shape
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    cfg = get_config(arch, reduced=True)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    toks, logits = {}, {}
+    params, _ = build_model(cfg, device="cpu").init(seed=0)
+    fk.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        srv = BatchedServer(build_model(cfg, device=dev), params.to(dev),
+                            ServeConfig(max_new_tokens=6, cache_capacity=96))
+        toks[dev] = srv.generate(prompts).cpu()
+        with torch.inference_mode():
+            logits[dev] = srv.prefill(prompts.to(dev))[0].cpu()
+    attn_layers = (cfg.n_layers if cfg.family == "moe"
+                   else group_shape(cfg)[0])
+    assert fk.LAUNCH_COUNTS["flash_fwd_fp32"] == 2 * attn_layers
+    assert fk.LAUNCH_COUNTS["flash_fwd_padded"] == 2 * attn_layers
+    assert torch.equal(toks["cpu"], toks["cuda"])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
 
 
 @pytest.mark.gpu
