@@ -36,7 +36,10 @@ final line):
      launches the tensor-core kernel and every fp32 case the fp32 one;
      and D = 32 / 80 / 96 (groups 1 / 8, L = 17 / 200 / 1024) through
      the head-dim route (zero-padded to 64 / 128 / 128), each launch
-     counted under ``flash_fwd_padded`` too;
+     counted under ``flash_fwd_padded`` too; and ``Lq != Lk`` at D 64
+     (``FLASH_CROSS_PAIRS``: decode's one query and a prompt's 16 against
+     1024 or a ragged 1000 keys, short ragged pairs both ways), groups 1 /
+     2, non-causal and causal;
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
@@ -118,6 +121,24 @@ final line):
    (not for mamba2); prints the end-to-end drift of the prefill logits
    against the plain attention swapped in, prefill ms, decode ms a
    token, tokens/s and peak memory of each;
+5b. ``serve_encdec``: the encoder-decoder family at full width
+   (``ENCDEC_SERVE``: seamless-m4t-medium, 12 + 12 layers, d 1024, 16
+   heads of 64, bf16, random weights; B 4, 1024 stub frames, a 16-token
+   prompt, 32 greedy tokens, 256 slots): ``launch.steps.
+   build_prefill_step`` encodes the frames and runs the prompt (36 bf16
+   flash launches: 12 encoder and 12 cross-attention non-causal, 12
+   decoder self-attention causal), then ``BatchedServer`` feeds the prompt
+   token by token against that memory and decodes (12 cross-attention
+   launches a step, ``Lq = 1``: 564); every flash call of the prefill step
+   and of one decode step held against ``flash_attention_plain`` at
+   ``FLASH_TOL``; the drift of the step's logits against the plain
+   attention swapped in, and of the server's logits after its last prompt
+   token against the step's, printed, not gated; prefill ms, ms a prompt
+   token, decode ms a token, tokens/s and peak memory; then the reduced
+   config in fp32 on the card against the CPU (``ENCDEC_CPU``): the
+   prefill step's logits and memory within ``CPU_ATOL`` / ``CPU_RTOL``,
+   identical greedy tokens, the fp32 kernel 6 times a step and 2 times a
+   decode step;
 6. card against CPU: reduced ``qwen3-1.7b`` and reduced ``starcoder2-7b``,
    fp32, identical weights, served on the card and on the CPU (plain
    versions there; the fp32 flash kernel on the card): identical greedy
@@ -211,13 +232,18 @@ final line):
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused; the bf16 flash kernel
    through the head-dim route at the zoo's D 80 and D 96 served shapes
-   against SDPA and the bound at the true D.
+   against SDPA and the bound at the true D; and the bf16 kernel
+   non-causal at the enc-dec's three served shapes
+   (``FLASH_ENCDEC_SHAPES``: the encoder's L 1024, the prefill's 16 and
+   decode's 1 queries against 1024 memory rows).  Every bound reads the
+   card's rates from the port's hardware model
+   (``repro_torch.launch.mesh.HW``).
 
-Before each path (phases 3, 4, 4a, 4b, 5, 5a, 6, 6a, 6b, 6c; each
+Before each path (phases 3, 4, 4a, 4b, 5, 5a, 5b, 6, 6a, 6b, 6c; each
 architecture of 5a and 6) every launch count is set to 0; it is read just
 after.  The kernels line's launches of the two sweep kernels sum the paths
 that run them (3, 4a, 4b, 6a, 6b and 6c), the flash kernels' the served
-paths (5, 5a, 6 and 6a), with ``flash_fwd_padded`` the share of them
+paths (5, 5a, 5b, 6 and 6a), with ``flash_fwd_padded`` the share of them
 through the head-dim route.  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
@@ -253,8 +279,6 @@ BF16_HEAD_ULPS = 1
 STEP_ATOL, STEP_RTOL = 0.0, 0.0     # one round (10 steps)
 STATE_REL = 0.0                # 300 steps: ||x_fused - x_unfused|| / ||x||
 LOSS_RTOL, STAT_RTOL = 0.0, 0.0     # 300 steps: final loss, stationarity
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32, outside the tensor cores
 # flops per element: update = momentum (3) + shift (2) + prox chain (<= 8)
 UPDATE_FLOPS, TRACKING_FLOPS = 13, 3
 KERNEL_SOURCE = "src/repro_torch/kernels/prox/csrc/prox_sweep.cu"
@@ -262,7 +286,6 @@ FLASH_SOURCES = {
     "bfloat16": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
     "float32": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"}
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:34"
-BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense, tensor cores
 # the flash kernels' instantiations at D = 128 (the served path, bf16; the
 # card-vs-CPU path, fp32) must not spill
 FLASH_NO_SPILL = "flash_fwd_sm90_kernelILi128E"
@@ -305,6 +328,33 @@ ZOO_CPU = {"batch": 2, "prompt": 96, "new": 8, "cache": 128}
 # the true D
 FLASH_PADDED_SHAPES = {"zamba2_d80": (4, 1024, 32, 32, 80),
                        "phi3_d96": (4, 2048, 32, 32, 96)}
+# The encoder-decoder family served at full width (seamless-m4t-medium:
+# 12 + 12 layers, d 1024, 16/16 heads of 64, bf16, random weights): B 4,
+# 1024 stub frame embeddings (the reference's stand-in for the speech
+# frontend, ~20 s of speech at 50 Hz), a 16-token prompt (the reference
+# launcher's --prompt-len), 32 greedy tokens, 256 cache slots.  The
+# prefill step (launch.steps.build_prefill_step) encodes the frames and
+# runs the decoder's prompt: 12 + 12 + 12 flash launches; the server then
+# feeds the prompt token by token and decodes: 12 cross-attention launches
+# a step (Lq 1 against the 1024 memory rows) over 16 + 31 steps.  Every
+# flash call of the prefill step and of one decode step is held against
+# the plain version at FLASH_TOL; the drift of the logits is printed, not
+# gated (as serve_zoo's).  ENCDEC_CPU: the reduced config, fp32, card
+# against CPU.
+ENCDEC_SERVE = {"arch": "seamless-m4t-medium", "batch": 4, "frames": 1024,
+                "prompt": 16, "new": 32, "cache": 256}
+ENCDEC_CPU = {"batch": 2, "frames": 64, "prompt": 8, "new": 8, "cache": 32}
+# the bf16 kernel at the enc-dec's three served shapes (B, Lq, Lk, H, KV,
+# D), non-causal: the encoder's self-attention, the prefill's
+# cross-attention and decode's
+FLASH_ENCDEC_SHAPES = {"encdec_encoder": (4, 1024, 1024, 16, 16, 64),
+                       "encdec_cross": (4, 16, 1024, 16, 16, 64),
+                       "encdec_decode_cross": (4, 1, 1024, 16, 16, 64)}
+# check_flash's Lq != Lk pairs (D 64, groups 1 and 2, causal and not):
+# decode's one query and a prompt's 16 against 1024 memory rows and a
+# ragged 1000, and short ragged pairs both ways
+FLASH_CROSS_PAIRS = ((1, 1024), (16, 1024), (16, 1000), (1, 17), (17, 200),
+                     (200, 17))
 # The sweep paths (Fig. 6: 4 topologies, Fig. 8: 6 schedules, the cohort
 # grid: 8 padded (n, p) points).  Fused and unfused sweeps do the same
 # fp32 operations: bit-equal.  Sweep against sequential: a sweep runs S
@@ -395,6 +445,14 @@ ASYNC_LLM_PEAK_GB = (64.0, 69.0)
 # async_threaded: run_threaded on the async figure's problem, one dead
 # client, a deadline
 ASYNC_THREADED_DEADLINE_S = 30.0
+
+
+def hw() -> dict:
+    """The card's rates for every bound of this script: the port's hardware
+    model, ``repro_torch.launch.mesh.HW`` (H100 SXM: ``hbm_bandwidth``,
+    ``peak_flops_fp32``, ``peak_flops_bf16``)."""
+    from repro_torch.launch.mesh import HW
+    return HW
 
 
 def emit(obj) -> None:
@@ -823,13 +881,44 @@ def phase_check_flash() -> dict:
     """flash_attention_cuda against flash_attention_plain over dtypes, head
     dims, GQA groups, masks and lengths (B = 2, 8 query heads); the head
     dims of no kernel instantiation (32, 80, 96) through the head-dim
-    route, each such launch counted under ``flash_fwd_padded`` too."""
+    route, each such launch counted under ``flash_fwd_padded`` too; and
+    ``Lq != Lk`` at D 64 (``FLASH_CROSS_PAIRS``), non-causal and causal."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as F
     g = torch.Generator(device="cuda").manual_seed(23)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    cases = padded = 0
+    n = {"cases": 0, "padded": 0, "cross": 0}
     H = 8
+
+    def held(q32, k32, v32, label, masks):
+        D = q32.shape[-1]
+        route_pad = D not in F.HEAD_DIMS
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            name = str(dtype).split(".")[-1]
+            for causal, window in masks:
+                before = read_counts()
+                out = F.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window)
+                route = ("flash_attention" if dtype == torch.bfloat16
+                         else "flash_attention_fp32")
+                pad = "flash_fwd_padded"
+                expect_counts(f"flash {label} {name}", read_counts(),
+                              {**before, route: before[route] + 1,
+                               pad: before[pad] + route_pad})
+                ref = F.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)
+                torch.cuda.synchronize()
+                tol = FLASH_TOL[name]
+                torch.testing.assert_close(
+                    out, ref, atol=tol, rtol=tol,
+                    msg=lambda m: (f"flash {label} {name} causal={causal} "
+                                   f"window={window}: {m}"))
+                worst[name] = max(worst[name], float(
+                    (out.float() - ref.float()).abs().max()))
+                n["cases"] += 1
+                n["padded"] += route_pad
+
     for D in (64, 128, 256, 32, 80, 96):
         route_pad = D not in F.HEAD_DIMS
         for group in ((1, 8) if route_pad else (1, 2, 8)):
@@ -837,35 +926,19 @@ def phase_check_flash() -> dict:
                 q32 = torch.randn((2, L, H, D), generator=g, device="cuda")
                 k32, v32 = (torch.randn((2, L, H // group, D), generator=g,
                                         device="cuda") for _ in range(2))
-                for dtype in (torch.float32, torch.bfloat16):
-                    q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-                    name = str(dtype).split(".")[-1]
-                    for causal, window in ((True, 0), (True, 128),
-                                           (False, 0)):
-                        before = read_counts()
-                        out = F.flash_attention_cuda(q, k, v, causal=causal,
-                                                     window=window)
-                        route = ("flash_attention" if dtype == torch.bfloat16
-                                 else "flash_attention_fp32")
-                        pad = "flash_fwd_padded"
-                        expect_counts(f"flash D={D} group={group} L={L} "
-                                      f"{name}", read_counts(),
-                                      {**before, route: before[route] + 1,
-                                       pad: before[pad] + route_pad})
-                        ref = F.flash_attention_plain(q, k, v, causal=causal,
-                                                      window=window)
-                        torch.cuda.synchronize()
-                        tol = FLASH_TOL[name]
-                        torch.testing.assert_close(
-                            out, ref, atol=tol, rtol=tol,
-                            msg=lambda m: (f"flash D={D} group={group} L={L} "
-                                           f"{name} causal={causal} "
-                                           f"window={window}: {m}"))
-                        worst[name] = max(worst[name], float(
-                            (out.float() - ref.float()).abs().max()))
-                        cases += 1
-                        padded += route_pad
-    return {"phase": "check_flash", "cases": cases, "padded_cases": padded,
+                held(q32, k32, v32, f"D={D} group={group} L={L}",
+                     ((True, 0), (True, 128), (False, 0)))
+    before = n["cases"]
+    for Lq, Lk in FLASH_CROSS_PAIRS:
+        for group in (1, 2):
+            q32 = torch.randn((2, Lq, H, 64), generator=g, device="cuda")
+            k32, v32 = (torch.randn((2, Lk, H // group, 64), generator=g,
+                                    device="cuda") for _ in range(2))
+            held(q32, k32, v32, f"D=64 group={group} Lq={Lq} Lk={Lk}",
+                 ((False, 0), (True, 0)))
+    n["cross"] = n["cases"] - before
+    return {"phase": "check_flash", "cases": n["cases"],
+            "padded_cases": n["padded"], "cross_cases": n["cross"],
             "max_abs_err": worst, "tol": FLASH_TOL,
             "launches": read_counts()}
 
@@ -1251,6 +1324,196 @@ def phase_serve_zoo() -> tuple[dict, dict]:
                    "logit_rtol": SERVE_LOGIT_RTOL, **lines}
 
 
+def phase_serve_encdec() -> tuple[dict, dict]:
+    """Full-width seamless-m4t-medium (bf16): the prefill step, then
+    ``BatchedServer`` token by token against its memory; every flash call
+    of the prefill step and of one decode step held against the plain
+    version; then the reduced config in fp32 on the card against the CPU
+    (:func:`_encdec_card_vs_cpu`).  Returns (launches of both, the line)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.serve_drift import flash_drift
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    cfg = get_config(ENCDEC_SERVE["arch"])
+    B, S, Lp, new, cap = (ENCDEC_SERVE[k] for k in ("batch", "frames",
+                                                    "prompt", "new", "cache"))
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params, _ = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((B, S, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.torch_dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (B, Lp), generator=gen,
+                            device="cuda")
+    batch = {"frames": frames, "tokens": prompts}
+    step = build_prefill_step(model, cap)
+    srv = BatchedServer(model, params, ServeConfig(max_new_tokens=new,
+                                                   cache_capacity=cap))
+    step(params, batch)                  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, memory = step(params, batch)
+    prefill_launches = read_counts()
+    want_prefill = n_enc + 2 * n_dec
+    want_decode = n_dec * (Lp + new - 1)
+    expect_counts("serve_encdec prefill step", prefill_launches,
+                  {"flash_attention": want_prefill})
+    toks = srv.generate(prompts, extra={"memory": memory})
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_counts("serve_encdec", launches,
+                  {"flash_attention": want_prefill + want_decode})
+    if toks.shape != (B, new) or not bool(
+            ((toks >= 0) & (toks < pad_vocab(cfg.vocab_size))).all()):
+        raise AssertionError(f"enc-dec served tokens bad: "
+                             f"{tuple(toks.shape)}")
+    if memory.shape != (B, S, cfg.d_model) or not (
+            bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(memory).all())):
+        raise AssertionError("enc-dec prefill step: memory shape "
+                             f"{tuple(memory.shape)} or values not finite")
+
+    line = {"arch": cfg.name, "family": cfg.family,
+            "layers": [n_enc, n_dec], "head_dim": cfg.hd,
+            "params": n_params, "dtype": cfg.dtype, "batch": B, "frames": S,
+            "prompt_len": Lp, "new_tokens": new, "cache": cap,
+            "init_s": init_s, "launches": launches,
+            "prefill_step_launches": prefill_launches["flash_attention"],
+            "decode_launches": launches["flash_attention"]
+            - prefill_launches["flash_attention"],
+            "serve_s": serve_s, "tokens_per_s": B * new / serve_s,
+            "max_memory_allocated_gb": peak_gb}
+    extra = {"memory": memory}
+    with torch.inference_mode():
+        line["prefill_ms"] = time_ms(lambda: step(params, batch), iters=3,
+                                     warmup=1)
+        # the prompt token by token, as generate() feeds it
+        srv_logits, cache = srv.prefill(prompts, extra)
+        line["prompt_ms_per_token"] = time_ms(
+            lambda: srv.prefill(prompts, extra), iters=1, warmup=0) / Lp
+        step_toks = []
+
+        # decode writes its keys in place at slots Lp.. of the prompt's
+        # cache; a repeat writes the same values
+        def decode_all():
+            lg, c = srv_logits, cache
+            step_toks.clear()
+            for _ in range(new - 1):
+                nxt = torch.argmax(lg[:, -1].float(), dim=-1)
+                lg, c = model.forward_decode(params, {"tokens": nxt[:, None]},
+                                             c)
+                if not bool(torch.isfinite(lg).all()):
+                    raise AssertionError("enc-dec decode logits not finite")
+                step_toks.append(nxt)
+        line["decode_ms_per_token"] = time_ms(decode_all, iters=1,
+                                              warmup=0) / (new - 1)
+        if not torch.equal(torch.stack(step_toks, 1), toks[:, :new - 1]):
+            raise AssertionError("enc-dec: the timed decode loop and "
+                                 "generate() chose different tokens")
+        # every flash call held against the plain version on its inputs:
+        # the prefill step's, then one decode step's; the logits' drift
+        # printed, not gated
+        tol = FLASH_TOL["bfloat16"]
+        logit_tol = (SERVE_LOGIT_ATOL, SERVE_LOGIT_RTOL)
+        drift = flash_drift(lambda: step(params, batch)[0], call_tol=tol,
+                            logit_tol=logit_tol)
+        nxt = toks[:, :1]
+        decode_drift = flash_drift(
+            lambda: model.forward_decode(params, {"tokens": nxt}, cache)[0],
+            call_tol=tol, logit_tol=logit_tol)
+        if (drift["flash_calls"], decode_drift["flash_calls"]) != (
+                want_prefill, n_dec):
+            raise AssertionError(f"enc-dec: {drift['flash_calls']} + "
+                                 f"{decode_drift['flash_calls']} flash calls "
+                                 f"held, want {want_prefill} + {n_dec}")
+    # the server's logits after its last prompt token against the prefill
+    # step's (causal flash in the step, the plain ring-cache decode in the
+    # server): printed, not gated
+    diff = (srv_logits.float() - logits.float()).abs()
+    line.update(
+        flash_call_tol=tol, prefill_step_drift=drift,
+        decode_step_drift=decode_drift,
+        server_vs_prefill_step_max_abs=float(diff.max()),
+        server_vs_prefill_step_top1=float(
+            (srv_logits.argmax(-1) == logits.argmax(-1)).float().mean()),
+        prefill_logits_max_abs=float(logits.float().abs().max()),
+        sample=toks[0, :8].tolist())
+    del srv, params, model, logits, memory, cache, extra, srv_logits, step
+    torch.cuda.empty_cache()
+    cpu_launches, line["card_vs_cpu"] = _encdec_card_vs_cpu()
+    total = {k: n + cpu_launches[k] for k, n in launches.items()}
+    return total, {"phase": "serve_encdec", **line, "launches": total,
+                   "logit_atol": SERVE_LOGIT_ATOL,
+                   "logit_rtol": SERVE_LOGIT_RTOL}
+
+
+def _encdec_card_vs_cpu() -> tuple[dict, dict]:
+    """The reduced enc-dec in fp32, the same weights on the card and on
+    the CPU: the prefill step's logits and memory within CPU_ATOL /
+    CPU_RTOL, then identical greedy tokens from each device's memory; the
+    fp32 kernel launches 2 + 2 + 2 times a prefill step and 2 times a
+    decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchedServer, ServeConfig
+    cfg = get_config(ENCDEC_SERVE["arch"], reduced=True)
+    B, S, Lp, new, cap = (ENCDEC_CPU[k] for k in ("batch", "frames",
+                                                  "prompt", "new", "cache"))
+    rng = np.random.default_rng(2)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)),
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, Lp)))}
+    params, _ = build_model(cfg, device="cpu").init(seed=3)
+    got = {}
+    reset_counts()
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        p = params.to(dev)
+        logits, memory = build_prefill_step(model, cap)(
+            p, {k: v.to(dev) for k, v in batch.items()})
+        toks = BatchedServer(model, p, ServeConfig(
+            max_new_tokens=new, cache_capacity=cap)).generate(
+            batch["tokens"], extra={"memory": memory})
+        got[dev] = (logits.cpu(), memory.cpu(), toks.cpu())
+    launches = read_counts()
+    n = cfg.n_encoder_layers + 2 * cfg.n_layers + cfg.n_layers * (
+        Lp + new - 1)
+    expect_counts("serve_encdec card vs cpu", launches,
+                  {"flash_attention_fp32": n})
+    for i, what in ((0, "prefill-step logits"), (1, "memory")):
+        torch.testing.assert_close(got["cuda"][i], got["cpu"][i],
+                                   atol=CPU_ATOL, rtol=CPU_RTOL,
+                                   msg=lambda m: f"enc-dec {what}: {m}")
+    if not torch.equal(got["cuda"][2], got["cpu"][2]):
+        raise AssertionError(f"enc-dec: greedy tokens differ card vs cpu: "
+                             f"{got['cuda'][2].tolist()} vs "
+                             f"{got['cpu'][2].tolist()}")
+    return launches, {
+        "batch": B, "frames": S, "prompt": Lp, "new": new, "cache": cap,
+        "atol": CPU_ATOL, "rtol": CPU_RTOL, "launches": launches,
+        "tokens": got["cuda"][2][0].tolist(),
+        "max_abs_logit_diff": float((got["cuda"][0] - got["cpu"][0])
+                                    .abs().max()),
+        "max_abs_memory_diff": float((got["cuda"][1] - got["cpu"][1])
+                                     .abs().max())}
+
+
 def phase_zoo_card_vs_cpu() -> tuple[dict, dict]:
     """The seven new architectures reduced, fp32, the same weights on the
     card and on the CPU: identical greedy tokens, teacher-forced logits
@@ -1334,8 +1597,8 @@ def _assert_states_close(a, b, atol, rtol) -> None:
 
 
 def _bound_ms(n_elem: int, bytes_per_elem: int, flops_per_elem: int):
-    t_bytes = n_elem * bytes_per_elem / HBM_BYTES_PER_S * 1e3
-    t_ops = n_elem * flops_per_elem / FP32_FLOPS_PER_S * 1e3
+    t_bytes = n_elem * bytes_per_elem / hw()["hbm_bandwidth"] * 1e3
+    t_ops = n_elem * flops_per_elem / hw()["peak_flops_fp32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1582,49 +1845,61 @@ def phase_timing_prox(state) -> dict:
     return {"phase": "timing_prox", **out}
 
 
-def _flash_bound_ms(B, L, H, KV, D, bytes_per_elem):
-    """Causal, no window: 4 D flops a visible (i, j) pair and head (QK^T
-    and PV), L (L + 1) / 2 pairs; q, k, v read once and o written once.
-    bf16 on the tensor cores, fp32 on the CUDA cores."""
-    flops = 4.0 * B * H * D * L * (L + 1) / 2
-    nbytes = (2 * B * L * H * D + 2 * B * L * KV * D) * bytes_per_elem
-    peak = BF16_FLOPS_PER_S if bytes_per_elem == 2 else FP32_FLOPS_PER_S
+def _flash_bound_ms(B, Lq, Lk, H, KV, D, bytes_per_elem, causal=True):
+    """4 D flops a visible (i, j) pair and head (QK^T and PV): Lq Lk pairs
+    non-causal; causal (no window, key j visible to query i when j <= i)
+    sum_i min(i + 1, Lk).  q, k, v read once and o written once.  bf16 on
+    the tensor cores, fp32 on the CUDA cores."""
+    if not causal:
+        pairs = Lq * Lk
+    elif Lq <= Lk:
+        pairs = Lq * (Lq + 1) / 2
+    else:
+        pairs = Lk * (Lk + 1) / 2 + (Lq - Lk) * Lk
+    flops = 4.0 * B * H * D * pairs
+    nbytes = (2 * B * Lq * H * D + 2 * B * Lk * KV * D) * bytes_per_elem
+    peak = hw()["peak_flops_bf16" if bytes_per_elem == 2
+                else "peak_flops_fp32"]
     t_ops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / hw()["hbm_bandwidth"] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), flops
 
 
 def phase_timing_flash() -> dict:
     """Flash kernels vs the plain version vs scaled_dot_product_attention
-    (enable_gqa), causal: bf16 (the tensor-core kernel) and fp32 (the
-    CUDA-core kernel), each at the served shape and at L = 8192, and bf16
+    (enable_gqa), in turns: causal bf16 (the tensor-core kernel) and fp32
+    (the CUDA-core kernel), each at the served shape and at L = 8192; bf16
     through the head-dim route at the zoo's served D 80 and D 96 shapes
-    (SDPA and the bound at the true D), in turns.  The plain version at
-    fp32 L = 8192 (~4.3 GB of scores) is timed once."""
+    (SDPA and the bound at the true D); and bf16 non-causal at the
+    enc-dec's three served shapes (``FLASH_ENCDEC_SHAPES``).  The plain
+    version at fp32 L = 8192 (~4.3 GB of scores) is timed once."""
     import torch
     import torch.nn.functional as TF
     from repro_torch.kernels.flash_attention import kernel as F
     out = {}
     g = torch.Generator(device="cuda").manual_seed(31)
-    served = (SERVE["batch"], SERVE["prompt"], 16, 8, 128)
-    long = (1, 8192, 16, 8, 128)
-    for label, (B, L, H, KV, D), dtype, iters in (
-            ("served", served, torch.bfloat16, 20),
-            ("long", long, torch.bfloat16, 5),
-            ("served_fp32", served, torch.float32, 20),
-            ("long_fp32", long, torch.float32, 5),
-            *((label, shape, torch.bfloat16, 20)
-              for label, shape in FLASH_PADDED_SHAPES.items())):
-        q = torch.randn((B, L, H, D), generator=g, device="cuda").to(dtype)
-        k, v = (torch.randn((B, L, KV, D), generator=g, device="cuda")
+    served = (SERVE["batch"], SERVE["prompt"], SERVE["prompt"], 16, 8, 128)
+    long = (1, 8192, 8192, 16, 8, 128)
+    square = lambda B, L, H, KV, D: (B, L, L, H, KV, D)
+    for label, (B, Lq, Lk, H, KV, D), causal, dtype, iters in (
+            ("served", served, True, torch.bfloat16, 20),
+            ("long", long, True, torch.bfloat16, 5),
+            ("served_fp32", served, True, torch.float32, 20),
+            ("long_fp32", long, True, torch.float32, 5),
+            *((label, square(*shape), True, torch.bfloat16, 20)
+              for label, shape in FLASH_PADDED_SHAPES.items()),
+            *((label, shape, False, torch.bfloat16, 50)
+              for label, shape in FLASH_ENCDEC_SHAPES.items())):
+        q = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((B, Lk, KV, D), generator=g, device="cuda")
                 .to(dtype) for _ in range(2))
         tname = str(dtype).split(".")[-1]
-        kern = lambda: F.flash_attention_cuda(q, k, v, causal=True)
-        plain = lambda: F.flash_attention_plain(q, k, v, causal=True)
+        kern = lambda: F.flash_attention_cuda(q, k, v, causal=causal)
+        plain = lambda: F.flash_attention_plain(q, k, v, causal=causal)
         sdpa = lambda: TF.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
         a, b, c = kern(), plain(), sdpa()
         others = [("plain", b), ("sdpa", c)]
         torch.cuda.synchronize()
@@ -1646,10 +1921,12 @@ def phase_timing_flash() -> dict:
                     torch.cuda.empty_cache()
                 continue
             times[name].append(time_ms(fn, iters=iters, warmup=2))
-        bound, by, flops = _flash_bound_ms(B, L, H, KV, D, q.element_size())
+        bound, by, flops = _flash_bound_ms(B, Lq, Lk, H, KV, D,
+                                           q.element_size(), causal)
         ms = min(times["ms"])
-        out[label] = {"shape": {"B": B, "L": L, "H": H, "KV": KV, "D": D,
-                                "dtype": tname, "causal": True},
+        out[label] = {"shape": {"B": B, "Lq": Lq, "Lk": Lk, "H": H,
+                                "KV": KV, "D": D, "dtype": tname,
+                                "causal": causal},
                       "ms": ms, "plain_ms": min(times["plain_ms"]),
                       "library_ms": min(times["library_ms"]),
                       "all_ms": times, "bound_ms": bound, "bound_by": by,
@@ -2483,7 +2760,7 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
                state.y, state.g, state.nu, hp)}
     for name, fn in fns.items():
         ms = time_ms(fn, iters=5, warmup=1)
-        bound = step_bytes[name] * tree_bytes / HBM_BYTES_PER_S * 1e3
+        bound = step_bytes[name] * tree_bytes / hw()["hbm_bandwidth"] * 1e3
         sweep[name] = {"ms": ms, "bound_ms": bound,
                        "share_of_bound": bound / ms,
                        "launches_per_call": per_step}
@@ -3163,7 +3440,8 @@ def phase_async_llm(trainer, state, it, args, base) -> tuple:
             key = f"{name} {'gated' if gated else 'ungated'}"
             ms = time_ms(lambda: fn(gate if gated else None), iters=5,
                          warmup=1)
-            bound = trees[name, gated] * tree_bytes / HBM_BYTES_PER_S * 1e3
+            bound = (trees[name, gated] * tree_bytes
+                     / hw()["hbm_bandwidth"] * 1e3)
             sweep.setdefault(key, {"ms": [], "bound_ms": bound})["ms"].append(
                 ms)
             torch.cuda.empty_cache()
@@ -3281,6 +3559,8 @@ def main() -> int:
     emit(card_vs_cpu)
     zoo_launches, serve_zoo = phase_serve_zoo()
     emit(serve_zoo)
+    encdec_launches, serve_encdec = phase_serve_encdec()
+    emit(serve_encdec)
     zoo_cpu_launches, zoo_card_vs_cpu = phase_zoo_card_vs_cpu()
     emit(zoo_card_vs_cpu)
     torch.cuda.empty_cache()
@@ -3341,17 +3621,19 @@ def main() -> int:
     fp32_launches = sum(card_vs_cpu[arch]["launches"]["flash_attention_fp32"]
                         for arch in ("qwen3-1.7b", "starcoder2-7b")) + sum(
         n["flash_attention_fp32"] for n in train_paths) \
-        + zoo_cpu_launches["flash_attention_fp32"]
+        + zoo_cpu_launches["flash_attention_fp32"] \
+        + encdec_launches["flash_attention_fp32"]
     bf16_launches = serve_launches["flash_attention"] + sum(
         n["flash_attention"] for n in train_paths) \
-        + zoo_launches["flash_attention"]
+        + zoo_launches["flash_attention"] + encdec_launches["flash_attention"]
     padded = {"bfloat16": zoo_launches["flash_fwd_padded"],
               "float32": zoo_cpu_launches["flash_fwd_padded"]}
-    padded_err = max(timing_flash[label]["max_abs_err"]
-                     for label in FLASH_PADDED_SHAPES)
+    # the bf16 kernel's error at the route's and the enc-dec's timed shapes
+    timed_err = max(timing_flash[label]["max_abs_err"]
+                    for label in (*FLASH_PADDED_SHAPES, *FLASH_ENCDEC_SHAPES))
     for name, dtype, launched, t, err in (
             ("flash_attention", "bfloat16", bf16_launches,
-             timing_flash["served"], padded_err),
+             timing_flash["served"], timed_err),
             ("flash_attention_fp32", "float32", fp32_launches,
              timing_flash["served_fp32"], 0.0)):
         kernels.append({

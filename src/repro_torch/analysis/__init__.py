@@ -1,7 +1,8 @@
-"""Host-side analysis: bytes on the wire of (compressed) gossip rounds.
+"""Host-side analysis: bytes on the wire of (compressed) gossip rounds,
+and the three-term roofline over the card's hardware model.
 
-``roofline`` and ``hlo`` come with the launch-and-analysis slice (ROADMAP
-Queue 1 item 11).
+``hlo`` (collective bytes parsed from XLA's HLO) waits for the distributed
+backends (ROADMAP Queue 1 item 5c): collectives need a process group.
 """
 from repro_torch.analysis.comm import (  # noqa: F401
     collectives_per_round,
@@ -11,4 +12,10 @@ from repro_torch.analysis.comm import (  # noqa: F401
     round_wire_bytes,
     spec_bits_per_coord,
     sweep_round_bytes,
+)
+from repro_torch.analysis.roofline import (  # noqa: F401
+    fused_sweep_roofline,
+    fused_sweep_traffic,
+    model_flops,
+    roofline_terms,
 )

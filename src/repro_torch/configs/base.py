@@ -6,9 +6,8 @@ layer-scan knobs (``scan_unroll``, ``max_decode_cache``: the port runs its
 layers in a Python loop).  Each architecture file registers the published
 config plus a ``reduced()`` variant for CPU tests, ``source`` included.
 ``param_count`` / ``active_param_count`` copy the reference's formulas for
-every family.  Asking :func:`get_config` for an architecture whose family
-waits for a later slice (the enc-dec ``seamless-m4t-medium``) raises
-``NotImplementedError`` naming that slice; its config is still registered.
+every family.  :func:`get_config` serves all ten architectures of the
+reference's zoo, the enc-dec ``seamless-m4t-medium`` included.
 """
 from __future__ import annotations
 
@@ -22,12 +21,6 @@ INPUT_SHAPES = {
     "prefill_32k": (32_768, 32, "prefill"),
     "decode_32k": (32_768, 128, "decode"),
     "long_500k": (524_288, 1, "decode"),
-}
-
-#: architectures of the reference zoo that the port has not reached yet,
-#: with the slice each waits for
-PENDING_ARCHS = {
-    "seamless-m4t-medium": "the encoder-decoder slice",
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -159,10 +152,6 @@ def register(full: ModelConfig, reduced: ModelConfig) -> ArchEntry:
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     _ensure_loaded()
-    if name in PENDING_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it waits for "
-            f"{PENDING_ARCHS[name]} (ROADMAP Queue 1 item 10)")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     e = _REGISTRY[name]
@@ -170,10 +159,9 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
 
 
 def list_archs() -> list[str]:
-    """The architectures :func:`get_config` serves (registered, not
-    pending)."""
+    """The architectures :func:`get_config` serves: every registered one."""
     _ensure_loaded()
-    return sorted(set(_REGISTRY) - set(PENDING_ARCHS))
+    return sorted(_REGISTRY)
 
 
 _LOADED = False

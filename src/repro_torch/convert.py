@@ -6,9 +6,10 @@ The reference keeps parameters as a nested dict pytree (``{"l0": {"w": ..,
 (``{"l0.w": .., "l0.b": ..}``), in the reference's leaf order (keys sorted
 at every level).  A zoo model's parameters are the exception: the
 reference stacks its layers on leading axes, the port keeps lists of
-per-layer trees (:func:`model_params_from_numpy` for every decoder family;
-:func:`transformer_params_from_numpy` the transformer families' case, and
-back with :func:`transformer_params_to_numpy`).  Both sides meet
+per-layer trees (:func:`model_params_from_numpy` for every family of the
+zoo, and back with :func:`model_params_to_numpy`;
+:func:`transformer_params_from_numpy` / :func:`transformer_params_to_numpy`
+the transformer families' case).  Both sides meet
 as numpy arrays, so this module imports neither JAX nor the reference
 package.
 """
@@ -113,9 +114,10 @@ def fed_state_to_numpy(state: FedState) -> dict:
 
 def _init_fn(cfg):
     """The port's ``init_params`` of ``cfg``'s family."""
-    from repro_torch.models import hybrid, ssm, transformer
+    from repro_torch.models import encdec, hybrid, ssm, transformer
     inits = {f: transformer.init_params for f in transformer.FAMILIES}
-    inits.update(ssm=ssm.init_params, hybrid=hybrid.init_params)
+    inits.update(ssm=ssm.init_params, hybrid=hybrid.init_params,
+                 encdec=encdec.init_params)
     if cfg.family not in inits:
         raise NotImplementedError(f"no port of family {cfg.family!r} to "
                                   "carry parameters into")
@@ -123,15 +125,16 @@ def _init_fn(cfg):
 
 
 def model_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
-    """The reference's params of any decoder family (nested dict of numpy
-    arrays) -> the port's params tree of ``cfg.torch_dtype`` tensors on
-    ``device``, ready for the family's module (``Transformer``, ``SSM``,
-    ``Hybrid``).
+    """The reference's params of any family of the zoo (nested dict of
+    numpy arrays) -> the port's params tree of ``cfg.torch_dtype`` tensors
+    on ``device``, ready for the family's module (``Transformer``, ``SSM``,
+    ``Hybrid``, ``EncDec``).
 
     Where the port keeps a list of per-layer trees the reference stacks
     them on a leading axis: ``blocks`` over layers (dense, MoE and VLM,
     experts ``(L, E, d, ff)``; SSM), a hybrid's ``mamba`` over ``(n_groups,
-    per_group)``; the rest (``shared``, ``embed``, ``final_norm``,
+    per_group)``, an enc-dec's ``encoder`` and ``decoder`` over their
+    layers; the rest (``shared``, ``embed``, ``enc_norm``, ``final_norm``,
     ``lm_head``) is carried as it is.  Every leaf is checked against the
     shapes the port builds for ``cfg``; a missing leaf, a leaf left over,
     or a shape that differs raises.
@@ -191,33 +194,51 @@ def _numpy32(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(device="cpu", dtype=torch.float32).numpy()
 
 
-def transformer_params_to_numpy(params, cfg) -> dict:
-    """The port's transformer params (a :class:`~repro_torch.models.
-    transformer.Transformer`, or its params tree with ``blocks`` a list of
-    per-layer dicts) -> the reference's layout: a nested dict of float32
-    numpy arrays (bf16 upcast losslessly), ``blocks`` stacked over layers
-    on axis 0.  The inverse of :func:`transformer_params_from_numpy`."""
-    if isinstance(params, torch.nn.Module):
-        params = {name: child.tensors()
-                  for name, child in params.named_children()
-                  if name != "blocks"} | {
-            "blocks": [b.tensors() for b in params.blocks]}
-    blocks = params["blocks"]
-    if len(blocks) != cfg.n_layers:
-        raise ValueError(f"{len(blocks)} blocks for {cfg.name}'s "
-                         f"{cfg.n_layers} layers")
+def _module_tree(module: torch.nn.Module):
+    """A zoo module's parameters as its params tree: a ``ParamTree`` as its
+    nested dict, an ``nn.ModuleList`` as a list."""
+    from repro_torch.models.common import ParamTree
+    if isinstance(module, ParamTree):
+        return module.tensors()
+    if isinstance(module, torch.nn.ModuleList):
+        return [_module_tree(m) for m in module]
+    return {name: _module_tree(child)
+            for name, child in module.named_children()}
 
-    def stack(trees):
-        first = trees[0]
-        if isinstance(first, Mapping):
-            return {k: stack([t[k] for t in trees]) for k in first}
-        return np.stack([_numpy32(t) for t in trees])
+
+def model_params_to_numpy(params) -> dict:
+    """The port's params of any zoo family (its module, or its params tree
+    with per-layer lists) -> the reference's layout: a nested dict of
+    float32 numpy arrays (bf16 upcast losslessly), every list of per-layer
+    trees stacked on a leading axis (a list of lists on two).  The inverse
+    of :func:`model_params_from_numpy`."""
+    if isinstance(params, torch.nn.Module):
+        params = _module_tree(params)
+
+    def stack(parts):
+        if isinstance(parts[0], Mapping):
+            return {k: stack([p[k] for p in parts]) for k in parts[0]}
+        return np.stack(parts)
 
     def walk(tree):
         if isinstance(tree, Mapping):
             return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return stack([walk(t) for t in tree])
         return _numpy32(tree)
 
-    out = {k: walk(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = stack(blocks)
-    return out
+    return walk(params)
+
+
+def transformer_params_to_numpy(params, cfg) -> dict:
+    """The port's transformer params (a :class:`~repro_torch.models.
+    transformer.Transformer`, or its params tree with ``blocks`` a list of
+    per-layer dicts) -> the reference's layout, ``blocks`` stacked over
+    layers on axis 0: the transformer case of
+    :func:`model_params_to_numpy`, with the layer count checked."""
+    if isinstance(params, torch.nn.Module):
+        params = _module_tree(params)
+    if len(params["blocks"]) != cfg.n_layers:
+        raise ValueError(f"{len(params['blocks'])} blocks for {cfg.name}'s "
+                         f"{cfg.n_layers} layers")
+    return model_params_to_numpy(params)

@@ -1,6 +1,6 @@
 """Serving launcher: batched generation with any architecture the port
-serves (port of ``repro/launch/serve.py``): every decoder family of the
-zoo (``repro_torch.configs.list_archs()``).
+serves (port of ``repro/launch/serve.py``): every family of the zoo
+(``repro_torch.configs.list_archs()``), the encoder-decoder's included.
 
 Example (CPU, reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
@@ -10,8 +10,11 @@ Without ``--device cpu`` it runs on the card (and raises without one); the
 first call on the card builds the kernels with ``nvcc``.  Weights are drawn
 from ``--seed``, or read from ``--ckpt`` (a transformer family's checkpoint
 in the reference's format, as ``launch.train --ckpt`` writes); prompts are
-uniform tokens from the seed, and a VLM's stub vision embeds (B,
-n_vision_tokens, d) standard normal draws from it.  The SSM and hybrid
+uniform tokens from the seed, a VLM's stub vision embeds (B,
+n_vision_tokens, d) and an enc-dec's stub encoder memory (B, 32, d)
+standard normal draws from it, as the reference's launcher stubs them.
+The enc-dec runs its prompt token by token against that memory.  The SSM
+and hybrid
 families need a prompt length that is a multiple of ``ssm_chunk``.
 """
 from __future__ import annotations
@@ -28,12 +31,15 @@ from repro_torch.models.transformer import FAMILIES, Transformer, init_params
 from repro_torch.serving import BatchedServer, ServeConfig
 from repro_torch.training.checkpoint import restore_checkpoint
 
+#: rows of the enc-dec's stub memory, as the reference's launcher draws it
+ENCDEC_MEMORY_LEN = 32
+
 
 def generate(model, params, *, batch: int, prompt_len: int, max_new: int,
              temperature: float = 0.0, cache: int = 256, seed: int = 0):
     """Greedy (or sampled) tokens of ``params`` for ``batch`` prompts of
     uniform tokens drawn from ``seed`` on the params' device (after them,
-    a VLM's vision embeds)."""
+    a VLM's vision embeds or an enc-dec's memory)."""
     cfg = model.cfg
     device = params.embed["table"].device
     srv = BatchedServer(model, params, ServeConfig(
@@ -47,6 +53,10 @@ def generate(model, params, *, batch: int, prompt_len: int, max_new: int,
     if cfg.family == "vlm":
         extra = {"vision_embeds": torch.randn(
             (batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+            device=device).to(cfg.torch_dtype)}
+    if cfg.family == "encdec":
+        extra = {"memory": torch.randn(
+            (batch, ENCDEC_MEMORY_LEN, cfg.d_model), generator=gen,
             device=device).to(cfg.torch_dtype)}
     return srv.generate(prompts, extra=extra)
 
@@ -71,7 +81,8 @@ def main(argv=None):
     if args.ckpt:
         if cfg.family not in FAMILIES:
             raise ValueError(f"--ckpt restores the transformer families "
-                             f"{FAMILIES}, not {cfg.family!r}")
+                             f"{FAMILIES} only, not {cfg.family!r} (the "
+                             "SSM, hybrid and enc-dec serve from --seed)")
         template = Transformer(cfg, init_params(cfg, device="meta")[0])
         params, step = restore_checkpoint(args.ckpt, template, device=device)
         print(f"restored {args.ckpt} (step {step})")

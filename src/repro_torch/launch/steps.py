@@ -5,7 +5,10 @@
 * ``build_train_step`` — one full DEPOSITUM iteration (momentum + prox +
   gossip + fresh grads + tracking) for all clients: the communication
   step, the worst case for collectives;
-* ``build_local_step`` — the collective-free local iteration.
+* ``build_local_step`` — the collective-free local iteration;
+* ``build_serve_step`` / ``build_prefill_step`` — one decode step, and the
+  prompt's forward (an enc-dec's: encode the frames, then the decoder's
+  prompt against the memory), under ``torch.inference_mode()``.
 
 The reference maps ``jax.value_and_grad`` over the client axis with
 ``jax.vmap``.  Here the clients run one after another through
@@ -210,3 +213,45 @@ def build_local_step(model: Model, dep_cfg: DepositumConfig, *,
                               is_comm_step=False)
 
     return local_step
+
+
+def build_serve_step(model: Model):
+    """``(params, cache, batch) -> (logits, cache)``: one decode step."""
+    def serve_step(params, cache, batch):
+        with torch.inference_mode():
+            return model.forward_decode(params, batch, cache)
+
+    return serve_step
+
+
+def build_prefill_step(model: Model, capacity: int):
+    """``(params, batch) -> (last-position logits, cache)``.
+
+    The enc-dec family has no ``forward_prefill``: its step takes ``batch
+    = {"frames", "tokens"}``, encodes the frames under the config's
+    ``long_context_window`` and runs the decoder's prompt against that
+    memory, every attention through the flash kernel (the encoder's and
+    the cross-attention non-causal, the decoder's self-attention causal),
+    and returns ``(logits[:, -1:], memory)``; ``capacity`` is unused
+    there, as in the reference.  Every other family returns
+    ``model.forward_prefill(params, batch, capacity)``.
+    """
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        def prefill_step(params, batch):
+            with torch.inference_mode():
+                memory = params.encode(batch["frames"],
+                                       window=cfg.long_context_window,
+                                       use_flash=True)
+                logits, _ = params.forward_train(
+                    {"tokens": batch["tokens"]}, memory=memory,
+                    use_flash=True)
+            return logits[:, -1:], memory
+
+        return prefill_step
+
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            return model.forward_prefill(params, batch, capacity)
+
+    return prefill_step

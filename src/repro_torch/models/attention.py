@@ -12,11 +12,24 @@ attention).  A head dim that the kernels are not instantiated for (32, 80,
 padding along D.  ``attention_train`` keeps the reference's
 ``use_flash=False`` default.  Decode attention (one query against the
 cache) stays plain torch ops, as the reference computes it outside any
-kernel.  Bidirectional and cross attention arrive with the
-encoder-decoder slice.
+kernel.
+
+The encoder-decoder family adds two non-causal uses of the same kernel:
+:func:`attention_bidir` (the encoder's self-attention, ``Lq = Lk``) and
+:func:`cross_attention` (decoder queries against the encoder's memory,
+``Lq != Lk``; memory and queries get no RoPE), both through the kernel
+with ``causal=False`` when ``use_flash`` is set: the reference's ``_sdpa``
+with ``mask=None``.  An encoder window ``0 < window < L`` masks
+``|i - j| < window``, a symmetric band that neither the reference's
+Pallas kernel nor the port's computes, so that call computes ``_sdpa``
+under the mask on every device, as the reference does: a dispatch on
+what the kernel computes, not a fallback on failure, counted in
+``DISPATCH_COUNTS["bidir_window_sdpa"]``.  Every flash call goes through
+this module's ``flash_attention`` name, which ``serve_drift`` swaps.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -26,6 +39,11 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.common import Initializer, apply_rope, rms_norm
 
 NEG_INF = -1e30
+
+#: calls that asked for the kernel but compute ``_sdpa`` because the kernel
+#: does not compute their mask: "bidir_window_sdpa" counts encoder calls
+#: under a symmetric window narrower than the sequence
+DISPATCH_COUNTS: collections.Counter = collections.Counter()
 
 
 def init_attention(ini: Initializer, cfg: ModelConfig):
@@ -104,6 +122,71 @@ def attention_train(params, x, cfg: ModelConfig, *, window: int = 0,
         mask = causal_mask(L, w, device=x.device)[None]
         out = _sdpa(q, k, v, mask, cfg)
     out = out.reshape(B, L, cfg.n_heads * cfg.hd)
+    return out @ params["wo"]
+
+
+def attention_bidir(params, x, cfg: ModelConfig, *, window: int = 0,
+                    use_flash: bool = False):
+    """Bidirectional (encoder) attention; optional symmetric window
+    ``|i - j| < window``.  x: (B, L, d).
+
+    With ``use_flash`` and no band to mask (``window == 0`` or ``window >=
+    L``) it runs the flash kernel, non-causal; a narrower window computes
+    ``_sdpa`` under its mask (see the module docstring).
+    """
+    B, L, _ = x.shape
+    positions = torch.arange(L, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    banded = 0 < window < L
+    if use_flash and not banded:
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        if use_flash:
+            DISPATCH_COUNTS["bidir_window_sdpa"] += 1
+        mask = None
+        if window > 0:
+            i = torch.arange(L, device=x.device)[:, None]
+            j = torch.arange(L, device=x.device)[None, :]
+            mask = (torch.abs(i - j) < window)[None]
+        out = _sdpa(q, k, v, mask, cfg)
+    out = out.reshape(B, L, cfg.n_heads * cfg.hd)
+    return out @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(ini: Initializer, cfg: ModelConfig):
+    d, hd = cfg.d_model, cfg.hd
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": ini.normal((d, H * hd), ("embed", "qkv")),
+        "wk": ini.normal((d, KV * hd), ("embed", "qkv")),
+        "wv": ini.normal((d, KV * hd), ("embed", "qkv")),
+        "wo": ini.normal((H * hd, d), ("heads", "embed")),
+    }
+
+
+def cross_attention(params, x, memory, cfg: ModelConfig, *,
+                    use_flash: bool = False):
+    """x: (B, L, d) queries; memory: (B, S, d) encoder output (no RoPE).
+
+    The memory's keys and values are projected on every call, as the
+    reference does (decode too).  ``use_flash`` runs the kernel,
+    non-causal, with ``Lq = L`` against ``Lk = S``.
+    """
+    B, L, _ = x.shape
+    S = memory.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ params["wq"]).reshape(B, L, H, hd)
+    k = (memory @ params["wk"]).reshape(B, S, KV, hd)
+    v = (memory @ params["wv"]).reshape(B, S, KV, hd)
+    if use_flash:
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = _sdpa(q, k, v, None, cfg)
+    out = out.reshape(B, L, H * hd)
     return out @ params["wo"]
 
 

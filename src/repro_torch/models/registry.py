@@ -3,11 +3,14 @@
 The port's ``params`` is the model itself, an ``nn.Module`` holding the
 weights: ``model.init(seed)`` returns ``(module, axes)`` and every callable
 takes the module where the reference takes its params pytree.  Every
-decoder family builds: dense, MoE and VLM on
+family of the zoo builds: dense, MoE and VLM on
 :class:`~repro_torch.models.transformer.Transformer`, SSM on
 :class:`~repro_torch.models.ssm.SSM`, hybrid on
-:class:`~repro_torch.models.hybrid.Hybrid`; the encoder-decoder family
-raises ``NotImplementedError`` until its slice lands.
+:class:`~repro_torch.models.hybrid.Hybrid`, and the encoder-decoder on
+:class:`~repro_torch.models.encdec.EncDec`, which has no
+``forward_prefill`` (as in the reference: its prompt is fed token by
+token) and whose ``init_decode_cache`` takes the memory's length
+(``memory_len``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -64,6 +67,7 @@ _BACKBONES = {
     "vlm": (transformer, transformer.Transformer),
     "ssm": (ssm, ssm.SSM),
     "hybrid": (hybrid, hybrid.Hybrid),
+    "encdec": (encdec, encdec.EncDec),
 }
 
 
@@ -71,11 +75,6 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     """The :class:`Model` of ``cfg``'s family; ``init`` and
     ``init_decode_cache`` build on ``device`` (raises without a card unless
     ``device="cpu"``)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family (seamless-m4t-medium) arrives with "
-            "its slice (ROADMAP Queue 1 item 10), with a token-by-token "
-            "prompt path in BatchedServer")
     if cfg.family not in _BACKBONES:
         raise ValueError(f"unknown family {cfg.family!r}")
     mod, cls = _BACKBONES[cfg.family]
@@ -91,9 +90,10 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
         forward_train=lambda m, b, **kw: m.forward_train(b, **kw),
         loss=_loss,
         forward_decode=lambda m, b, cache: m.forward_decode(b, cache),
-        # capacity: the KV slots (the SSM family needs none)
-        init_decode_cache=lambda batch, *capacity: mod.init_decode_cache(
-            cfg, batch, *capacity, device=device),
-        forward_prefill=lambda m, b, *capacity: m.forward_prefill(
-            b, *capacity),
+        # capacity: the KV slots (the SSM family needs none); the enc-dec
+        # also takes memory_len
+        init_decode_cache=lambda batch, *capacity, **kw: mod.init_decode_cache(
+            cfg, batch, *capacity, device=device, **kw),
+        forward_prefill=None if cfg.family == "encdec" else (
+            lambda m, b, *capacity: m.forward_prefill(b, *capacity)),
     )

@@ -1,6 +1,7 @@
 """Flash against plain attention on a served prefill.
 
-Each flash call of one prefill is held against
+Each flash call of one prefill (or of any call that returns logits:
+:func:`flash_drift`) is held against
 :func:`~repro_torch.kernels.flash_attention.kernel.flash_attention_plain`
 on its own q, k, v; then the prefill runs again with the plain version
 swapped in for every call, and the two prefills' logits are compared.  The
@@ -14,7 +15,10 @@ It serves on the card (raises without one unless ``--device cpu``, where
 both runs take the plain version) what ``chip_smoke.py`` serves: B 4, a
 1024-token prompt and weights from seed 0, in the config's dtype (bf16 at
 the published width; ``--reduced`` for the CPU), one JSON line for each
-depth (``--layers``; the config's depth without it).
+depth (``--layers``; the config's depth without it).  The enc-dec
+(``--arch seamless-m4t-medium``) has no prefill: its reading is of the
+prefill step (``launch.steps.build_prefill_step``) on 1024 stub frames
+and a 16-token prompt.
 """
 from __future__ import annotations
 
@@ -28,18 +32,21 @@ import repro_torch.models.attention as attention_mod
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import kernel as F
+from repro_torch.launch.steps import build_prefill_step
 from repro_torch.models import build_model
 from repro_torch.serving import BatchedServer, ServeConfig
 
 
-def prefill_drift(srv: BatchedServer, prompts, extra=None, *,
-                  call_tol: float | None = None,
-                  logit_tol: tuple[float, float] = (0.1, 0.05)) -> dict:
-    """The two readings of one prefill of ``srv``.  With ``call_tol``
-    every call must agree with the plain version within it (atol = rtol),
-    or ``torch.testing.assert_close`` raises.  ``logits_beyond`` counts
-    the logits that differ by more than ``atol + rtol * |plain|``
-    (``logit_tol``)."""
+def flash_drift(run, *, call_tol: float | None = None,
+                logit_tol: tuple[float, float] = (0.1, 0.05)) -> dict:
+    """The two readings of ``run()``, a call that returns logits (a
+    prefill, an enc-dec's prefill step, one decode step).  With
+    ``call_tol`` every flash call must agree with the plain version within
+    it (atol = rtol), or ``torch.testing.assert_close`` raises.
+    ``logits_beyond`` counts the logits that differ by more than ``atol +
+    rtol * |plain|`` (``logit_tol``).  ``run`` runs twice and must compute
+    the same thing both times (a decode step that writes its cache in
+    place writes the same values again)."""
     real = attention_mod.flash_attention
     calls = []
 
@@ -49,7 +56,7 @@ def prefill_drift(srv: BatchedServer, prompts, extra=None, *,
         if call_tol is not None:
             torch.testing.assert_close(
                 out, ref, atol=call_tol, rtol=call_tol,
-                msg=lambda m: f"flash call {len(calls)} of the prefill: {m}")
+                msg=lambda m: f"flash call {len(calls)} of the run: {m}")
         d = (out.float() - ref.float()).abs()
         calls.append((float(d.max()), float((d > 0).float().mean())))
         return out
@@ -58,7 +65,7 @@ def prefill_drift(srv: BatchedServer, prompts, extra=None, *,
         for fn in (held, F.flash_attention_plain):
             attention_mod.flash_attention = fn
             try:
-                logits = srv.prefill(prompts, extra)[0].float()
+                logits = run().float()
             finally:
                 attention_mod.flash_attention = real
             if fn is held:
@@ -76,10 +83,19 @@ def prefill_drift(srv: BatchedServer, prompts, extra=None, *,
                                     .float().mean())}
 
 
+def prefill_drift(srv: BatchedServer, prompts, extra=None, **kw) -> dict:
+    """:func:`flash_drift` of one prefill of ``srv`` (an enc-dec's runs its
+    prompt token by token against ``extra["memory"]``)."""
+    return flash_drift(lambda: srv.prefill(prompts, extra)[0], **kw)
+
+
 def serve_drift(arch: str, layers: int | None = None, *,
                 reduced: bool = False, device="cuda") -> dict:
     """:func:`prefill_drift` of ``arch`` at its published width (or
-    ``reduced``; depth ``layers`` if given) on random weights."""
+    ``reduced``; depth ``layers`` if given) on random weights; for the
+    enc-dec, :func:`flash_drift` of its prefill step
+    (``launch.steps.build_prefill_step``) on 1024 stub frames and a
+    16-token prompt."""
     batch, prompt_len, seed = 4, 1024, 0
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
@@ -88,6 +104,17 @@ def serve_drift(arch: str, layers: int | None = None, *,
     model = build_model(cfg, device=dev)
     params, _ = model.init(seed=seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    row = {"arch": arch, "layers": cfg.n_layers, "head_dim": cfg.hd,
+           "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                      else "cpu")}
+    if cfg.family == "encdec":
+        frames = torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                             device=dev).to(cfg.torch_dtype)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, 16), generator=gen,
+                               device=dev)
+        step = build_prefill_step(model, 0)
+        return {**row, **flash_drift(lambda: step(params, {
+            "frames": frames, "tokens": tokens})[0])}
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
     extra = None
@@ -98,10 +125,7 @@ def serve_drift(arch: str, layers: int | None = None, *,
             device=dev).to(cfg.torch_dtype)}
     srv = BatchedServer(model, params, ServeConfig(
         max_new_tokens=1, cache_capacity=prompt_len + n_vis))
-    return {"arch": arch, "layers": cfg.n_layers, "head_dim": cfg.hd,
-            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                       else "cpu"),
-            **prefill_drift(srv, prompts, extra)}
+    return {**row, **prefill_drift(srv, prompts, extra)}
 
 
 def main(argv=None):

@@ -5,8 +5,13 @@ Prefill runs once over the whole prompt (its attention through the flash
 kernel), then one decode step per new token against the per-layer caches
 (KV caches; Mamba2 conv and SSD states for the SSM and hybrid families),
 all under ``torch.inference_mode()``.  ``extra`` tensors (a VLM's
-``vision_embeds``) join the prefill batch, as in the reference.  Greedy decoding (the
-default) takes the argmax and matches the reference token for token.
+``vision_embeds``) join the prefill batch, as in the reference.  A model
+without a prefill (the encoder-decoder family) takes its prompt token by
+token instead, as the reference does: a decode cache holding
+``extra["memory"]`` (the encoder's output), then one ``forward_decode`` a
+prompt token, each cross-attending the memory through the flash kernel.
+Greedy decoding (the default) takes the argmax and matches the reference
+token for token.
 Temperature sampling draws from a ``torch.Generator`` seeded with
 ``ServeConfig.seed``; JAX's ``jax.random.categorical`` stream cannot be
 reproduced, so sampled tokens differ from the reference's and parity
@@ -39,10 +44,6 @@ class BatchedServer:
     """
 
     def __init__(self, model: Model, params, cfg: ServeConfig):
-        if model.forward_prefill is None:
-            raise NotImplementedError(
-                "a model without a prefill (token-by-token prompts, the "
-                "encoder-decoder family) arrives with its slice")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -56,19 +57,33 @@ class BatchedServer:
 
     def prefill(self, prompts: torch.Tensor, extra: Optional[dict] = None):
         """Prompt forward + caches.  Returns (last-position logits, caches).
-        ``extra`` entries join the batch beside ``tokens``."""
-        batch = {"tokens": prompts}
-        if extra:
-            batch.update(extra)
-        return self.model.forward_prefill(self.params, batch,
-                                          self.cfg.cache_capacity)
+        ``extra`` entries join the batch beside ``tokens``; for a model
+        without a prefill, the prompt runs token by token from a fresh
+        cache (an enc-dec's holding ``extra["memory"]``)."""
+        if self.model.forward_prefill is not None:
+            batch = {"tokens": prompts}
+            if extra:
+                batch.update(extra)
+            return self.model.forward_prefill(self.params, batch,
+                                              self.cfg.cache_capacity)
+        memory = (extra or {}).get("memory")
+        cache = self.model.init_decode_cache(
+            prompts.shape[0], self.cfg.cache_capacity,
+            memory_len=0 if memory is None else memory.shape[1])
+        if memory is not None:
+            cache = cache._replace(memory=memory.to(cache.memory.dtype))
+        logits = None
+        for t in range(prompts.shape[1]):
+            logits, cache = self.model.forward_decode(
+                self.params, {"tokens": prompts[:, t:t + 1]}, cache)
+        return logits, cache
 
     def generate(self, prompts: torch.Tensor,
                  extra: Optional[dict] = None) -> torch.Tensor:
         """prompts: (B, L_prompt) int.  Returns (B, max_new_tokens) int64.
-        ``extra`` (e.g. ``{"vision_embeds": (B, n_vision_tokens, d)}``)
-        joins the prefill batch; its tensors are moved to the params'
-        device.
+        ``extra`` (e.g. ``{"vision_embeds": (B, n_vision_tokens, d)}``, or
+        an enc-dec's ``{"memory": (B, S, d)}``) joins the prefill; its
+        tensors are moved to the params' device.
 
         The decode after the last token is skipped: its logits would pick
         a token past ``max_new_tokens``.

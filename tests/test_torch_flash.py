@@ -82,6 +82,10 @@ def test_plain_bf16_matches_pallas_and_ref():
     (1, 17, 40, 4, 2, 64, True, 0),
     (1, 40, 17, 4, 4, 64, True, 0),
     (1, 1, 1, 4, 2, 128, True, 0),
+    # cross-attention: decode (Lq 1) and a prompt (Lq 16) against a
+    # longer, ragged memory
+    (2, 1, 1000, 4, 4, 64, False, 0),
+    (2, 16, 1000, 4, 2, 64, False, 0),
 ])
 def test_ragged_lengths_match_ref(B, Lq, Lk, H, KV, D, causal, window):
     q, k, v = _qkv(Lq * 7 + Lk, B, Lq, H, KV, D, Lk)
@@ -241,7 +245,8 @@ SCHEDULE_CASES = [(1, 1, 64, True, 0), (65, 65, 64, True, 0),
                   (200, 200, 128, True, 64), (40, 17, 128, True, 0),
                   (17, 200, 256, True, 0), (256, 64, 64, True, 64),
                   (130, 70, 256, False, 0), (300, 300, 256, True, 100),
-                  (129, 129, 128, True, 4096), (191, 250, 64, True, 31)]
+                  (129, 129, 128, True, 4096), (191, 250, 64, True, 31),
+                  (1, 1000, 64, False, 0), (16, 1000, 64, False, 0)]
 
 
 def _visible(Lq, Lk, causal, window):

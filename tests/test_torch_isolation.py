@@ -54,6 +54,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                 "repro_torch.models.mamba2", "repro_torch.models.ssm",
                 "repro_torch.models.hybrid", "repro_torch.configs.zamba2_2_7b",
                 "repro_torch.configs.grok_1_314b",
-                "repro_torch.serve_drift"):
+                "repro_torch.serve_drift", "repro_torch.models.encdec",
+                "repro_torch.launch.mesh", "repro_torch.analysis.roofline",
+                "repro_torch.configs.seamless_m4t_medium"):
         assert mod in names
     assert int(count) == len(names) >= 30

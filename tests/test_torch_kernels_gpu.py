@@ -13,7 +13,11 @@ operations in the same order (built with -fmad=false), held at atol = rtol
 kernels sum their online softmax blockwise: fp32 (``flash_fwd.cu``) at
 2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2;
 the head-dim route (D 32, 80, 96: both kernels on zero-padded operands)
-at the same two.  The sweep rounds hold fused against unfused bit for
+at the same two, and so are the encoder-decoder's shapes (non-causal, and
+causal, ``Lq != Lk``: cross-attention of 1 or 16 queries against 1024 or
+a ragged 1000 memory rows).  The reduced enc-dec (fp32) on the card
+against the CPU: prefill-step logits and memory at 1e-4, greedy tokens
+identical.  The sweep rounds hold fused against unfused bit for
 bit, and the card against the CPU at rtol 1e-4 / atol 1e-6 (products
 summed in another order).  Compressed rounds (CHOCO,
 ``core/compression.py``) hold fused against unfused bit for bit with
@@ -445,6 +449,85 @@ def test_flash_head_dim_route_matches_plain_version(D):
     q = torch.zeros((1, 4, 2, 257), device="cuda")
     with pytest.raises(ValueError, match="exceeds"):
         fk.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_cross_attention_shapes(dtype):
+    """``Lq != Lk`` as the enc-dec runs it (B 4, 16 heads of 64, groups 1
+    and 2): decode's one query and a 16-token prompt against 1024 memory
+    rows and a ragged 1000, and short ragged pairs both ways; non-causal
+    (the enc-dec's mode) and causal, each launch its dtype's kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device="cuda").manual_seed(64)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 3e-2}[dtype]
+    route = ("flash_fwd_sm90" if dtype == torch.bfloat16
+             else "flash_fwd_fp32")
+    fk.reset_launch_counts()
+    n = 0
+    for Lq, Lk in ((1, 1024), (16, 1024), (16, 1000), (1, 17), (17, 200),
+                   (200, 17)):
+        for group in (1, 2):
+            q = torch.randn((4, Lq, 16, 64), generator=g, device="cuda").to(
+                dtype)
+            k, v = (torch.randn((4, Lk, 16 // group, 64), generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            for causal in (False, True):
+                out = fk.flash_attention(q, k, v, causal=causal)
+                ref = fk.flash_attention_plain(q, k, v, causal=causal)
+                torch.testing.assert_close(
+                    out, ref, atol=tol, rtol=tol,
+                    msg=lambda m: (f"{dtype} Lq {Lq} Lk {Lk} group {group} "
+                                   f"causal={causal}: {m}"))
+                n += 1
+    torch.cuda.synchronize()
+    assert fk.LAUNCH_COUNTS[route] == fk.LAUNCH_COUNTS["flash_fwd"] == n
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_on_the_card_matches_the_cpu():
+    """Reduced seamless-m4t-medium, fp32, the same weights on the card and
+    on the CPU: the prefill step's logits and memory within 1e-4 (6 fp32
+    flash launches on the card: 2 encoder, 2 decoder self, 2 cross), then
+    identical greedy tokens from each device's memory (2 launches a decode
+    step: the cross-attention)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchedServer, ServeConfig
+
+    cfg = get_config("seamless-m4t-medium", reduced=True)
+    rng = np.random.default_rng(0)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+        (2, 50, cfg.d_model)).astype(np.float32)),
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))}
+    params, _ = build_model(cfg, device="cpu").init(seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        p = params.to(dev)
+        fk.reset_launch_counts()
+        logits, memory = build_prefill_step(model, 32)(
+            p, {k: v.to(dev) for k, v in batch.items()})
+        assert fk.LAUNCH_COUNTS["flash_fwd_fp32"] == (6 if dev == "cuda"
+                                                      else 0)
+        toks = BatchedServer(model, p, ServeConfig(
+            max_new_tokens=5, cache_capacity=32)).generate(
+            batch["tokens"], extra={"memory": memory})
+        # 8 prompt tokens and 4 decode steps, 2 cross-attention launches each
+        assert fk.LAUNCH_COUNTS["flash_fwd_fp32"] == (
+            6 + 2 * (8 + 4) if dev == "cuda" else 0)
+        out[dev] = (logits.cpu(), memory.cpu(), toks.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
 
 
 @pytest.mark.gpu

@@ -74,10 +74,10 @@ def test_config_matches_reference():
             full.hd, full.d_ff, full.vocab_size) == (28, 2048, 16, 8, 128,
                                                      6144, 151936)
     assert full.tie_embeddings is False and full.torch_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        get_config("seamless-m4t-medium")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(dataclasses.replace(full, family="encdec"), device="cpu")
+    # the encoder-decoder arch and family build (no prefill: token by token)
+    encdec = get_config("seamless-m4t-medium")
+    assert encdec.family == "encdec"
+    assert build_model(encdec, device="meta").forward_prefill is None
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

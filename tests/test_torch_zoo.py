@@ -122,10 +122,10 @@ def test_every_config_matches_the_reference():
     """All ten architectures, full and reduced: every field of the port's
     config equals the reference's (the dtype as a name), the only
     reference fields left out are the scan knobs, and the parameter counts
-    are equal.  Only the encoder-decoder arch waits for its slice."""
+    are equal.  Every arch is served, the encoder-decoder's included."""
     tbase._ensure_loaded()
     assert sorted(tbase._REGISTRY) == sorted(jlist())
-    assert list_archs() == sorted(set(jlist()) - {"seamless-m4t-medium"})
+    assert list_archs() == sorted(jlist())
     for arch in jlist():
         for reduced in (False, True):
             j = jget(arch, reduced)
@@ -141,11 +141,7 @@ def test_every_config_matches_the_reference():
                 assert getattr(t, prop) == getattr(j, prop), (arch, prop)
             assert t.param_count() == j.param_count(), arch
             assert t.active_param_count() == j.active_param_count(), arch
-            if arch == "seamless-m4t-medium":
-                with pytest.raises(NotImplementedError, match="encoder"):
-                    get_config(arch, reduced)
-            else:
-                assert get_config(arch, reduced) is t
+            assert get_config(arch, reduced) is t
 
 
 def test_published_widths_and_counts():
