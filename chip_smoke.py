@@ -12,7 +12,8 @@ final line):
    ``kernels/flash_attention/csrc/flash_fwd_sm90.cu`` (bf16), the three
    ``nvcc`` runs started together; print what ``-Xptxas
    -v`` says of both flash kernels per D (registers, shared memory,
-   spills) and fail if the bf16 or the fp32 D = 128 instantiation spills,
+   spills) and of every sweep-kernel instantiation (registers, spills),
+   and fail if the bf16 or the fp32 D = 128 instantiation spills,
    or if the bf16 SASS (``cuobjdump -sass``) lacks the wgmma of Q K^T (A
    from shared memory) or of P V (A from registers);
 2. hold each kernel against its plain PyTorch version on the card:
@@ -27,7 +28,11 @@ final line):
      ``BF16_HEAD_ULPS`` of the plain versions, with controls (the step
      skipped, a halved alpha or beta) that must miss that limit, ungated
      and gated as the async learner runs it (a (1, 2) mask of downweight
-     values: the live row held so, the frozen row bit for bit);
+     values: the live row held so, the frozen row bit for bit); and both
+     routes of the grouped pair (16-byte vectors; element by element for
+     ragged rows and misaligned views) over ``kernel.ROUTE_LEAVES``, a
+     mixed tree, under each of ``kernel.ROUTE_GATES``: bf16 live rows
+     within ``BF16_HEAD_ULPS``, fp32 and frozen rows bit for bit;
    * ``prox_cuda`` and ``fused_update_cuda``: three kinds, odd, float4 and
      0-d leaves, fp32 within ``ATOL`` / ``RTOL`` and bf16;
    * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 128 / 256, GQA
@@ -216,7 +221,10 @@ final line):
      warm-up and ``ASYNC_LLM_ROUNDS`` learner rounds, donated (7 gated
      launches of each kernel a step: 112): round walls, applied tokens/s,
      peak memory beside ``ASYNC_LLM_PEAK_GB``, cohorts and staleness;
-     losses finite and each unapplied client's rows unchanged;
+     losses finite and each unapplied client's rows unchanged; the gated
+     pair's ms a step against the ungated one's, in turns, each beside
+     its byte bound (gated: 5 trees a live row, 4 a frozen one, 4.5 at
+     [1, 0]);
    * ``async_threaded``: ``run_threaded`` on the figure's problem with a
      dead client and a deadline: every tick, bounded staleness, the dead
      client never applied (48 gated launches);
@@ -228,7 +236,9 @@ final line):
    (flash) ``scaled_dot_product_attention``, at its path's shapes and at a
    larger one (the sweep pair's step both as one grouped launch and as six
    single-leaf launches, in turns, with the grouped kernels' device time
-   from ``torch.profiler``; the fp32 flash kernel at the served shape and
+   from ``torch.profiler``; one ``BANDWIDTH_LEAF`` in fp32, in bf16 on the
+   16-byte route and in bf16 at d = 2^20 + 3, element by element; the fp32
+   flash kernel at the served shape and
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused; the bf16 flash kernel
    through the head-dim route at the zoo's D 80 and D 96 served shapes
@@ -281,6 +291,8 @@ STATE_REL = 0.0                # 300 steps: ||x_fused - x_unfused|| / ||x||
 LOSS_RTOL, STAT_RTOL = 0.0, 0.0     # 300 steps: final loss, stationarity
 # flops per element: update = momentum (3) + shift (2) + prox chain (<= 8)
 UPDATE_FLOPS, TRACKING_FLOPS = 13, 3
+# one bandwidth-bound leaf (S, C, d) for the timing phase
+BANDWIDTH_LEAF = (4, 16, 1 << 20)
 KERNEL_SOURCE = "src/repro_torch/kernels/prox/csrc/prox_sweep.cu"
 FLASH_SOURCES = {
     "bfloat16": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
@@ -538,7 +550,9 @@ def _sass_wgmma(lib) -> dict:
 
 def phase_build() -> dict:
     """The three nvcc runs started together (one thread each), then loaded;
-    both flash kernels' ptxas reports, and their spill checks."""
+    both flash kernels' ptxas reports, and their spill checks; the sweep
+    source's report (registers and spills of each instantiation of the
+    update, tracking and prox kernels), printed."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.prox import kernel as prox
@@ -550,6 +564,9 @@ def phase_build() -> dict:
     prox._lib()
     for name in flash.SOURCES:
         flash._kernel(name)
+    sweep = _ptxas(paths[0].with_suffix(".log").read_text())
+    if not sweep:
+        raise AssertionError("prox_sweep.cu: no ptxas report in its log")
     sm90 = _ptxas(paths[2].with_suffix(".log").read_text())
     fp32 = _ptxas(paths[1].with_suffix(".log").read_text())
     for label, report, key in (("bf16", sm90, FLASH_NO_SPILL),
@@ -567,7 +584,11 @@ def phase_build() -> dict:
     return {"phase": "build",
             "libraries": [str(p.relative_to(ROOT)) for p in paths],
             "seconds": time.perf_counter() - t0, "flash_sm90_wgmma": wgmma,
-            "flash_sm90_ptxas": sm90, "flash_fp32_ptxas": fp32}
+            "flash_sm90_ptxas": sm90, "flash_fp32_ptxas": fp32,
+            "sweep_ptxas": sweep,
+            "sweep_spilling": sorted(n for n, p in sweep.items()
+                                     if p.get("spill_store_bytes")
+                                     or p.get("spill_load_bytes"))}
 
 
 def _modules():
@@ -832,13 +853,116 @@ def phase_check() -> dict:
                              "of g_kept is not g_new")
     del yo, yr, yb, kept, x, y, nu
     torch.cuda.empty_cache()
+    routes = _check_routes()
     return {"phase": "check", "cases": cases, "grouped_cases": grouped_cases,
             "lm_head_case": list(head), "lm_head_gate": gate.tolist(),
             "lm_head_ulps": head_ulps,
             "lm_head_controls_missed": head_controls,
-            "lm_head_ulps_limit": BF16_HEAD_ULPS, "max_abs_err": worst,
-            "atol": ATOL, "rtol": RTOL, "bf16_atol": BF16_ATOL,
-            "bf16_rtol": BF16_RTOL}
+            "lm_head_ulps_limit": BF16_HEAD_ULPS, "routes": routes,
+            "max_abs_err": worst, "atol": ATOL, "rtol": RTOL,
+            "bf16_atol": BF16_ATOL, "bf16_rtol": BF16_RTOL}
+
+
+def _check_routes() -> dict:
+    """Both routes of the sweep pair (16-byte vectors; element by element
+    for ragged rows and misaligned views) over ``kernel.ROUTE_LEAVES``,
+    one config's 2 clients (lead 1) under each of ``kernel.ROUTE_GATES``,
+    against the plain versions: bf16 live rows within ``BF16_HEAD_ULPS``
+    (the worst printed: both round the same fp32 result once, so 0 is
+    expected), fp32 bit for bit, frozen rows bit for bit the inputs,
+    g_kept's live rows g_new; one launch of each kernel a dtype a call.  Which route each leaf took is the
+    host's vec flag (``leaf_tables``), printed per leaf."""
+    import torch
+    from repro_torch.kernels.prox import kernel as K
+    g = torch.Generator(device="cuda").manual_seed(41)
+    trees = []
+    for scale in (0.02, 1.0, 1.0, 1.0):   # x at the weights' scale
+        leaves = []
+        for d, dtype, k in K.ROUTE_LEAVES:
+            view = torch.empty(2 * d + k, dtype=dtype, device="cuda")[k:]
+            view = view.view(2, d)
+            view.copy_(torch.randn((2, d), generator=g, device="cuda")
+                       * scale)
+            leaves.append(view)
+        trees.append(leaves)
+    x, y, nu, go = trees
+    row = K.sweep_params_table(lam=1e-5, theta=4.0, alpha=0.02, gamma=0.8,
+                               beta=1.0, device="cuda")
+    ptrs = [(a.data_ptr(), b.data_ptr(), c.data_ptr(), 0, 0)
+            for a, b, c in zip(x, y, nu)]
+    words, _ = K.leaf_tables(2, [d for d, _, _ in K.ROUTE_LEAVES],
+                             [dt for _, dt, _ in K.ROUTE_LEAVES], ptrs)
+    # the table lists the bf16 group first (the first leaf's dtype)
+    order = sorted(K.ROUTE_LEAVES, key=lambda r: r[1] != torch.bfloat16)
+    vec = {f"{d} {str(dt)[6:]} +{k}": v for (d, dt, k), v in zip(
+        order, words[K.LEAF_WORDS - 1::K.LEAF_WORDS])}
+    for dt in ("bfloat16", "float32"):
+        if {v for key, v in vec.items() if dt in key} != {0, 1}:
+            raise AssertionError(f"routes: {dt} leaves do not take both "
+                                 f"routes: {vec}")
+    ulps = {"fused_update_sweep": 0, "fused_tracking_sweep": 0}
+    cases = 0
+
+    def held(name, outs, refs, ins, live):
+        for o, r, i in zip(outs, refs, ins):
+            if o.shape != i.shape or o.dtype != i.dtype:
+                raise AssertionError(f"routes {name}: {tuple(o.shape)} "
+                                     f"{o.dtype} for {tuple(i.shape)}")
+            if not bits_equal(o[~live], i[~live]):
+                raise AssertionError(f"routes {name}: a frozen row changed")
+            if not live.any():
+                continue
+            if o.dtype == torch.float32:
+                if not bits_equal(o[live], r[live]):
+                    raise AssertionError(f"routes {name}: fp32 not "
+                                         "bit-equal to plain")
+                continue
+            u = int(bf16_ulps(o[live], r[live]).max())
+            ulps[name] = max(ulps[name], u)
+            if u > BF16_HEAD_ULPS:
+                raise AssertionError(f"routes {name}: {u} bf16 ulps from "
+                                     "plain")
+
+    for label, m in K.ROUTE_GATES.items():
+        mask = None if m is None else torch.tensor([m], device="cuda")
+        live = (torch.ones(2, dtype=torch.bool, device="cuda")
+                if m is None else mask[0] > 0)
+        for kind in ("l1", "mcp", "scad"):
+            before = read_counts()
+            out = K.fused_update_sweep_grouped(x, y, nu, row, mask,
+                                               kind=kind, lead=1)
+            expect_counts(f"routes {label}", read_counts(), {
+                **before, "fused_update_sweep":
+                    before["fused_update_sweep"] + 2})
+            ref = K.fused_update_sweep_grouped_plain(x, y, nu, row, mask,
+                                                     kind=kind, lead=1)
+            torch.cuda.synchronize()
+            held("fused_update_sweep", out[0], ref[0], x, live)
+            held("fused_update_sweep", out[1], ref[1], nu, live)
+            cases += 1
+        before = read_counts()
+        ys, kept = K.fused_tracking_sweep_grouped(y, nu, go, row, mask,
+                                                  lead=1)
+        expect_counts(f"routes {label}", read_counts(), {
+            **before, "fused_tracking_sweep":
+                before["fused_tracking_sweep"] + 2})
+        ref_ys, _ = K.fused_tracking_sweep_grouped_plain(y, nu, go, row,
+                                                         mask, lead=1)
+        torch.cuda.synchronize()
+        held("fused_tracking_sweep", ys, ref_ys, y, live)
+        for k, gn, g_old in zip(kept, nu, go):
+            if mask is None and k is not gn:
+                raise AssertionError("routes: ungated g_kept is not g_new")
+            if mask is not None and not (bits_equal(k[live], gn[live])
+                                         and bits_equal(k[~live],
+                                                        g_old[~live])):
+                raise AssertionError(f"routes {label}: g_kept is not "
+                                     "g_new live, g_old frozen")
+        cases += 1
+    del x, y, nu, go, trees
+    torch.cuda.empty_cache()
+    return {"cases": cases, "gates": K.ROUTE_GATES, "vec_by_leaf": vec,
+            "bf16_max_ulps": ulps, "bf16_ulps_limit": BF16_HEAD_ULPS}
 
 
 def phase_check_prox() -> dict:
@@ -1700,7 +1824,10 @@ def phase_graph() -> dict:
 def phase_timing() -> dict:
     """Kernel vs plain times at the main path's shapes (one step: the six
     leaves, S = 1, C = 10), at the sweep path's (the same leaves for S = 4
-    configs, Fig. 6) and at a bandwidth-bound shape (one leaf).  Each
+    configs, Fig. 6) and at a bandwidth-bound shape (one leaf of
+    ``BANDWIDTH_LEAF``: fp32, bf16 on the 16-byte route, and bf16 at d =
+    2^20 + 3, element by element; bf16 held within ``BF16_HEAD_ULPS`` of
+    the plain version, fp32 at ``ATOL`` / ``RTOL``).  Each
     sweep kernel's step is timed as one grouped launch (``ms``) and as six
     single-leaf launches (``per_leaf_ms``, the first version's route), in
     turns with the plain version (the least of four timings each); ``device_ms`` is the grouped kernel's own
@@ -1712,16 +1839,21 @@ def phase_timing() -> dict:
     from repro_torch.kernels.prox import ops
 
     out = {}
-    shapes = {"main_path_step": [(1, 10) + s for s in MLP_LEAVES],
-              "sweep_step": [(4, 10) + s for s in MLP_LEAVES],
-              "bandwidth": [(4, 16, 1 << 20)]}
-    for label, leaf_shapes in shapes.items():
+    S_, C_, d_ = BANDWIDTH_LEAF
+    shapes = {"main_path_step": ([(1, 10) + s for s in MLP_LEAVES],
+                                 torch.float32),
+              "sweep_step": ([(4, 10) + s for s in MLP_LEAVES],
+                             torch.float32),
+              "bandwidth": ([BANDWIDTH_LEAF], torch.float32),
+              "bandwidth_bf16": ([BANDWIDTH_LEAF], torch.bfloat16),
+              "ragged_bf16": ([(S_, C_, d_ + 3)], torch.bfloat16)}
+    for label, (leaf_shapes, dtype) in shapes.items():
         S = leaf_shapes[0][0]
         params = _table(S) if S <= 3 else K.sweep_params_table(
             1e-4, 4.0, 0.05, 0.8, 0.5, device="cuda").expand(S, 5).contiguous()
         g = torch.Generator(device="cuda").manual_seed(len(label))
-        a, b, c = ([torch.randn(s, generator=g, device="cuda") * 0.1
-                    for s in leaf_shapes] for _ in range(3))
+        a, b, c = ([(torch.randn(s, generator=g, device="cuda") * 0.1).to(
+            dtype) for s in leaf_shapes] for _ in range(3))
         n_elem = sum(t.numel() for t in a)
         leaves = list(zip(a, b, c))
         fns = {
@@ -1748,20 +1880,29 @@ def phase_timing() -> dict:
                 lambda: ops.fused_local_update(*trees, hp, kind="mcp")
             fns["fused_tracking_sweep"]["entry_ms"] = \
                 lambda: ops.fused_tracking(*trees, hp)
-        entry = {"leaf_shapes": leaf_shapes,
+        entry = {"leaf_shapes": leaf_shapes, "dtype": str(dtype),
                  "launches_per_call": {"ms": 1, "per_leaf_ms":
                                        len(leaf_shapes)}}
         for name, fn in fns.items():
-            # every route against the plain version, at ATOL / RTOL
+            # every route against the plain version, fp32 at ATOL / RTOL,
+            # bf16 within BF16_HEAD_ULPS
             ref = fn["plain_ms"]()
-            err = 0.0
+            err, ulps = 0.0, 0
             for route in ("ms", "per_leaf_ms"):
                 for u_list, v_list in zip(fn[route](), ref):
                     for u, v in zip(u_list, v_list):
-                        torch.testing.assert_close(
-                            u, v, atol=ATOL, rtol=RTOL,
-                            msg=lambda m: f"{label} {name} {route}: {m}")
-                        err = max(err, float((u - v).abs().max()))
+                        if dtype == torch.bfloat16:
+                            ulps = max(ulps, int(bf16_ulps(u, v).max()))
+                            if ulps > BF16_HEAD_ULPS:
+                                raise AssertionError(
+                                    f"{label} {name} {route}: {ulps} bf16 "
+                                    "ulps from plain")
+                        else:
+                            torch.testing.assert_close(
+                                u, v, atol=ATOL, rtol=RTOL,
+                                msg=lambda m: f"{label} {name} {route}: {m}")
+                        err = max(err, float((u.float() - v.float()).abs()
+                                             .max()))
             del ref
             # in turns, twice over: the host's speed drifts within a run
             times = {k: [] for k in fn}
@@ -1769,7 +1910,8 @@ def phase_timing() -> dict:
                 ["entry_ms"] if "entry_ms" in fn else [])]
             for key in (order + order[::-1]) * 2:
                 times[key].append(time_ms(fn[key]))
-            bpe = 5 * 4 if name == "fused_update_sweep" else 4 * 4
+            bpe = K.sweep_trees(name == "fused_update_sweep") \
+                * dtype.itemsize
             fpe = UPDATE_FLOPS if name == "fused_update_sweep" \
                 else TRACKING_FLOPS
             bound, by = _bound_ms(n_elem, bpe, fpe)
@@ -1782,7 +1924,8 @@ def phase_timing() -> dict:
                 "bound_ms": bound, "bound_by": by,
                 "share_of_bound": bound / ms,
                 "per_leaf_over_grouped": min(times["per_leaf_ms"]) / ms,
-                "max_abs_err": err}
+                "max_abs_err": err,
+                **({"max_ulps": ulps} if dtype == torch.bfloat16 else {})}
         out[label] = entry
         del a, b, c, leaves
         torch.cuda.empty_cache()
@@ -2750,7 +2893,6 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
     # the sweep pair at these leaves: one step's two grouped calls (device
     # time by CUDA events) against their bound, state and outputs in place
     hp = hyper_param_vec(trainer.cfg.depositum.hyper(), device="cuda")
-    step_bytes = {"fused_update_sweep": 5, "fused_tracking_sweep": 4}
     tree_bytes = sum(v.numel() * v.element_size() for v in state.x.values())
     sweep = {}
     reset_counts()
@@ -2760,7 +2902,8 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
                state.y, state.g, state.nu, hp)}
     for name, fn in fns.items():
         ms = time_ms(fn, iters=5, warmup=1)
-        bound = step_bytes[name] * tree_bytes / hw()["hbm_bandwidth"] * 1e3
+        bound = (K.sweep_trees(name == "fused_update_sweep") * tree_bytes
+                 / hw()["hbm_bandwidth"] * 1e3)
         sweep[name] = {"ms": ms, "bound_ms": bound,
                        "share_of_bound": bound / ms,
                        "launches_per_call": per_step}
@@ -3421,8 +3564,8 @@ def phase_async_llm(trainer, state, it, args, base) -> tuple:
 
     # the gated pair at these leaves (the weights of rounds 1-3: client 1
     # frozen) against the ungated one, in turns: one step's two grouped
-    # calls by CUDA events, the state in place; gated tracking also writes
-    # g_kept (five trees moved, where ungated moves four)
+    # calls by CUDA events, the state in place; each against the trees it
+    # moves (kernel.sweep_trees: 4.5 gated at [1, 0])
     hp = hyper_param_vec(cfg.depositum.hyper(), device="cuda")
     gate = torch.tensor([1.0, 0.0], device="cuda")
     tree_bytes = sum(v.numel() * v.element_size() for v in state.x.values())
@@ -3430,10 +3573,10 @@ def phase_async_llm(trainer, state, it, args, base) -> tuple:
                state.x, state.y, state.nu, hp, m, kind="l1"),
            "fused_tracking_sweep": lambda m: fused_tracking(
                state.y, state.g, state.nu, hp, m)}
-    trees = {("fused_update_sweep", False): 5,
-             ("fused_update_sweep", True): 5,
-             ("fused_tracking_sweep", False): 4,
-             ("fused_tracking_sweep", True): 5}
+    live = float((gate > 0).float().mean())
+    trees = {(name, gated): K.sweep_trees(name == "fused_update_sweep",
+                                          live if gated else None)
+             for name in fns for gated in (False, True)}
     sweep = {}
     for name, fn in fns.items():
         for gated in (False, True, True, False):
@@ -3442,7 +3585,8 @@ def phase_async_llm(trainer, state, it, args, base) -> tuple:
                          warmup=1)
             bound = (trees[name, gated] * tree_bytes
                      / hw()["hbm_bandwidth"] * 1e3)
-            sweep.setdefault(key, {"ms": [], "bound_ms": bound})["ms"].append(
+            sweep.setdefault(key, {"ms": [], "bound_ms": bound,
+                                   "trees": trees[name, gated]})["ms"].append(
                 ms)
             torch.cuda.empty_cache()
     for t in sweep.values():

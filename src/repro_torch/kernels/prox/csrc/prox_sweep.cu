@@ -24,44 +24,68 @@
 // Leaf), kMaxLeaves = 48 leaves, 3,080 bytes with the count, inside CUDA's
 // classic 4 KB of parameters.  A tree with more leaves takes one launch per
 // 48.  The grid is 1-D: leaf l owns blocks [first_l, first_l + S*C*tiles_l),
-// tiles_l = ceil(d_l / kTile), kTile = 1024 elements (256 threads x float4).
-// A block finds its leaf by a scan of the table's prefixes (<= 48 entries,
-// read from the parameter space), then its (s, c) row and its tile of that
-// row; it reads the row's hyperparameters from the (S, 5) table [lam, theta,
-// alpha, gamma, beta] and its cohort-gate value from the (S, C) mask once,
-// into registers.  A frozen row (mask <= 0) is copied through unchanged,
-// bit for bit, without reading the operands it does not need.  Loads are
-// float4 where the leaf's vec flag says so (fp32, d % 4 == 0 and all five
-// pointers 16-byte aligned), otherwise scalar, masked at the tile's end.
-// The standalone prox and the one-config update walk the same table with
-// one row a leaf (a whole leaf of any shape is one row of d elements) and
-// one (1, 5) parameter row for the whole call; the prox reads in[0] and
-// writes out[0] only.
+// tiles_l = ceil(d_l / kTile), where kTile is the storage type's (struct
+// Walk): 1,024 elements in fp32, 256 x 8 x 2 = 4,096 in bf16.  A block finds its leaf by a binary search of the table's
+// prefixes (<= 48 entries, six steps, read from the parameter space), then
+// its (s, c) row and its tile of that row; it reads the row's
+// hyperparameters from the (S, 5) table [lam, theta, alpha, gamma, beta]
+// and its cohort-gate value from the (S, C) mask once, into registers.  A
+// frozen row (mask <= 0) is copied through unchanged, bit for bit, without
+// reading the operands it does not need.
 //
-// The paper's MLP step (six leaves of 7,872 / 64 / 2,048 / 32 / 320 / 10
-// elements a client, 10 clients) is 14 tiles a row x 10 rows = 140 blocks,
-// about one wave on 132 SMs.  The host packs the table into a reused
-// buffer and makes one ctypes call per launch: nothing is read back from
-// the device and nothing is allocated here, so the launches can be
+// The walk of a tile.  Each thread holds kUnroll slots of 16 bytes of each
+// operand (struct Pack: 4 fp32 or 8 bf16 elements) and issues all of its
+// tile's loads before any arithmetic, so a thread keeps 3 x kUnroll x 16
+// bytes in flight.  Where the leaf's vec flag says so (d a multiple of the
+// slot's elements and all five pointers 16-byte aligned; the host decides,
+// kernel.py's leaf_tables) a slot is one 16-byte load or store; otherwise
+// (a ragged d, a misaligned view) a slot's elements are loaded and stored
+// one by one at a stride of kThreads, masked at the tile's end.  Both
+// routes cover the tile once, coalesced, and compute alike.  The standalone
+// prox and the one-config update walk the same table with one row a leaf
+// (a whole leaf of any shape is one row of d elements) and one (1, 5)
+// parameter row for the whole call; the prox reads in[0] and writes out[0]
+// only.
+//
+// The paper's MLP step (six fp32 leaves of 7,872 / 64 / 2,048 / 32 / 320 /
+// 10 elements a client, 10 clients) is 14 tiles a row x 10 rows = 140
+// blocks, about one wave on 132 SMs: fp32 keeps its 1,024-element tile so
+// that this step still fills the card.  The full-width training step
+// (Qwen3-1.7B, 311 bf16 leaves x 2 clients, 4.065e9 elements) is 992,482
+// blocks at the 4,096-element bf16 tile.  The host packs the table into a
+// reused buffer and makes one ctypes call per launch: nothing is read back
+// from the device and nothing is allocated here, so the launches can be
 // captured in a CUDA graph.
 //
 // Bound on an H100 (3.35 TB/s HBM3): the kernels are pure streams with ~10
 // flops per element, far below the 67 TFLOP/s fp32 rate, so bytes bound
-// them.  The update moves 5 x 4 B per fp32 element (read x, y, nu; write
-// x', nu'), tracking 4 x 4 B (5 x 4 B gated: g_kept is written too).  At
-// the main path's shapes (10 clients x 10,346 parameters) the byte bound is
-// 0.6 us a step for the update and 0.5 us for tracking, below one launch's
-// latency: the number of launches and the host's work around each, not
-// bytes, set the time there, hence one launch for all leaves of a step.
-// At large shapes (one leaf of 4 x 16 x 2^20) the same kernel streams at
-// ~90% of 3.35 TB/s.
+// them.  The update moves 5 elements of storage per element (read x, y,
+// nu; write x', nu'), tracking 4 (5 gated: g_kept is written too); a
+// frozen row moves 4 in both (x, nu or y, g_old read and copied).  By
+// Little's law 3.35 TB/s x ~0.7 us of DRAM latency needs ~18 KB in flight
+// an SM: at 2 bf16 slots a thread (55-64 registers: four 256-thread blocks
+// an SM) an SM keeps 1,024 x 3 x 2 x 16 B = 96 KB in flight.  At the main
+// path's shapes (10 clients x 10,346 parameters) the byte bound is 0.6 us a
+// step for the update and 0.5 us for tracking, below one launch's latency:
+// the number of launches and the host's work around each, not bytes, set
+// the time there, hence one launch for all leaves of a step.
+//
+// Streaming cache hints (__ldcs / __stcs, ld.global.nc.L1::no_allocate)
+// and a __launch_bounds__ minimum of blocks an SM were timed on the card
+// at the training step and did not help these pure streams, so neither
+// is kept.
 //
 // Arithmetic is fp32 whatever the storage type (fp32 or bf16), one rounding
 // per operation in the same order as the plain PyTorch version
-// (kernel.py); the build passes -fmad=false so nvcc does not contract
-// multiply-add pairs, and no --use_fast_math (it would change division and
-// flush denormals).  The prox kind and the gate are template parameters;
-// hyperparameters are runtime values, so new values never rebuild.
+// (kernel.py), and one __float2bfloat16_rn for each stored bf16 result; a
+// bf16 element is widened to fp32 exactly (a 16-bit shift).  The build
+// passes -fmad=false so nvcc does not contract multiply-add pairs, and no
+// --use_fast_math (it would change division and flush denormals).  The prox
+// kind and the gate are template parameters; hyperparameters are runtime
+// values, so new values never rebuild.
+//
+// prox_sweep_tile() reports the tile of each storage type, and the host
+// checks it against its own.
 //
 // C interface: each entry point launches on the given stream, allocates
 // nothing, and returns cudaGetLastError() (cudaErrorInvalidValue for a bad
@@ -77,8 +101,22 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads * 4;  // elements of one row a block takes
 constexpr int kMaxLeaves = 48;       // leaves in one launch's table
+
+// The walk of one storage type: kUnroll slots of kVec elements (16 bytes)
+// a thread, kTile elements of one row a block.  fp32 keeps one slot (the
+// MLP step's tiles fill the card); bf16 takes two.
+template <typename T> struct Walk;
+template <> struct Walk<float> {
+  static constexpr int kVec = 4, kUnroll = 1;
+  static constexpr int kTile = kThreads * kVec * kUnroll;
+};
+template <> struct Walk<__nv_bfloat16> {
+  static constexpr int kVec = 8, kUnroll = 2;
+  static constexpr int kTile = kThreads * kVec * kUnroll;
+};
+static_assert(Walk<float>::kTile == 1024, "kernel.py's TILES[float32]");
+static_assert(Walk<__nv_bfloat16>::kTile == 4096, "kernel.py's TILES[bfloat16]");
 
 enum Kind { kL1 = 0, kMcp = 1, kScad = 2 };
 
@@ -89,7 +127,7 @@ struct Leaf {
   void* out[2];       // update: x', nu'        tracking: y', g_kept (NULL ungated)
   long long d;        // elements of one (s, c) row
   long long first;    // the leaf's first block in the launch
-  long long vec;      // 1: float4 loads and stores
+  long long vec;      // 1: 16-byte loads and stores
 };
 
 struct LeafTable {
@@ -101,14 +139,86 @@ static_assert(sizeof(Leaf) == 64, "kernel.py packs eight int64 words a leaf");
 static_assert(sizeof(LeafTable) + 64 <= 4096,
               "the table and the other parameters must fit in 4 KB");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 16 bytes of storage in registers: kVec elements read and written as
+// fp32, or copied as raw bits.
+template <typename T> struct Pack;
+template <> struct Pack<float> {
+  unsigned w[4];
+  __device__ __forceinline__ float get(int e) const { return __uint_as_float(w[e]); }
+  __device__ __forceinline__ void set(int e, float v) { w[e] = __float_as_uint(v); }
+  __device__ __forceinline__ unsigned bits(int e) const { return w[e]; }
+  __device__ __forceinline__ void set_bits(int e, unsigned b) { w[e] = b; }
+};
+template <> struct Pack<__nv_bfloat16> {
+  unsigned w[4];  // element 2k in the low half of w[k], as in memory
+  __device__ __forceinline__ float get(int e) const {  // exact: a shift
+    const unsigned v = w[e >> 1];
+    return __uint_as_float((e & 1) ? (v & 0xffff0000u) : (v << 16));
+  }
+  __device__ __forceinline__ unsigned bits(int e) const {
+    return (e & 1) ? (w[e >> 1] >> 16) : (w[e >> 1] & 0xffffu);
+  }
+  __device__ __forceinline__ void set_bits(int e, unsigned b) {
+    unsigned& v = w[e >> 1];
+    v = (e & 1) ? ((v & 0xffffu) | (b << 16)) : ((v & 0xffff0000u) | b);
+  }
+  __device__ __forceinline__ void set(int e, float v) {
+    set_bits(e, __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+  }
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// an element of T as raw bits, for the scalar route
+template <typename T> using Bits =
+    typename std::conditional<sizeof(T) == 4, unsigned, unsigned short>::type;
+
+// A thread's share of one tile of n elements: slot u, element e is tile
+// element (i + u kThreads) kVec + e on the vector route, i + (u kVec + e)
+// kThreads on the scalar one (i = threadIdx.x).
+template <typename T, bool VEC>
+struct Tile {
+  static constexpr int N = Walk<T>::kVec, U = Walk<T>::kUnroll;
+  int n;
+
+  __device__ __forceinline__ int at(int u, int e) const {
+    return VEC ? (threadIdx.x + u * kThreads) * N + e
+               : threadIdx.x + (u * N + e) * kThreads;
+  }
+  // on the vector route n is a multiple of N: a slot is in or out whole
+  __device__ __forceinline__ bool has(int u, int e) const {
+    return at(u, VEC ? 0 : e) < n;
+  }
+  __device__ __forceinline__ void load(Pack<T> (&v)[U], const T* src) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (VEC) {
+        if (has(u, 0)) {
+          const uint4 r = *reinterpret_cast<const uint4*>(src + at(u, 0));
+          v[u].w[0] = r.x, v[u].w[1] = r.y, v[u].w[2] = r.z, v[u].w[3] = r.w;
+        }
+      } else {
+        v[u] = Pack<T>{};
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (has(u, e)) v[u].set_bits(e, reinterpret_cast<const Bits<T>*>(src)[at(u, e)]);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(T* dst, const Pack<T> (&v)[U]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (VEC) {
+        if (has(u, 0))
+          *reinterpret_cast<uint4*>(dst + at(u, 0)) =
+              make_uint4(v[u].w[0], v[u].w[1], v[u].w[2], v[u].w[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (has(u, e))
+            reinterpret_cast<Bits<T>*>(dst)[at(u, e)] = static_cast<Bits<T>>(v[u].bits(e));
+      }
+    }
+  }
+};
 
 // torch.sign: +1, -1, and 0 for +-0 and NaN
 __device__ __forceinline__ float sgn(float v) {
@@ -157,40 +267,69 @@ __device__ __forceinline__ float prox(float s, const UpdateConsts& c) {
   return (a <= c.hi1) ? soft : ((a <= c.tl) ? r2 : s);
 }
 
-template <int K>
-__device__ __forceinline__ void update_elem(float x, float y, float nu,
-                                            const UpdateConsts& c,
-                                            float& xo, float& nuo) {
-  const float nn = c.gamma * nu + c.omg * y;
-  nuo = nn;
-  xo = prox<K>(x - c.alpha * nn, c);
-}
-
 // A block's place in a grouped launch: its leaf, (s, c) row and tile.
 struct Place {
   int leaf;
   long long row;
   long long off;  // element offset of the tile in the leaf's operands
-  int n;          // elements of the tile, <= kTile
+  int n;          // elements of the tile, <= the tile
 };
 
+template <int TILE>
 __device__ __forceinline__ Place place_of(const LeafTable& t) {
   const long long b = blockIdx.x;
-  int l = 0;
-  while (l + 1 < t.n && b >= t.leaf[l + 1].first) ++l;
+  int l = 0;  // the last leaf whose first block is <= b (firsts increase)
+  for (int hi = t.n - 1; l < hi;) {
+    const int mid = (l + hi + 1) >> 1;
+    if (b >= t.leaf[mid].first) l = mid; else hi = mid - 1;
+  }
   const long long d = t.leaf[l].d;
   // the host keeps every launch under 2^31 blocks, so 32-bit division
-  const unsigned tiles = static_cast<unsigned>((d + kTile - 1) / kTile);
+  const unsigned tiles = static_cast<unsigned>((d + TILE - 1) / TILE);
   const unsigned local = static_cast<unsigned>(b - t.leaf[l].first);
   const unsigned row = local / tiles;
-  const long long start = static_cast<long long>(local - row * tiles) * kTile;
+  const long long start = static_cast<long long>(local - row * tiles) * TILE;
   const long long left = d - start;
   Place p;
   p.leaf = l;
   p.row = row;
   p.off = static_cast<long long>(row) * d + start;
-  p.n = static_cast<int>(left < kTile ? left : kTile);
+  p.n = static_cast<int>(left < TILE ? left : TILE);
   return p;
+}
+
+template <typename T, int K, bool GATED, bool VEC>
+__device__ __forceinline__ void update_tile(const Leaf& L, const Place& p,
+                                            float live, const float* row) {
+  const Tile<T, VEC> w{p.n};
+  constexpr int N = Walk<T>::kVec, U = Walk<T>::kUnroll;
+  const T* x = static_cast<const T*>(L.in[0]) + p.off;
+  const T* y = static_cast<const T*>(L.in[1]) + p.off;
+  const T* nu = static_cast<const T*>(L.in[2]) + p.off;
+  T* xo = static_cast<T*>(L.out[0]) + p.off;
+  T* nuo = static_cast<T*>(L.out[1]) + p.off;
+  Pack<T> a[U], b[U], n[U];
+  w.load(a, x);   // x and nu first: a frozen row copies them through
+  w.load(n, nu);
+  if (GATED && !(live > 0.f)) {
+    w.store(xo, a);
+    w.store(nuo, n);
+    return;
+  }
+  w.load(b, y);
+  const UpdateConsts c = load_consts(row);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if (!w.has(u, e)) continue;
+      const float nn = c.gamma * n[u].get(e) + c.omg * b[u].get(e);
+      a[u].set(e, prox<K>(a[u].get(e) - c.alpha * nn, c));
+      n[u].set(e, nn);
+    }
+  }
+  w.store(xo, a);
+  w.store(nuo, n);
 }
 
 template <typename T, int K, bool GATED>
@@ -198,51 +337,44 @@ __global__ void __launch_bounds__(kThreads)
 fused_update_kernel(const __grid_constant__ LeafTable t,
                     const float* __restrict__ params,
                     const float* __restrict__ mask, int C) {
-  const Place p = place_of(t);
+  const Place p = place_of<Walk<T>::kTile>(t);
   const Leaf& L = t.leaf[p.leaf];
-  const T* __restrict__ x = static_cast<const T*>(L.in[0]) + p.off;
-  const T* __restrict__ y = static_cast<const T*>(L.in[1]) + p.off;
-  const T* __restrict__ nu = static_cast<const T*>(L.in[2]) + p.off;
-  T* __restrict__ xo = static_cast<T*>(L.out[0]) + p.off;
-  T* __restrict__ nuo = static_cast<T*>(L.out[1]) + p.off;
-  const bool vec = std::is_same<T, float>::value && L.vec;
-  const int i = threadIdx.x;
-  if (GATED && !(mask[p.row] > 0.f)) {  // frozen row: copy through
-    if (vec) {
-      if (i < p.n / 4) {
-        reinterpret_cast<float4*>(xo)[i] = reinterpret_cast<const float4*>(x)[i];
-        reinterpret_cast<float4*>(nuo)[i] = reinterpret_cast<const float4*>(nu)[i];
-      }
-    } else {
-      for (int j = i; j < p.n; j += kThreads) {
-        xo[j] = x[j];
-        nuo[j] = nu[j];
-      }
-    }
+  const float live = GATED ? mask[p.row] : 1.f;
+  const float* row = params + 5 * (p.row / C);
+  if (L.vec)
+    update_tile<T, K, GATED, true>(L, p, live, row);
+  else
+    update_tile<T, K, GATED, false>(L, p, live, row);
+}
+
+template <typename T, bool GATED, bool VEC>
+__device__ __forceinline__ void tracking_tile(const Leaf& L, const Place& p,
+                                              float live, const float* row) {
+  const Tile<T, VEC> w{p.n};
+  constexpr int N = Walk<T>::kVec, U = Walk<T>::kUnroll;
+  const T* y = static_cast<const T*>(L.in[0]) + p.off;
+  const T* gn = static_cast<const T*>(L.in[1]) + p.off;
+  const T* go = static_cast<const T*>(L.in[2]) + p.off;
+  T* yo = static_cast<T*>(L.out[0]) + p.off;
+  T* gk = static_cast<T*>(L.out[1]) + p.off;  // gated only
+  Pack<T> a[U], n[U], o[U];
+  w.load(a, y);   // y and the old gradient first: a frozen row keeps them
+  w.load(o, go);
+  if (GATED && !(live > 0.f)) {
+    w.store(yo, a);
+    w.store(gk, o);
     return;
   }
-  const UpdateConsts c = load_consts(params + 5 * (p.row / C));
-  if (vec) {
-    if (i < p.n / 4) {
-      const float4 a = reinterpret_cast<const float4*>(x)[i];
-      const float4 b = reinterpret_cast<const float4*>(y)[i];
-      const float4 n = reinterpret_cast<const float4*>(nu)[i];
-      float4 ox, on;
-      update_elem<K>(a.x, b.x, n.x, c, ox.x, on.x);
-      update_elem<K>(a.y, b.y, n.y, c, ox.y, on.y);
-      update_elem<K>(a.z, b.z, n.z, c, ox.z, on.z);
-      update_elem<K>(a.w, b.w, n.w, c, ox.w, on.w);
-      reinterpret_cast<float4*>(xo)[i] = ox;
-      reinterpret_cast<float4*>(nuo)[i] = on;
-    }
-  } else {
-    for (int j = i; j < p.n; j += kThreads) {
-      float ox, on;
-      update_elem<K>(to_f(x[j]), to_f(y[j]), to_f(nu[j]), c, ox, on);
-      xo[j] = from_f<T>(ox);
-      nuo[j] = from_f<T>(on);
-    }
+  w.load(n, gn);
+  const float beta = row[4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      if (w.has(u, e)) a[u].set(e, a[u].get(e) + beta * (n[u].get(e) - o[u].get(e)));
   }
+  w.store(yo, a);
+  if (GATED) w.store(gk, n);
 }
 
 template <typename T, bool GATED>
@@ -250,50 +382,31 @@ __global__ void __launch_bounds__(kThreads)
 tracking_kernel(const __grid_constant__ LeafTable t,
                 const float* __restrict__ params,
                 const float* __restrict__ mask, int C) {
-  const Place p = place_of(t);
+  const Place p = place_of<Walk<T>::kTile>(t);
   const Leaf& L = t.leaf[p.leaf];
-  const T* __restrict__ y = static_cast<const T*>(L.in[0]) + p.off;
-  const T* __restrict__ gn = static_cast<const T*>(L.in[1]) + p.off;
-  const T* __restrict__ go = static_cast<const T*>(L.in[2]) + p.off;
-  T* __restrict__ yo = static_cast<T*>(L.out[0]) + p.off;
-  T* __restrict__ gk = static_cast<T*>(L.out[1]) + p.off;  // gated only
-  const bool vec = std::is_same<T, float>::value && L.vec;
-  const int i = threadIdx.x;
-  if (GATED && !(mask[p.row] > 0.f)) {  // frozen row: y and the old gradient pass through
-    if (vec) {
-      if (i < p.n / 4) {
-        reinterpret_cast<float4*>(yo)[i] = reinterpret_cast<const float4*>(y)[i];
-        reinterpret_cast<float4*>(gk)[i] = reinterpret_cast<const float4*>(go)[i];
-      }
-    } else {
-      for (int j = i; j < p.n; j += kThreads) {
-        yo[j] = y[j];
-        gk[j] = go[j];
-      }
-    }
-    return;
+  const float live = GATED ? mask[p.row] : 1.f;
+  const float* row = params + 5 * (p.row / C);
+  if (L.vec)
+    tracking_tile<T, GATED, true>(L, p, live, row);
+  else
+    tracking_tile<T, GATED, false>(L, p, live, row);
+}
+
+template <typename T, int K, bool VEC>
+__device__ __forceinline__ void prox_tile(const Leaf& L, const Place& p,
+                                          const float* row) {
+  const Tile<T, VEC> w{p.n};
+  constexpr int N = Walk<T>::kVec, U = Walk<T>::kUnroll;
+  Pack<T> a[U];
+  w.load(a, static_cast<const T*>(L.in[0]) + p.off);
+  const UpdateConsts c = load_consts(row);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      if (w.has(u, e)) a[u].set(e, prox<K>(a[u].get(e), c));
   }
-  const float beta = params[5 * (p.row / C) + 4];
-  if (vec) {
-    if (i < p.n / 4) {
-      const float4 a = reinterpret_cast<const float4*>(y)[i];
-      const float4 n = reinterpret_cast<const float4*>(gn)[i];
-      const float4 o = reinterpret_cast<const float4*>(go)[i];
-      float4 r;
-      r.x = a.x + beta * (n.x - o.x);
-      r.y = a.y + beta * (n.y - o.y);
-      r.z = a.z + beta * (n.z - o.z);
-      r.w = a.w + beta * (n.w - o.w);
-      reinterpret_cast<float4*>(yo)[i] = r;
-      if (GATED) reinterpret_cast<float4*>(gk)[i] = n;
-    }
-  } else {
-    for (int j = i; j < p.n; j += kThreads) {
-      const T n = gn[j];
-      yo[j] = from_f<T>(to_f(y[j]) + beta * (to_f(n) - to_f(go[j])));
-      if (GATED) gk[j] = n;
-    }
-  }
+  w.store(static_cast<T*>(L.out[0]) + p.off, a);
 }
 
 // Standalone prox of every leaf of a table (one row a leaf); params is one
@@ -303,21 +416,12 @@ template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 prox_kernel(const __grid_constant__ LeafTable t,
             const float* __restrict__ params) {
-  const Place p = place_of(t);
+  const Place p = place_of<Walk<T>::kTile>(t);
   const Leaf& L = t.leaf[p.leaf];
-  const T* __restrict__ x = static_cast<const T*>(L.in[0]) + p.off;
-  T* __restrict__ out = static_cast<T*>(L.out[0]) + p.off;
-  const UpdateConsts c = load_consts(params);
-  const int i = threadIdx.x;
-  if (std::is_same<T, float>::value && L.vec) {
-    if (i < p.n / 4) {
-      const float4 a = reinterpret_cast<const float4*>(x)[i];
-      reinterpret_cast<float4*>(out)[i] = make_float4(
-          prox<K>(a.x, c), prox<K>(a.y, c), prox<K>(a.z, c), prox<K>(a.w, c));
-    }
-  } else {
-    for (int j = i; j < p.n; j += kThreads) out[j] = from_f<T>(prox<K>(to_f(x[j]), c));
-  }
+  if (L.vec)
+    prox_tile<T, K, true>(L, p, params);
+  else
+    prox_tile<T, K, false>(L, p, params);
 }
 
 // The table the host packed (n leaves of eight words) as the kernel's
@@ -387,6 +491,14 @@ int prox_kind(int kind, const LeafTable& t, const void* params,
 
 extern "C" {
 
+// Elements of one row a block takes for a storage type (0 = float32, 1 =
+// bfloat16); 0 for another dtype.
+int prox_sweep_tile(int dtype) {
+  if (dtype == 0) return Walk<float>::kTile;
+  if (dtype == 1) return Walk<__nv_bfloat16>::kTile;
+  return 0;
+}
+
 // One grouped launch of the fused update over the n leaves at `leaves`
 // (n x 64 bytes, struct Leaf), all of one dtype (0 = float32, 1 =
 // bfloat16), `blocks` blocks in all.  params: the (S, 5) table; mask: the
@@ -421,10 +533,12 @@ int prox_sweep_tracking_grouped(const void* leaves, int n, const void* params,
 // the last leaf's first block plus its tiles.
 int prox_apply_grouped(const void* leaves, int n, const void* params,
                        int kind, int dtype, void* stream) {
-  if (!leaves || n < 1 || n > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tile = prox_sweep_tile(dtype);
+  if (!leaves || n < 1 || n > kMaxLeaves || tile == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Leaf last;
   std::memcpy(&last, static_cast<const Leaf*>(leaves) + (n - 1), sizeof(Leaf));
-  const long long blocks = last.first + (last.d + kTile - 1) / kTile;
+  const long long blocks = last.first + (last.d + tile - 1) / tile;
   LeafTable t;
   if (!table_from(leaves, n, 1, blocks, t)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -80,15 +80,50 @@ GATED_LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 SOURCE = Path(__file__).parent / "csrc" / "prox_sweep.cu"
 BUILD_DIR = Path(__file__).parent / "build"
-# -fmad=false: one rounding per operation, as in the plain version
-NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
+# -fmad=false: one rounding per operation, as in the plain version;
+# -Xptxas -v: each kernel's registers and spills in the build's log
+NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v")
 
-# The grouped launch's leaf table, as prox_sweep.cu reads it
-TILE = 1024        # elements of one (s, c) row a block takes (kTile)
+# The grouped launch's leaf table, as prox_sweep.cu reads it.  Per storage
+# type: the elements of one (s, c) row a block takes (Walk<T>::kTile, which
+# the library reports and _lib checks) and those of one 16-byte vector
+TILES = {torch.float32: 1024, torch.bfloat16: 4096}
+VEC = {torch.float32: 4, torch.bfloat16: 8}
 MAX_LEAVES = 48    # leaves in one launch's table (kMaxLeaves)
 LEAF_WORDS = 8     # int64 words a leaf: 5 pointers, d, first block, vec
-ALIGN = 16         # bytes: each leaf's place in an output buffer, float4
+ALIGN = 16         # bytes: each leaf's place in an output buffer, a vector
 _MAX_BLOCKS = 2**31 - 1
+
+# Leaves that take each route of the sweep kernels, for the checks on the
+# card: (elements a row, dtype, storage offset in elements).  bf16 takes
+# 16-byte vectors at d 8, 2048 and 2^20 and goes element by element at the
+# ragged d 1, 7, 9, 2047, 2^20 + 3 and on views 1 and 4 elements into
+# their allocation (2 and 8 bytes: misaligned); fp32 leaves beside them (a
+# mixed tree: one launch a dtype a call).  The gates of one config's two
+# clients: none, all live, all frozen, the async learner's [1, 0] and a
+# fraction.
+ROUTE_LEAVES = ((1, torch.bfloat16, 0), (7, torch.bfloat16, 0),
+                (8, torch.bfloat16, 0), (9, torch.bfloat16, 0),
+                (2047, torch.bfloat16, 0), (2048, torch.bfloat16, 0),
+                ((1 << 20) + 3, torch.bfloat16, 0),
+                (1 << 20, torch.bfloat16, 0), (4096, torch.bfloat16, 1),
+                (4096, torch.bfloat16, 4), (1001, torch.float32, 0),
+                (1024, torch.float32, 0), (1024, torch.float32, 1))
+ROUTE_GATES = {"ungated": None, "all live": [1.0, 1.0],
+               "all frozen": [0.0, 0.0], "[1, 0]": [1.0, 0.0],
+               "[0.5, 0]": [0.5, 0.0]}
+
+
+def sweep_trees(update: bool, live_share: float | None = None) -> float:
+    """Trees of storage one grouped sweep call moves, each input read once
+    and each output written once: the update reads x, y, nu and writes x',
+    nu' (5), tracking reads y, g_new, g_old and writes y' (4).  Gated, with
+    ``live_share`` the share of live (s, c) rows: a live row moves 5 in
+    both (tracking also writes g_kept), a frozen row 4 (two trees read and
+    copied through), so 4.5 at the gate [1, 0]."""
+    if live_share is None:
+        return 5.0 if update else 4.0
+    return 4.0 + live_share
 
 
 def reset_launch_counts() -> None:
@@ -118,8 +153,17 @@ def build_library() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+    """The built library with its entry points declared; raises unless
+    it walks the tiles of :data:`TILES`."""
+    path = build_library()
+    lib = ctypes.CDLL(str(path))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.prox_sweep_tile.argtypes = [i]
+    lib.prox_sweep_tile.restype = i
+    built = {dt: lib.prox_sweep_tile(code) for dt, code in _DTYPES.items()}
+    if built != TILES:
+        raise RuntimeError(f"{path} walks tiles of {built}, the host "
+                           f"{TILES}")
     lib.prox_sweep_update_grouped.argtypes = [p, i, p, p, i, ll, i, i, p]
     lib.prox_sweep_update_grouped.restype = i
     lib.prox_sweep_tracking_grouped.argtypes = [p, i, p, p, i, ll, i, p]
@@ -255,11 +299,12 @@ def leaf_tables(rows: int, ds, dtypes, ptrs):
     outputs; 0 for an output the kernel does not write).  Leaves without an
     element are skipped; the rest are grouped by dtype, in order of first
     appearance, and cut into launches of at most ``MAX_LEAVES``.  A leaf's
-    entry holds its pointers, d, its first block in its launch and its vec
-    flag (float4 loads: fp32, d % 4 == 0, all five pointers 16-byte
-    aligned).  Returns ``(words, launches)``: the entries as one flat list
-    of ints, ``LEAF_WORDS`` a leaf, and one :class:`Launch` per launch over
-    entries ``[start, stop)``.
+    entry holds its pointers, d, its first block in its launch (a row takes
+    ceil(d / tile) blocks, the dtype's tile in :data:`TILES`) and its vec
+    flag (16-byte loads: d a multiple of the dtype's :data:`VEC`, all five
+    pointers 16-byte aligned).  Returns ``(words, launches)``: the entries
+    as one flat list of ints, ``LEAF_WORDS`` a leaf, and one
+    :class:`Launch` per launch over entries ``[start, stop)``.
     """
     groups: dict = {}
     for i, (d, dt) in enumerate(zip(ds, dtypes)):
@@ -267,15 +312,15 @@ def leaf_tables(rows: int, ds, dtypes, ptrs):
             groups.setdefault(dt, []).append(i)
     words, launches, n = [], [], 0
     for dt, idx in groups.items():
-        fp32 = dt == torch.float32
+        tile, vec = TILES[dt], VEC[dt]
         for k in range(0, len(idx), MAX_LEAVES):
             chunk, start, first = idx[k:k + MAX_LEAVES], n, 0
             for i in chunk:
                 p, d = ptrs[i], ds[i]
                 aligned = (p[0] | p[1] | p[2] | p[3] | p[4]) % ALIGN == 0
                 words += p
-                words += (d, first, int(fp32 and d % 4 == 0 and aligned))
-                first += rows * -(-d // TILE)
+                words += (d, first, int(d % vec == 0 and aligned))
+                first += rows * -(-d // tile)
             if first > _MAX_BLOCKS:
                 raise ValueError(f"grouped launch of {first} blocks exceeds "
                                  f"the grid's {_MAX_BLOCKS}")

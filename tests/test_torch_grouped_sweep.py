@@ -207,24 +207,109 @@ def test_vec_flags():
     p = _ptrs(4)
     p[2] = p[2][:3] + (p[2][3] + 4,) + p[2][4:]     # one misaligned output
     table, _ = _tables_of(2, (64, 10, 64, 64), [f32, f32, f32, bf16], p)
-    # d = 10, the misaligned pointer and bf16 all take scalar loads
-    assert table[:, 7].tolist() == [1, 0, 0, 0]
+    # d = 10 and the misaligned pointer take scalar loads; bf16 d = 64
+    # takes 16-byte vectors of 8
+    assert table[:, 7].tolist() == [1, 0, 0, 1]
     ungated = [q[:4] + (0,) for q in _ptrs(1)]      # g_kept not written
     assert _tables_of(2, (8,), [f32], ungated)[0][0, 7] == 1
 
 
+@pytest.mark.parametrize("shift", [0, 2])
+def test_bf16_vec_flags(shift):
+    """bf16 takes 16-byte vectors where d is a multiple of 8 and all five
+    pointers are 16-byte aligned: d 8 and 2048, not 7, 9 or 2051, and
+    none with one operand 2 bytes off (a view at an odd element)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    ds = (7, 8, 9, 2048, 2048 + 3)
+    p = [(q[0] + shift,) + q[1:] for q in _ptrs(len(ds))]
+    table, _ = _tables_of(2, ds, [bf16] * len(ds), p)
+    want = [0, int(not shift), 0, int(not shift), 0]
+    assert table[:, 7].tolist() == want
+    # fp32 as before: d a multiple of 4 (8, 2048), pointers aligned
+    table, _ = _tables_of(2, ds, [f32] * len(ds), p)
+    assert table[:, 7].tolist() == want
+    assert tk.VEC == {f32: 4, bf16: 8}
+
+
 def test_chunks_above_the_table_limit():
     n = 2 * tk.MAX_LEAVES + 4
-    ds = [1 + (i % 3) * tk.TILE for i in range(n)]   # 1, 2 or 3 tiles
+    tile = tk.TILES[torch.float32]
+    ds = [1 + (i % 3) * tile for i in range(n)]     # 1, 2 or 3 tiles
     table, launches = _tables_of(5, ds, [torch.float32] * n, _ptrs(n))
     assert [(ln.start, ln.stop) for ln in launches] == [
         (0, 48), (48, 96), (96, n)]
     assert table[:, 0].tolist() == [p[0] for p in _ptrs(n)]   # in order
     for ln in launches:
-        tiles = [-(-d // tk.TILE) for d in ds[ln.start:ln.stop]]
+        tiles = [-(-d // tile) for d in ds[ln.start:ln.stop]]
         firsts = np.cumsum([0] + [5 * t for t in tiles])
         assert table[ln.start:ln.stop, 6].tolist() == firsts[:-1].tolist()
         assert ln.blocks == firsts[-1]
+
+
+def test_block_prefixes_per_dtype():
+    """Each dtype's rows take ceil(d / tile) blocks of its own tile: fp32
+    1,024 elements, bf16 4,096 (256 threads x 8 x 2); a launch past 2^31 -
+    1 blocks raises, counted in its dtype's tile."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert tk.TILES == {f32: 1024, bf16: 4096}
+    ds = (1, 4096, 4097, 3 * 4096, 311_427_072)   # the last: the LM head
+    table, launches = _tables_of(2, ds, [bf16] * 5, _ptrs(5))
+    tiles = [1, 1, 2, 3, 76032]
+    assert table[:, 6].tolist() == np.cumsum([0] + [2 * t for t in tiles
+                                                    ])[:-1].tolist()
+    assert launches == [tk.Launch(bf16, 0, 5, 2 * sum(tiles))]
+    table, launches = _tables_of(2, ds, [f32] * 5, _ptrs(5))
+    assert launches[0].blocks == 2 * sum(-(-d // 1024) for d in ds)
+    # 2^31 fp32 tiles of one row raise; the same d in bf16 is 2^29 blocks
+    big = 1024 * 2**31
+    with pytest.raises(ValueError, match="exceeds"):
+        tk.leaf_tables(1, (big,), [f32], _ptrs(1))
+    assert tk.leaf_tables(1, (big,), [bf16], _ptrs(1))[1] == [
+        tk.Launch(bf16, 0, 1, 2**29)]
+    with pytest.raises(ValueError, match="exceeds"):
+        tk.leaf_tables(1, (4 * big,), [bf16], _ptrs(1))
+
+
+def test_the_training_step_in_blocks_and_bytes():
+    """The full-width training step: Qwen3-1.7B's 311 bf16 leaves
+    (2,032,264,192 parameters, the model built on ``meta``) for 2 clients
+    are 7 launches, every leaf on the vector route, 992,482 blocks of 4,096
+    elements (3,969,364 at the 1,024-element tile); the byte bounds of
+    ``sweep_trees`` 12.13 ms (update, 5 trees), 9.71 (tracking, 4) and
+    10.92 for both under the gate [1, 0] (4.5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models import build_model
+    module, _ = build_model(get_config("qwen3-1.7b"), device="meta").init(0)
+    ds = [p.numel() for _, p in module.named_parameters()]
+    assert len(ds) == 311 and sum(ds) == 2_032_264_192
+    table, launches = _tables_of(2, ds, [torch.bfloat16] * 311, _ptrs(311))
+    assert len(launches) == 7 and table[:, 7].tolist() == [1] * 311
+    assert sum(ln.blocks for ln in launches) == 992_482
+    assert sum(2 * -(-d // 1024) for d in ds) == 3_969_364
+    tree = 2 * 2 * sum(ds)
+    bounds = [tk.sweep_trees(update, live) * tree / HW["hbm_bandwidth"] * 1e3
+              for update, live in ((True, None), (False, None), (True, 0.5),
+                                   (False, 0.5))]
+    assert [round(b, 2) for b in bounds] == [12.13, 9.71, 10.92, 10.92]
+
+
+def test_the_route_leaves_take_both_routes_in_both_dtypes():
+    """``ROUTE_LEAVES``, the card's check of both routes, at the storage
+    offsets it gives: bf16 vectors at d 8, 2048 and 2^20 only, fp32 at
+    the aligned d 1024 only; every dtype on both routes, bf16 first."""
+    base = 1 << 24
+    ptrs = [tuple(base + (5 * i + j) * (1 << 24) + k * dt.itemsize
+                  for j in range(5))
+            for i, (_, dt, k) in enumerate(tk.ROUTE_LEAVES)]
+    table, launches = _tables_of(2, [d for d, _, _ in tk.ROUTE_LEAVES],
+                                 [dt for _, dt, _ in tk.ROUTE_LEAVES], ptrs)
+    assert [ln.dtype for ln in launches] == [torch.bfloat16, torch.float32]
+    assert table[:, 5].tolist() == [d for d, _, _ in tk.ROUTE_LEAVES]
+    assert table[:, 7].tolist() == [0, 0, 1, 0, 0, 1, 0, 1, 0, 0,
+                                    0, 1, 0]
+    assert list(tk.ROUTE_GATES.values())[0] is None
+    assert all(len(m) == 2 for m in list(tk.ROUTE_GATES.values())[1:])
 
 
 def test_empty_leaves_are_skipped():
@@ -282,12 +367,16 @@ def _at(addr, n, dtype_code):
 
 
 class _ModelLib:
-    """The two grouped entry points of ``prox_sweep.cu``, block by block:
-    each block finds its leaf by the table's prefixes, then its row and
-    tile, and runs the plain version on that tile (frozen rows copied)."""
+    """The grouped entry points of ``prox_sweep.cu``, block by block: each
+    block finds its leaf by the table's prefixes, then its row and its
+    tile (of the dtype's ``TILES``), and runs the plain version on that
+    tile (frozen rows copied).  A leaf's vec flag must follow the kernel's
+    rule (d a multiple of the dtype's ``VEC``, the five pointers 16-byte
+    aligned); ``routes`` records each leaf's (dtype, d, vec)."""
 
     def __init__(self):
         self.calls = []
+        self.routes = []
 
     def _run(self, addr, n, params, mask, C, blocks, dtype, tile_fn):
         table = np.frombuffer((ctypes.c_int64 * (n * tk.LEAF_WORDS))
@@ -295,19 +384,21 @@ class _ModelLib:
         table = table.reshape(n, tk.LEAF_WORDS).copy()
         assert 1 <= n <= tk.MAX_LEAVES and table[0, 6] == 0
         self.calls.append((n, blocks, dtype))
-        isz = 4 if dtype == 0 else 2
+        dt = _CT[dtype][1]
+        isz, tile = dt.itemsize, tk.TILES[dt]
+        for *p, d, first, vec in table.tolist():
+            aligned = all(q % 16 == 0 for q in p if q)
+            assert vec == int(d % tk.VEC[dt] == 0 and aligned)
+            self.routes.append((dt, d, vec))
         for b in range(blocks):
             leaf = 0
             while leaf + 1 < n and b >= table[leaf + 1, 6]:
                 leaf += 1
             *p, d, first, vec = (int(v) for v in table[leaf])
-            if vec:
-                assert dtype == 0 and d % 4 == 0
-                assert all(q % 16 == 0 for q in p if q)
-            tiles = -(-d // tk.TILE)
+            tiles = -(-d // tile)
             row, t = divmod(b - first, tiles)
-            start = t * tk.TILE
-            cnt = min(tk.TILE, d - start)
+            start = t * tile
+            cnt = min(tile, d - start)
             off = (row * d + start) * isz
             io = [_at(q + off, cnt, dtype) if q else None for q in p]
             prow = _at(params + 20 * (row // C), 5, 0).reshape(1, 5)
@@ -339,7 +430,7 @@ class _ModelLib:
         name = {v: k for k, v in tk.KINDS.items()}[kind]
         last = np.frombuffer((ctypes.c_int64 * (n * tk.LEAF_WORDS))
                              .from_address(addr), np.int64)[-tk.LEAF_WORDS:]
-        blocks = int(last[6]) + -(-int(last[5]) // tk.TILE)
+        blocks = int(last[6]) + -(-int(last[5]) // tk.TILES[_CT[dtype][1]])
 
         def tile(io, prow, live, cnt):
             x, y, nu, out, unused = io
@@ -456,6 +547,74 @@ def test_host_path_mixed_dtypes_and_chunks(model_lib, kind):
     assert [c[0] for c in model_lib.calls] == [48, 8, 29]
     assert [c[2] for c in model_lib.calls] == [0, 0, 1]
     assert tk.LAUNCH_COUNTS["fused_sweep"] == 3
+
+
+def _at_offset(t, k):
+    """``t``'s values in a contiguous view ``k`` elements past the start of
+    its own allocation (a pointer 16-byte aligned only where k elements
+    are a multiple of 16 bytes)."""
+    flat = torch.empty(t.numel() + k, dtype=t.dtype)
+    view = flat[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (elements a row, dtype, storage offset) of a ragged mixed tree: bf16
+# rows on the vector route (8, 2048, and 8200: three tiles, the last
+# ragged; a view 8 elements in) and on the scalar one (7, 9, 2051, views 1
+# and 4 elements in); fp32 likewise at its own rule (4 elements, 16 bytes)
+ROUTE_LEAVES = ((7, torch.bfloat16, 0), (8, torch.bfloat16, 0),
+                (9, torch.bfloat16, 0), (2048, torch.bfloat16, 0),
+                (2051, torch.bfloat16, 0), (8200, torch.bfloat16, 0),
+                (64, torch.bfloat16, 1), (64, torch.bfloat16, 4),
+                (64, torch.bfloat16, 8), (7, torch.float32, 0),
+                (1030, torch.float32, 0), (1032, torch.float32, 0),
+                (64, torch.float32, 1), (64, torch.float32, 4))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_host_path_vector_and_scalar_routes_on_a_ragged_mixed_tree(
+        model_lib, gated):
+    """Both sweep entry points over ``ROUTE_LEAVES`` (S = 2, C = 3; gated:
+    ``MASK``, config 1 all frozen) on CPU memory: every leaf's vec flag as
+    the kernel's rule, both routes taken in both dtypes, outputs bit-equal
+    to the plain version, frozen rows bit for bit."""
+    S = 2
+    shapes = [(S, C, d) for d, _, _ in ROUTE_LEAVES]
+    dts = [dt for _, dt, _ in ROUTE_LEAVES]
+    x, y, nu = ([_at_offset(t, k) for t, (_, _, k) in zip(ts, ROUTE_LEAVES)]
+                for ts in _tree_leaves(29, shapes, dts))
+    params, _ = _tables(S)
+    mask = torch.from_numpy(MASK) if gated else None
+    for kind in KINDS:
+        got = tk._launch_grouped("fused_update_sweep", "fused_sweep",
+                                 list(zip(x, y, nu)), params, mask, 2, kind)
+        want = tk.fused_update_sweep_grouped_plain(x, y, nu, params, mask,
+                                                   kind=kind)
+        for o, r in zip(got, want):
+            for a, b in zip(o, r):
+                assert torch.equal(_bits(a), _bits(b))
+        for out, ref in zip(got, (x, nu)):
+            _assert_frozen(dict(enumerate(out)), dict(enumerate(ref)), mask)
+    got = tk._launch_grouped("fused_tracking_sweep", "tracking_sweep",
+                             list(zip(y, nu, x)), params, mask, 2)
+    want = tk.fused_tracking_sweep_grouped_plain(y, nu, x, params, mask)
+    for o, r in zip(got, want):
+        for a, b in zip(o, r):
+            assert torch.equal(_bits(a), _bits(b))
+    _assert_frozen(dict(enumerate(got[0])), dict(enumerate(y)), mask)
+    _assert_frozen(dict(enumerate(got[1])), dict(enumerate(x)), mask)
+    if not gated:
+        assert all(g is n_ for g, n_ in zip(got[1], nu))
+    # one launch a dtype a call, bf16 first (the order of appearance); the
+    # routes as listed (CPU allocations are 64-byte aligned)
+    assert [c[2] for c in model_lib.calls] == [1, 0] * 4
+    want = [(dt, d, int(d % tk.VEC[dt] == 0 and k * dt.itemsize % 16 == 0))
+            for d, dt, k in sorted(ROUTE_LEAVES,
+                                   key=lambda r: r[1] == torch.float32)]
+    assert [vec for *_, vec in want] == [0, 1, 0, 1, 0, 1, 0, 0, 1,
+                                         0, 0, 1, 0, 1]
+    assert model_lib.routes == want * 4
 
 
 def test_host_path_skips_an_empty_tree(model_lib):

@@ -27,7 +27,10 @@ against the CPU from one state at atol 1e-5, and a CUDA graph of
 grouped bf16 sweep pair at the LM head's leaf against its plain version
 at atol = rtol = 1e-2 (one bf16 rounding), the gated pair on bf16
 leaves under the async learner's fractional weights within one ulp
-(frozen rows bit for bit), and two reduced fp32
+(frozen rows bit for bit), both routes of the pair (16-byte vectors and
+element by element: ragged rows, misaligned views) on a mixed tree under
+five gates, bf16 within one ulp, fp32 and frozen rows bit for bit, and
+two reduced fp32
 ``FederatedTrainer`` rounds on the card against the CPU at 1e-4.  A Table
 III DEPOSITUM cell launches each sweep kernel once a step for its three
 seeds, and recording its telemetry leaves it bit for bit unchanged.
@@ -945,6 +948,77 @@ def test_gated_bf16_sweep_pair_with_fractional_weights():
     for key in ("fused_sweep", "tracking_sweep"):
         assert tk.LAUNCH_COUNTS[key] == before.get(key, 0) + 1
         assert tk.GATED_LAUNCH_COUNTS[key] == gated.get(key, 0) + 1
+
+
+def _route_tree(seed):
+    """x at the weights' scale, y, nu and g_old at a gradient's: (2, d)
+    leaves of ``kernel.ROUTE_LEAVES`` (one config's 2 clients, lead 1),
+    each a contiguous view at its storage offset."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    trees = []
+    for scale in (0.02, 1.0, 1.0, 1.0):
+        leaves = []
+        for d, dt, k in tk.ROUTE_LEAVES:
+            flat = torch.empty(2 * d + k, dtype=dt, device="cuda")
+            view = flat[k:].view(2, d)
+            view.copy_(torch.randn((2, d), generator=g, device="cuda")
+                       * scale)
+            leaves.append(view)
+        trees.append(leaves)
+    return trees
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate", list(tk.ROUTE_GATES))
+def test_sweep_pair_on_both_routes_of_a_ragged_mixed_tree(gate):
+    """The grouped pair over ``kernel.ROUTE_LEAVES`` under each of
+    ``kernel.ROUTE_GATES``, against the plain versions: bf16 live rows
+    within 1 ulp (both round the same fp32 result once: expected equal),
+    fp32 bit for bit, frozen rows bit for bit the inputs, g_kept's live
+    rows bit for bit g_new; one launch of each kernel a dtype a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    x, y, nu, go = _route_tree(13)
+    row = tk.sweep_params_table(lam=1e-5, theta=4.0, alpha=0.02, gamma=0.8,
+                                beta=1.0, device="cuda")
+    m = tk.ROUTE_GATES[gate]
+    mask = None if m is None else torch.tensor([m], device="cuda")
+    live = (torch.ones(2, dtype=torch.bool, device="cuda") if m is None
+            else mask[0] > 0)
+
+    def held(outs, refs, ins):
+        for o, r, i in zip(outs, refs, ins):
+            assert o.shape == i.shape and o.dtype == i.dtype
+            if o.dtype == torch.bfloat16:
+                if live.any():
+                    assert int(_bf16_ulps(o[live], r[live]).max()) <= 1
+            else:
+                assert torch.equal(_bits(o[live]), _bits(r[live]))
+            assert torch.equal(_bits(o[~live]), _bits(i[~live]))
+
+    for kind in ("l1", "mcp", "scad"):
+        before = tk.LAUNCH_COUNTS["fused_sweep"]
+        outs = tk.fused_update_sweep_grouped(x, y, nu, row, mask, kind=kind,
+                                             lead=1)
+        assert tk.LAUNCH_COUNTS["fused_sweep"] == before + 2
+        refs = tk.fused_update_sweep_grouped_plain(x, y, nu, row, mask,
+                                                   kind=kind, lead=1)
+        torch.cuda.synchronize()
+        held(outs[0], refs[0], x)
+        held(outs[1], refs[1], nu)
+    before = tk.LAUNCH_COUNTS["tracking_sweep"]
+    ys, kept = tk.fused_tracking_sweep_grouped(y, nu, go, row, mask, lead=1)
+    assert tk.LAUNCH_COUNTS["tracking_sweep"] == before + 2
+    ref_ys, _ = tk.fused_tracking_sweep_grouped_plain(y, nu, go, row, mask,
+                                                      lead=1)
+    torch.cuda.synchronize()
+    held(ys, ref_ys, y)
+    for k, gn, g_old in zip(kept, nu, go):
+        if mask is None:
+            assert k is gn
+        else:
+            assert torch.equal(_bits(k[live]), _bits(gn[live]))
+            assert torch.equal(_bits(k[~live]), _bits(g_old[~live]))
 
 
 @pytest.mark.gpu
