@@ -228,6 +228,28 @@ final line):
    * ``async_threaded``: ``run_threaded`` on the figure's problem with a
      dead client and a deadline: every tick, bounded staleness, the dead
      client never applied (48 gated launches);
+6d. the distributed backend (``training/backends.py::ShardMapBackend``):
+   * ``distributed``: an NCCL process group of world size 1 (NCCL refuses
+     two ranks on one device), initialised in this process from a
+     ``FileStore`` and destroyed at the phase's end; ``ShardMapBackend``
+     over it holds every client and runs the collectives (all_gather,
+     all_reduce) on the card: the Fig. 4 MLP's ``DIST_MLP_ROUNDS`` rounds
+     under a dense ring, complete, chebyshev, a cohort schedule and top-k
+     0.1 through the packed ``wire_fn``, each against the same rounds on
+     ``StackedVmapBackend`` (bit-equal, the largest relative L2 of a leaf
+     printed, round walls; 300 launches of each kernel a run); the Fig. 6
+     S = 4 sweep through the backend against the stacked sweep (bit-equal;
+     800 a run); full-width ``qwen3-1.7b`` on 2 bf16 clients, the
+     ``train_llm`` cell, one warm-up and ``DIST_LLM_ROUNDS`` timed rounds
+     through each backend (7 launches a step), the states bit-equal (and
+     every leaf within ``BF16_REL``), round walls, peaks, the state's allocation, and the
+     collectives counted by ``analysis/hlo.py`` against
+     ``analysis.comm.device_wire_bytes``;
+   * ``dryrun``: ``launch/dryrun.py`` on ``meta`` for every architecture at
+     full width, ``--mesh 1x1`` (a line each); Qwen3-1.7B's 2,032,264,192
+     parameters, 2 bf16 clients fitting with the step's temporaries, and
+     its state bytes at 2 clients within ``DRYRUN_REL`` of the allocation
+     ``distributed`` measured and of ``train_llm``'s state;
 7. one DEPOSITUM step's two grouped calls (``ops.fused_local_update``,
    ``ops.fused_tracking``) captured in a ``torch.cuda.CUDAGraph`` on static
    inputs, gated and ungated: each replay equals the eager calls bit for
@@ -249,10 +271,11 @@ final line):
    card's rates from the port's hardware model
    (``repro_torch.launch.mesh.HW``).
 
-Before each path (phases 3, 4, 4a, 4b, 5, 5a, 5b, 6, 6a, 6b, 6c; each
-architecture of 5a and 6) every launch count is set to 0; it is read just
-after.  The kernels line's launches of the two sweep kernels sum the paths
-that run them (3, 4a, 4b, 6a, 6b and 6c), the flash kernels' the served
+Before each path (phases 3, 4, 4a, 4b, 5, 5a, 5b, 6, 6a, 6b, 6c, 6d;
+each architecture of 5a and 6, each run of 6d) every launch count is set
+to 0; it is read just after.  The kernels line's launches of the two
+sweep kernels sum the paths that run them (3, 4a, 4b, 6a, 6b, 6c and
+6d), the flash kernels' the served
 paths (5, 5a, 5b, 6 and 6a), with ``flash_fwd_padded`` the share of them
 through the head-dim route.  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
@@ -264,6 +287,7 @@ beside the script.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -457,6 +481,24 @@ ASYNC_LLM_PEAK_GB = (64.0, 69.0)
 # async_threaded: run_threaded on the async figure's problem, one dead
 # client, a deadline
 ASYNC_THREADED_DEADLINE_S = 30.0
+# The distributed backend on one card: a world-size-1 process group
+# (NCCL refuses two ranks on one device: "Duplicate GPU detected"), the
+# Fig. 4 MLP's rounds under five plans through ShardMapBackend, then
+# StackedVmapBackend, held bit-equal (the same operations at one rank:
+# the one-rank all_gather / all_reduce are copies); top-k 0.1 packed in
+# DIST_TOPK_WIRE_K slots a leaf row (its largest leaf keeps 787);
+# full-width Qwen3-1.7B as train_llm's cell, one warm-up and
+# DIST_LLM_ROUNDS timed rounds each way, held bit-equal, and every leaf
+# within BF16_REL (the limits of tests/test_torch_trainer.py's bf16 runs).
+DIST_BACKEND = "nccl"
+DIST_MLP_ROUNDS = ROUNDS
+DIST_TOPK_WIRE_K = 800
+DIST_TRAIN = TRAIN + ["--rounds", "3"]
+DIST_LLM_ROUNDS = 2
+BF16_REL = {"dx": 6e-2, "y": 5e-2, "nu": 5e-2, "g": 5e-2}
+# launch/dryrun.py's state bytes for Qwen3-1.7B at 2 bf16 clients against
+# the allocation measured for that state
+DRYRUN_REL = 0.01
 
 
 def hw() -> dict:
@@ -3643,6 +3685,321 @@ def phase_async_threaded() -> tuple[dict, dict]:
                       "launches": launches, **summary}
 
 
+def _nccl_group():
+    """A world-size-1 NCCL process group on this card, initialised in this
+    process from a FileStore in a fresh directory; returns the directory
+    (the caller destroys the group and removes it)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group(
+        DIST_BACKEND, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1,
+        **({"device_id": torch.device("cuda", 0)}
+           if DIST_BACKEND == "nccl" else {}))
+    return tmp
+
+
+def _dist_mlp(mesh) -> tuple[dict, dict]:
+    """The Fig. 4 MLP's rounds under five plans through ``ShardMapBackend``
+    (a one-rank group holding all ten clients), then through
+    ``StackedVmapBackend``: round walls, launches, states held against
+    each other."""
+    import torch
+    from repro_torch.core import (CohortSampler, CompressionSpec, MixPlan,
+                                  MixSchedule, as_schedule,
+                                  local_then_comm_round)
+    from repro_torch.quickstart import mlp_config, prepare
+    from repro_torch.training.backends import StackedVmapBackend, get_backend
+
+    cfg = mlp_config(DIST_MLP_ROUNDS, fused="require")
+    dep, C = cfg.depositum, cfg.n_clients
+    p = prepare(cfg, device="cuda")
+    W = MixPlan.dense(p.W, device="cuda")
+    topk = CompressionSpec.topk(0.1, wire_k=DIST_TOPK_WIRE_K, device="cuda")
+    plans = {
+        "dense_ring": W,
+        "complete": MixPlan.complete(),
+        "chebyshev": MixPlan.chebyshev(W, 2),
+        "cohort": MixSchedule.cohort(W, CohortSampler.bernoulli(
+            0.7, C, seed=3, device="cuda")),
+        "topk_0.1_wire": as_schedule(W).with_compression(topk),
+    }
+    shard = get_backend("shard_map", mesh=mesh, n_clients=C)
+    stacked = StackedVmapBackend()
+    out, launches = {}, {"fused_update_sweep": 0, "fused_tracking_sweep": 0}
+    T0 = dep.comm_period
+    # one untimed round: the group's first collectives warm up here
+    local_then_comm_round(prepare(cfg, device="cuda").state, p.batches(0),
+                          p.grad_fn, dep, shard.mixer_for(W))
+    for name, plan in plans.items():
+        comp = plan.compress if isinstance(plan, MixSchedule) else None
+        runs = {}
+        for turn in ("shard", "stacked"):
+            be = shard if turn == "shard" else stacked
+            mixer = be.mixer_for(plan)
+            if name == "topk_0.1_wire" and turn == "shard" \
+                    and mixer.wire_fn is None:
+                raise AssertionError("distributed: top-k gets no wire_fn")
+            state = prepare(cfg, compress=comp, device="cuda").state
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in range(DIST_MLP_ROUNDS):
+                state, _ = local_then_comm_round(state, p.batches(r),
+                                                 p.grad_fn, dep, mixer)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / DIST_MLP_ROUNDS
+            got = read_counts()
+            expect_counts(f"distributed {name} {turn}", got, {
+                "fused_update_sweep": DIST_MLP_ROUNDS * T0,
+                "fused_tracking_sweep": DIST_MLP_ROUNDS * T0})
+            for k in launches:
+                launches[k] += got[k]
+            runs[turn] = {"state": state, "round_ms": [wall]}
+        a, b = runs["shard"]["state"], runs["stacked"]["state"]
+        rel = max(max(v.values()) for v in _rel_l2(a, b).values())
+        bits = all(bits_equal(v, getattr(b, f)[k]) for f in
+                   ("x", "y", "nu", "g") for k, v in getattr(a, f).items())
+        if not bits:
+            raise AssertionError(f"distributed {name}: shard vs stacked "
+                                 f"not bit-equal (max rel L2 {rel})")
+        if not all(torch.isfinite(v).all() for v in a.x.values()):
+            raise AssertionError(f"distributed {name}: x not finite")
+        out[name] = {"bit_equal": bits, "max_rel_l2": rel,
+                     "round_ms_shard": runs["shard"]["round_ms"],
+                     "round_ms_stacked": runs["stacked"]["round_ms"],
+                     "wall_ratio": runs["shard"]["round_ms"][0]
+                     / runs["stacked"]["round_ms"][0]}
+    return launches, out
+
+
+def _dist_fig6(mesh) -> tuple[dict, dict]:
+    """The Fig. 6 S = 4 stacked-W sweep through the backend against the
+    stacked sweep."""
+    import torch
+    from repro_torch.figures import fig6_configs
+    from repro_torch.quickstart import grid_operands
+    from repro_torch.training.backends import get_backend
+    from repro_torch.training.sweep import sweep_run
+
+    cfgs = fig6_configs(FIG6_ROUNDS, fused="require")
+    g = grid_operands(cfgs, device="cuda")
+    dep, C = cfgs[0].depositum, cfgs[0].n_clients
+    be = get_backend("shard_map", mesh=mesh, n_clients=C)
+    outs, walls = {}, {}
+    launches = {"fused_update_sweep": 0, "fused_tracking_sweep": 0}
+    for name, backend in (("shard", be), ("stacked", None)):
+        reset_counts()
+        st, wall = _timed(lambda: sweep_run(
+            g.params0, g.prepared.grad_fn, dep, g.plan, g.hypers, g.batches,
+            n_clients=C, backend=backend)[0])
+        got = _sweep_counts(f"distributed fig6 {name}",
+                            FIG6_ROUNDS * dep.comm_period)
+        for k in launches:
+            launches[k] += got[k]
+        outs[name], walls[name] = st, wall
+    rel = max(max(v.values()) for v in _rel_l2(outs["shard"],
+                                                outs["stacked"]).values())
+    bits = all(bits_equal(v, getattr(outs["stacked"], f)[k])
+               for f in ("x", "y", "nu", "g")
+               for k, v in getattr(outs["shard"], f).items())
+    if not bits:
+        raise AssertionError(f"distributed fig6: not bit-equal (max rel L2 "
+                             f"{rel})")
+    return launches, {"S": len(cfgs), "rounds": FIG6_ROUNDS,
+                      "bit_equal": bits, "max_rel_l2": rel,
+                      "wall_s": walls}
+
+
+def _dist_llm(mesh) -> tuple[dict, dict]:
+    """Full-width Qwen3-1.7B, 2 bf16 clients, the train_llm cell (complete
+    plan, T0 4, B 2 x L 512): one warm-up and DIST_LLM_ROUNDS timed rounds
+    through ``ShardMapBackend``, then the same through
+    ``StackedVmapBackend`` from the same inputs; states held within
+    ``BF16_REL``, walls, peaks, launches and the counted collective bytes
+    against ``device_wire_bytes``."""
+    import torch
+    from repro_torch.analysis.comm import device_wire_bytes
+    from repro_torch.analysis.hlo import counting, parse_collectives
+    from repro_torch.kernels.prox import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.training.backends import StackedVmapBackend, get_backend
+
+    args = train.parse_args(DIST_TRAIN)
+    res, finals, x0 = {}, None, None
+    launches = {"fused_update_sweep": 0, "fused_tracking_sweep": 0}
+    for name in ("shard", "stacked"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if name == "shard":
+            be = counting(get_backend("shard_map", mesh=mesh,
+                                      n_clients=args.clients))
+            counter = be.axis
+        else:
+            be, counter = StackedVmapBackend(), None
+        trainer, cfg, state, it = train.build(args, backend=be)
+        torch.cuda.synchronize()
+        state_alloc = torch.cuda.memory_allocated() - base
+        if x0 is None:
+            x0 = {k: v[0].to("cpu") for k, v in state.x.items()}
+        n_leaves = len(state.x)
+        per_step = -(-n_leaves // K.MAX_LEAVES)
+        reset_counts()
+        state, hist = trainer.run(state, it, 1, donate=True)
+        torch.cuda.synchronize()
+        losses = [hist[-1]["loss"]]
+        if counter is not None:
+            counter.reset()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(DIST_LLM_ROUNDS):
+            t0 = time.perf_counter()
+            state, hist = trainer.run(state, it, 1, donate=True)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(hist[-1]["loss"])
+        peak = torch.cuda.max_memory_allocated() - base
+        got = read_counts()
+        T0 = args.t0
+        expect_counts(f"distributed llm {name}", got, {
+            "fused_update_sweep": per_step * T0 * (1 + DIST_LLM_ROUNDS),
+            "fused_tracking_sweep": per_step * T0 * (1 + DIST_LLM_ROUNDS)})
+        for k in launches:
+            launches[k] += got[k]
+        if not all(l == l and abs(l) < float("inf") for l in losses):
+            raise AssertionError(f"distributed llm {name}: loss {losses}")
+        res[name] = {"round_ms": walls, "losses": losses,
+                     "state_alloc_gb": _gb(state_alloc),
+                     "peak_gb": _gb(peak), "launches_per_step": per_step}
+        if counter is not None:
+            d = sum(v[0].numel() for v in state.x.values())
+            colls = parse_collectives(counter)
+            res[name]["collectives_per_round"] = {
+                k: {"count": v["count"] / DIST_LLM_ROUNDS,
+                    "bytes": v["bytes"] / DIST_LLM_ROUNDS}
+                for k, v in colls.items()}
+            res[name]["device_wire_bytes"] = device_wire_bytes(
+                trainer.plan, d, args.clients, be.axis.size)
+        if name == "shard":
+            # to the host: the stacked run needs the card's memory
+            finals = {f: {k: v.to("cpu") for k, v in
+                          getattr(state, f).items()}
+                      for f in ("x", "y", "nu", "g")}
+        else:
+            rels, bits = _llm_rel(finals, state, x0)
+        del trainer, state, it
+    del finals
+    if not bits:
+        raise AssertionError(f"distributed llm: shard vs stacked not "
+                             f"bit-equal (max rel L2 a leaf {rels})")
+    for f, limit in BF16_REL.items():
+        if not rels[f] <= limit:
+            raise AssertionError(f"distributed llm: {f} rel {rels[f]} > "
+                                 f"{limit}")
+    return launches, {"arch": cfg.name, "clients": args.clients,
+                      "topology": args.topology, "t0": args.t0,
+                      "batch": args.batch, "seq": args.seq,
+                      "rel_l2": rels, "bf16_rel": BF16_REL,
+                      "bit_equal": bits, **res}
+
+
+def _llm_rel(host: dict, state, x0: dict) -> tuple[dict, bool]:
+    """The largest relative L2 of a leaf of a host state (the shard run's)
+    against a state on the card (the stacked run's), a variable each, on
+    the card (x as its move from ``x0``), and whether every leaf is
+    bit-equal."""
+    import torch
+    rels, bits = {}, True
+    for f, key in (("x", "dx"), ("y", "y"), ("nu", "nu"), ("g", "g")):
+        rels[key] = 0.0
+        for k, w in getattr(state, f).items():
+            v = host[f][k].to(w.device)
+            bits = bits and bits_equal(v, w)
+            v, w = v.float(), w.float()
+            if f == "x":
+                x = x0[k].to(w.device).float()
+                v, w = v - x, w - x
+            num = float(torch.sum((v - w) ** 2))
+            den = float(torch.sum(w ** 2))
+            rels[key] = max(rels[key], (num / max(den, 1e-30)) ** 0.5)
+            del v, w
+    return rels, bits
+
+
+def phase_distributed() -> tuple[dict, dict]:
+    """The distributed backend on the card: a world-size-1 NCCL process
+    group (FileStore, in this process), ``ShardMapBackend`` over it holding
+    every client, against ``StackedVmapBackend``: the Fig. 4 MLP under
+    five plans, the Fig. 6 S = 4 sweep, and full-width Qwen3-1.7B on 2
+    bf16 clients.  The group is destroyed at the end."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_client_mesh
+
+    tmp = _nccl_group()
+    try:
+        mesh = make_client_mesh()
+        if dist.get_backend() != DIST_BACKEND or mesh.shape != {"clients": 1}:
+            raise AssertionError(f"distributed: {dist.get_backend()} "
+                                 f"{mesh.shape}")
+        mlp_launches, mlp = _dist_mlp(mesh)
+        fig6_launches, fig6 = _dist_fig6(mesh)
+        llm_launches, llm = _dist_llm(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: mlp_launches[k] + fig6_launches[k] + llm_launches[k]
+                for k in mlp_launches}
+    return launches, {"phase": "distributed", "backend": DIST_BACKEND,
+                      "world_size": 1, "mlp": mlp, "fig6": fig6, "llm": llm,
+                      "launches": launches}
+
+
+def phase_dryrun(measured_state_gb: float, train_state_gb: float) -> dict:
+    """What ``python -m repro_torch.launch.dryrun --arch all --mesh 1x1``
+    reckons for every arch at full width on ``meta`` (a line each), and
+    Qwen3-1.7B's state at 2 bf16 clients against the allocation measured
+    for it (``phase_distributed``) and ``train_llm``'s state bytes."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rows = [dryrun.run_one(arch, "train_4k", mesh="1x1")
+            for arch in list_archs()]
+    for r in rows:
+        emit({"phase": "dryrun_arch", **{k: r[k] for k in (
+            "arch", "params", "dtype", "tree_bytes_per_client", "n_trees",
+            "n_clients", "state_bytes_per_device",
+            "clients_fit_per_device", "collective_bytes_per_device")},
+            "dominant": r["roofline"]["dominant"],
+            "step_lower_bound_s": r["roofline"]["step_lower_bound_s"]})
+    if [r["arch"] for r in rows] != list_archs():
+        raise AssertionError("dryrun: not every arch")
+    q = dryrun.run_one("qwen3-1.7b", "train_4k", mesh="1x1", n_clients=2)
+    pred_gb = _gb(q["state_bytes_per_device"])
+    rel = {"measured_alloc": abs(pred_gb - measured_state_gb)
+           / measured_state_gb,
+           "train_llm_state": abs(pred_gb - train_state_gb) / train_state_gb}
+    if not max(rel.values()) <= DRYRUN_REL:
+        raise AssertionError(f"dryrun: {pred_gb} GB vs measured "
+                             f"{measured_state_gb} / {train_state_gb}")
+    if q["params"] != 2_032_264_192 or q["clients_fit_per_device"] != 2:
+        raise AssertionError(f"dryrun qwen3: {q['params']} params, "
+                             f"{q['clients_fit_per_device']} clients fit")
+    return {"phase": "dryrun", "archs": len(rows), "mesh": "1x1",
+            "qwen3_params": q["params"], "qwen3_state_gb": pred_gb,
+            "measured_state_alloc_gb": measured_state_gb,
+            "train_llm_state_gb": train_state_gb, "rel": rel,
+            "rel_limit": DRYRUN_REL,
+            "clients_fit": q["clients_fit_per_device"],
+            "step_temp_gb_per_client": _gb(
+                q["step_temp_bytes_per_device"] / 2),
+            "seconds": time.perf_counter() - t0}
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3719,6 +4076,12 @@ def main() -> int:
         train_paths.append(path_launches)
         torch.cuda.empty_cache()
     sweep_launches += train_paths
+    dist_launches, distributed = phase_distributed()
+    emit(distributed)
+    sweep_launches.append(dist_launches)
+    torch.cuda.empty_cache()
+    emit(phase_dryrun(distributed["llm"]["shard"]["state_alloc_gb"],
+                      llm["state_gb"]))
     for phase in (phase_table3, phase_fig5, phase_fig7, phase_telemetry,
                   phase_async_throughput, phase_async_mlp,
                   phase_async_threaded):

@@ -1,9 +1,12 @@
 """Host-side analysis: bytes on the wire of (compressed) gossip rounds,
-and the three-term roofline over the card's hardware model.
-
-``hlo`` (collective bytes parsed from XLA's HLO) waits for the distributed
-backends (ROADMAP Queue 1 item 5c): collectives need a process group.
+the three-term roofline over the card's hardware model, and the
+collectives a sharded run put on the wire (``hlo``: counted as they run,
+where the reference parses XLA's HLO).
 """
+from repro_torch.analysis.hlo import (  # noqa: F401
+    collective_bytes,
+    parse_collectives,
+)
 from repro_torch.analysis.comm import (  # noqa: F401
     collectives_per_round,
     device_wire_bytes,

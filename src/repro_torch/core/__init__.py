@@ -29,7 +29,17 @@ from repro_torch.core.compression import (  # noqa: F401
     unpack_payload,
     wire_mode,
 )
-from repro_torch.core.gossip import identity_mixer, make_dense_mixer  # noqa: F401
+from repro_torch.core.gossip import (  # noqa: F401
+    circulant_from_mixer_spec,
+    identity_mixer,
+    make_complete_mixer,
+    make_dense_mixer,
+    make_neighbor_mixer,
+    ring_mixer,
+    torus_circulant_spec,
+    torus_grid_shape,
+    torus_mixer,
+)
 from repro_torch.core.hyper import Hyper, hyper_grid, n_sweep, stack_hypers  # noqa: F401
 from repro_torch.core.mixing import (  # noqa: F401
     MixPlan,

@@ -48,8 +48,8 @@ draws from its own seed.  A spec's ``uniforms`` hook replaces the hash
 (parity tests inject the reference's draws through it).
 
 The packed wire payloads (:func:`pack_payload` / :func:`unpack_payload`)
-round-trip exactly; their consumer, the per-shard mixer, arrives with the
-backends slice (ROADMAP Queue 1 item 5c).
+round-trip exactly; :func:`repro_torch.core.schedule.shard_compressed_qmix`
+puts them on the collectives of a sharded client axis.
 """
 from __future__ import annotations
 
@@ -77,28 +77,34 @@ _LEAVES = ("rate", "bits", "ef_step", "seed", "kind_id")
 class DrawKey(NamedTuple):
     """Where a compressor's uniforms come from: the spec's int64 ``seed``
     tensor (``()`` or ``(S,)``) and the host integers folded into it so far
-    (round, variable, leaf), the reference's ``fold_in`` chain."""
+    (round, variable, leaf), the reference's ``fold_in`` chain.  ``row0``
+    is the global index of the first client row drawn for: a process
+    holding a block of a sharded client axis draws its rows' uniforms,
+    those of the same rows in the whole stacked state."""
 
     seed: torch.Tensor
     path: tuple = ()
+    row0: int = 0
 
 
 def fold_in(key: DrawKey, data: int) -> DrawKey:
     """``key`` with one more integer folded in (no device work)."""
-    return DrawKey(key.seed, key.path + (int(data),))
+    return key._replace(path=key.path + (int(data),))
 
 
 def hashed_uniforms(key: DrawKey, shape) -> torch.Tensor:
     """float32 uniforms in [0, 1) for a block of rows ``shape = (..., rows,
     d)``: element ``(i, j)`` of a point is a function of ``(seed, path,
-    i * d + j)`` alone, so the draws of a sweep point equal those of the
-    same spec run alone.  A ``(S,)`` seed gives each point its own block;
-    a ``()`` seed shares one over the leading dims."""
+    (row0 + i) * d + j)`` alone, so the draws of a sweep point equal those
+    of the same spec run alone, and a shard's rows those of the same rows
+    stacked.  A ``(S,)`` seed gives each point its own block; a ``()``
+    seed shares one over the leading dims."""
     h = _mix32(key.seed & _M32)
     for p in key.path:
         h = _mix32(h ^ (p & _M32))
     rows, d = shape[-2:]
-    idx = torch.arange(rows * d, device=h.device, dtype=torch.int64)
+    idx = torch.arange(key.row0 * d, (key.row0 + rows) * d,
+                       device=h.device, dtype=torch.int64)
     idx = (idx & _M32).reshape(rows, d)
     u = (_mix32(h.reshape(h.shape + (1, 1)) ^ idx) >> 8).to(torch.float32)
     return (u * 2.0 ** -24).expand(tuple(shape))

@@ -75,6 +75,7 @@ from repro_torch.kernels.prox.ops import (
     fused_tracking,
     hyper_param_vec,
 )
+from repro_torch.launch.mesh import LOCAL_AXIS, client_axis
 from repro_torch.obs.trace import annotate
 
 Tree = dict  # name -> (C, ...) tensor
@@ -205,7 +206,7 @@ class DepositumState(NamedTuple):
 
 def init(params: Tree, n_clients: int, stacked: bool = False,
          n_max: int | None = None, compress: Any = None, *,
-         device="cuda") -> DepositumState:
+         device="cuda", backend=None) -> DepositumState:
     """Initial state on ``device``: identical x across clients, all
     auxiliaries zero.
 
@@ -215,17 +216,25 @@ def init(params: Tree, n_clients: int, stacked: bool = False,
     ``compress`` (a CompressionSpec, or a schedule carrying one) allocates
     the zeroed CHOCO memory on ``state.comm``; None and a ``kind="none"``
     spec leave ``comm = ()``.
+
+    ``backend`` with a sharded client axis (a ``ShardMapBackend``) builds
+    this process's rows only: its block of the (padded) client axis.
     """
     if n_max is not None and n_max < n_clients:
         raise ValueError(f"n_max={n_max} < n_clients={n_clients}")
     dev = resolve_device(device)
+    total = n_clients if n_max is None else n_max
+    rows = client_axis(backend).rows(total)
+    live = slice(rows.start, max(rows.start, min(rows.stop, n_clients)))
+    n_live = live.stop - live.start
+    pad = rows.stop - rows.start - n_live      # padding rows: zero x
     x = {}
     for k, p in params.items():
         p = p.to(dev)
-        v = p.clone() if stacked else p[None].expand(
-            (n_clients,) + tuple(p.shape)).clone()
-        if n_max is not None and n_max > n_clients:
-            v = torch.cat([v, v.new_zeros((n_max - n_clients,) + v.shape[1:])])
+        v = p[live].clone() if stacked else p[None].expand(
+            (n_live,) + tuple(p.shape)).clone()
+        if pad:
+            v = torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
         x[k] = v
     z = lambda: {k: torch.zeros_like(v) for k, v in x.items()}
     return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0,
@@ -310,7 +319,7 @@ def step(
                  hp_vec, active_mask)
 
 
-def _mix_masks_gate(sched, r: int, sweep: bool, mask) -> bool:
+def _mix_masks_gate(sched, r: int, sweep: bool, mask, rows=None) -> bool:
     """Does round ``r``'s mix of ``sched`` already mask every row that
     ``mask`` freezes, so that no live row reads a frozen one?  A cohort
     schedule's does.  A lazy schedule's does when its round row is zero
@@ -324,6 +333,8 @@ def _mix_masks_gate(sched, r: int, sweep: bool, mask) -> bool:
     if sched.kind != "lazy" or sched.active is None:
         return False
     row = _active_mask(sched, r, sweep).to(mask.device)
+    if rows is not None:
+        row = row[..., rows]
     return bool(torch.all((mask > 0) | (row == 0)))
 
 
@@ -360,9 +371,11 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     r = state.t // config.comm_period
     comm_spec = None        # the schedule's active CompressionSpec
     key_x = key_y = None
+    qmix = None             # how a compressed increment q communicates
+    rows = getattr(mixer, "rows", None)
     if sched is not None:
         if active_mask is None:
-            active_mask = schedule_round_mask(sched, r)
+            active_mask = schedule_round_mask(mixer, r)
         comm_spec = active_compression(sched)
         if comm_spec is not None:
             if not state.comm:
@@ -373,6 +386,14 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
             # the spec's scalars divide on the state's device
             comm_spec = comm_spec.to(hp_vec.device)
             key_x, key_y = comm_round_keys(comm_spec, r)
+            if rows is not None and key_x is not None:
+                # this shard's rows draw the uniforms of their global rows
+                key_x, key_y = (k._replace(row0=rows.start)
+                                for k in (key_x, key_y))
+            wire_fn = getattr(mixer, "wire_fn", None)
+            if wire_fn is not None:
+                # the packed payload on the collectives of a sharded axis
+                qmix = _scoped("gossip", lambda tree: wire_fn(tree, r))
         if isinstance(mixer, MixSchedule):
             fn = apply_schedule_sweep if sweep else apply_schedule
             mixer = lambda tree, fn=fn: fn(sched, r, tree)
@@ -426,7 +447,7 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
     kernel_mask = None
     if fused_ok and active_mask is not None and (
             is_comm_step is False
-            or _mix_masks_gate(sched, r, sweep, active_mask)):
+            or _mix_masks_gate(sched, r, sweep, active_mask, rows)):
         kernel_mask = active_mask
     if donate and active_mask is not None and kernel_mask is None:
         if fused_mode == "off":
@@ -471,8 +492,8 @@ def _step(state, batch, grad_fn, config, mixer, is_comm_step, hp, hp_vec,
         if comm_spec is None:
             out, new_mem = mixer(tree), mem
         else:
-            out, new_mem = choco_mix(comm_spec, mixer, tree, mem, key,
-                                     lead=2 if sweep else 1)
+            out, new_mem = choco_mix(comm_spec, qmix or mixer, tree, mem,
+                                     key, lead=2 if sweep else 1)
         if is_comm_step is True:
             return out, new_mem
         if comm_spec is not None:
@@ -599,39 +620,42 @@ def local_then_comm_round(
 # Paper metrics (Definition 3): stationarity s(x, nu_bar)
 # ---------------------------------------------------------------------------
 
-def _client_mean(tree: Tree, weights: torch.Tensor | None = None) -> Tree:
+def _client_mean(tree: Tree, weights: torch.Tensor | None = None,
+                 axis=LOCAL_AXIS) -> Tree:
     """Mean over the leading client dim; ``weights`` (n,) restricts it to a
-    sub-population (padded rows out of the average)."""
+    sub-population (padded rows out of the average).  ``axis`` (a
+    ``ShardAxis``): the client dim holds this shard's rows of a sharded
+    axis, and the mean is over every shard's (``weights`` stay global)."""
+    return {k: axis.client_mean(v, 0, weights) for k, v in tree.items()}
+
+
+def _sq_norm(tree: Tree, weights: torch.Tensor | None = None,
+             axis=LOCAL_AXIS) -> torch.Tensor:
+    """Summed squared norm; ``weights`` (n,) masks the leading client dim.
+    ``axis``: summed over every shard's rows (``weights`` global)."""
     if weights is None:
-        return {k: torch.mean(v, dim=0) for k, v in tree.items()}
-    w32 = weights.to(torch.float32)
-    w = w32 / torch.clamp_min(torch.sum(w32), 1e-12)
-    return {k: torch.einsum("i,i...->...", w, v.to(torch.float32)).to(v.dtype)
-            for k, v in tree.items()}
+        total = sum(torch.sum(torch.square(v.to(torch.float32)))
+                    for v in tree.values())
+    else:
+        w = axis.take(weights.to(torch.float32), -1)
+
+        def leaf(v):
+            sq = torch.square(v.to(torch.float32))
+            per_client = torch.sum(sq.reshape(sq.shape[0], -1), dim=1)
+            return torch.sum(w * per_client)
+
+        total = sum(leaf(v) for v in tree.values())
+    return axis.psum(total)
 
 
-def _sq_norm(tree: Tree, weights: torch.Tensor | None = None) -> torch.Tensor:
-    """Summed squared norm; ``weights`` (n,) masks the leading client dim."""
-    if weights is None:
-        return sum(torch.sum(torch.square(v.to(torch.float32)))
-                   for v in tree.values())
-    w = weights.to(torch.float32)
-
-    def leaf(v):
-        sq = torch.square(v.to(torch.float32))
-        per_client = torch.sum(sq.reshape(sq.shape[0], -1), dim=1)
-        return torch.sum(w * per_client)
-
-    return sum(leaf(v) for v in tree.values())
-
-
-def consensus_error(tree: Tree, weights: torch.Tensor | None = None
-                    ) -> torch.Tensor:
+def consensus_error(tree: Tree, weights: torch.Tensor | None = None,
+                    axis=LOCAL_AXIS) -> torch.Tensor:
     """||J v - v||^2 summed over leaves (leading dim = clients); ``weights``
-    restricts both the mean and the sum to a client sub-population."""
-    mean = _client_mean(tree, weights)
+    restricts both the mean and the sum to a client sub-population.
+    ``axis``: over every shard's rows of a sharded client axis."""
+    mean = _client_mean(tree, weights, axis)
     diff = {k: v - mean[k][None] for k, v in tree.items()}
-    return _sq_norm(diff, weights)
+    return _sq_norm(diff, weights, axis)
 
 
 def stationarity_metrics(
@@ -642,6 +666,7 @@ def stationarity_metrics(
     *,
     hyper: Hyper | None = None,
     weights: torch.Tensor | None = None,
+    backend=None,
 ) -> dict[str, torch.Tensor]:
     """The three Definition-3 terms (exact grads; eval only).
 
@@ -649,11 +674,15 @@ def stationarity_metrics(
       "global_at": x_stacked -> ∇f evaluated at each client's x_i,
       "local_at":  x_stacked -> ∇f_i evaluated at x_i,
     }
-    ``weights`` is the padded-axis eligibility mask (n,).
+    ``weights`` is the padded-axis eligibility mask (n,).  With a
+    ``backend`` that shards the client axis the state holds this process's
+    rows (and so do the grad_fns' inputs and outputs); every term reduces
+    over the whole group, and ``weights`` stay global.
     """
+    axis = client_axis(backend)
     hp, _ = _round_scalars(config.hyper() if hyper is None else hyper, state)
     if weights is None:
-        n = next(iter(state.x.values())).shape[0]
+        n = next(iter(state.x.values())).shape[0] * axis.size
     else:
         n = torch.sum(weights.to(torch.float32))
     global_grads = grad_fns["global_at"](state.x)
@@ -664,13 +693,13 @@ def stationarity_metrics(
     proxed = prox_apply(config.prox_name, shifted, hp.alpha,
                         lam=hp.lam, theta=hp.theta)
     G = {k: (p - proxed[k]) / hp.alpha for k, p in state.x.items()}
-    prox_grad_sq = _sq_norm(G, weights)
+    prox_grad_sq = _sq_norm(G, weights, axis)
 
-    cons_x = consensus_error(state.x, weights)
+    cons_x = consensus_error(state.x, weights, axis)
 
     # ∇̄f(x): mean of local grads at x_i
-    gbar = _client_mean(local_grads, weights)
-    nubar = _client_mean(state.nu, weights)
+    gbar = _client_mean(local_grads, weights, axis)
+    nubar = _client_mean(state.nu, weights, axis)
     est_err = _sq_norm({k: gbar[k] - nubar[k] for k in gbar})
     s = (prox_grad_sq + L ** 2 * cons_x + n * est_err) / n
     return {
@@ -678,6 +707,6 @@ def stationarity_metrics(
         "consensus_x": cons_x / n,
         "grad_est_err": est_err,
         "stationarity": s,
-        "consensus_y": consensus_error(state.y, weights) / n,
-        "consensus_nu": consensus_error(state.nu, weights) / n,
+        "consensus_y": consensus_error(state.y, weights, axis) / n,
+        "consensus_nu": consensus_error(state.nu, weights, axis) / n,
     }

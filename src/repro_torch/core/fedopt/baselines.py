@@ -47,6 +47,7 @@ from repro_torch.core.schedule import (
     apply_schedule,
     apply_schedule_sweep,
 )
+from repro_torch.launch.mesh import client_axis
 
 Tree = dict  # name -> (C, ...) tensor, or (S, C, ...) on the sweep axis
 GradFn = Callable[[Tree, Any], tuple[Tree, Any]]
@@ -73,8 +74,11 @@ class FedState(NamedTuple):
     t: int         # rounds taken (host int)
 
 
-def _client_mean(tree: Tree, dim: int) -> Tree:
-    return {k: torch.mean(v, dim=dim) for k, v in tree.items()}
+def _client_mean(tree: Tree, dim: int, backend=None) -> Tree:
+    """The server's mean over the client dim; over every process's rows
+    when ``backend`` shards the client axis."""
+    axis = client_axis(backend)
+    return {k: axis.client_mean(v, dim) for k, v in tree.items()}
 
 
 def _rebroadcast(tree: Tree, n: int, dim: int) -> Tree:
@@ -131,7 +135,9 @@ class _Algorithm:
     MixSchedule) likewise overrides the mixing matrix for the
     *decentralized* algorithms; server-style algorithms (whose aggregation
     is a client mean, not gossip) reject it rather than silently ignore a
-    topology the caller thought was in effect.
+    topology the caller thought was in effect.  ``backend`` (a
+    ``ShardMapBackend``): the state holds this process's client rows; the
+    server mean reduces over the group, the gossip runs its collectives.
     """
 
     def __init__(self, cfg: FedAlgConfig):
@@ -201,19 +207,19 @@ class _Algorithm:
 
     def round(self, state: FedState, batches, grad_fn: GradFn,
               hyper: Hyper | None = None, plan=None, *,
-              sweep: bool = False) -> tuple[FedState, dict]:
+              sweep: bool = False, backend=None) -> tuple[FedState, dict]:
         raise NotImplementedError  # pragma: no cover - interface
 
 
 class FedMiD(_Algorithm):
     def round(self, state, batches, grad_fn, hyper=None, plan=None, *,
-              sweep=False):
+              sweep=False, backend=None):
         self._check_no_plan(plan)
         dim = 1 if sweep else 0
         n = _first(state.x).shape[dim]
         hp = self._hp(hyper, _first(state.x), sweep)
         x = self._local_sgd(state.x, batches, grad_fn, True, hp)
-        x = _rebroadcast(_client_mean(x, dim), n, dim)   # primal averaging
+        x = _rebroadcast(_client_mean(x, dim, backend), n, dim)
         return state._replace(x=x, t=state.t + 1), {}
 
 
@@ -222,7 +228,7 @@ class FedDR(_Algorithm):
         return super().init_stacked(x)._replace(aux1=x)   # y_i = x_i
 
     def round(self, state, batches, grad_fn, hyper=None, plan=None, *,
-              sweep=False):
+              sweep=False, backend=None):
         self._check_no_plan(plan)
         dim = 1 if sweep else 0
         n = _first(state.x).shape[dim]
@@ -236,14 +242,14 @@ class FedDR(_Algorithm):
         x = self._local_sgd(y, batches, grad_fn, False, hp, anchor=y,
                             rho=1.0 / eta)
         xhat = {k: 2.0 * xi - y[k] for k, xi in x.items()}
-        zbar = self._prox(_client_mean(xhat, dim), eta, hp)
+        zbar = self._prox(_client_mean(xhat, dim, backend), eta, hp)
         return (state._replace(x=x, aux1=y, aux2=_rebroadcast(zbar, n, dim),
                                t=state.t + 1), {})
 
 
 class FedADMM(_Algorithm):
     def round(self, state, batches, grad_fn, hyper=None, plan=None, *,
-              sweep=False):
+              sweep=False, backend=None):
         self._check_no_plan(plan)
         dim = 1 if sweep else 0
         n = _first(state.x).shape[dim]
@@ -256,7 +262,8 @@ class FedADMM(_Algorithm):
                             anchor=shifted_anchor, rho=rho)
         lam = {k: ll + rho * (x[k] - z[k]) for k, ll in lam.items()}
         zbar = self._prox(
-            _client_mean({k: xi + lam[k] / rho for k, xi in x.items()}, dim),
+            _client_mean({k: xi + lam[k] / rho for k, xi in x.items()}, dim,
+                         backend),
             1.0 / rho, hp)
         return (state._replace(x=x, aux1=lam,
                                aux2=_rebroadcast(zbar, n, dim),
@@ -294,12 +301,15 @@ class DSGD(_Algorithm):
         return self._placed[device]
 
     def round(self, state, batches, grad_fn, hyper=None, plan=None, *,
-              sweep=False):
+              sweep=False, backend=None):
         hp = self._hp(hyper, _first(state.x), sweep)
         x = self._local_sgd(state.x, batches, grad_fn, self.use_prox, hp)
         p = (plan if plan is not None
              else self._plan_on(_first(state.x).device))
-        if isinstance(p, MixSchedule):
+        if backend is not None:
+            mix = backend.mixer_for(p, sweep=sweep)
+            x = mix(x, state.t) if isinstance(p, MixSchedule) else mix(x)
+        elif isinstance(p, MixSchedule):
             x = (apply_schedule_sweep if sweep else apply_schedule)(
                 p, state.t, x)
         else:

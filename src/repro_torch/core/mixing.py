@@ -15,8 +15,11 @@ and offsets are static structure.  Kinds:
 :func:`apply_mix` runs a plan on dicts of client-stacked tensors, and
 :func:`apply_mix_sweep` on dicts of ``(S, n, ...)`` tensors: S sweep points
 at once, each with its own plan point (a stacked plan) or one shared plan.
-The per-shard form ``shard_body`` (collectives over a process group) comes
-with the backends slice (ROADMAP Queue 1 item 5c).
+:func:`shard_body` runs a plan on one leaf's block of a client axis
+sharded over a process group (the reference's body inside ``shard_map``):
+the collectives of a :class:`~repro_torch.launch.mesh.ShardAxis`;
+:func:`shard_mixer` runs it on every leaf of a tree, the mixer the
+distributed backend, the placement mixers and the gossip mixers share.
 """
 from __future__ import annotations
 
@@ -375,3 +378,93 @@ def resolve_mixer(mixer_or_plan) -> tuple[Any, Optional[MixPlan]]:
     if isinstance(mixer_or_plan, MixPlan):
         return as_mixer(mixer_or_plan), mixer_or_plan
     return mixer_or_plan, None
+
+
+# ---------------------------------------------------------------------------
+# Per-shard execution: one block of a client axis sharded over a group
+# ---------------------------------------------------------------------------
+
+def shard_shift(x_blk: torch.Tensor, axis, off: int, n: int) -> torch.Tensor:
+    """The block of position ``(i + off) % n`` of the axis, at every
+    position ``i``: one ``ppermute`` (a circulant offset's exchange)."""
+    return axis.ppermute(x_blk, [((s + off) % n, s) for s in range(n)])
+
+
+def _gather_clients(x_blk: torch.Tensor, axis, sweep: bool) -> torch.Tensor:
+    """Every shard's client block in axis order, on the client dim (dim 0,
+    or dim 1 of a sweep's ``(S, blk, ...)`` block)."""
+    if not sweep:
+        return axis.all_gather(x_blk, tiled=True)
+    return axis.all_gather(x_blk.movedim(1, 0), tiled=True).movedim(0, 1)
+
+
+def _shard_dense(W: torch.Tensor, x_blk: torch.Tensor, axis,
+                 sweep: bool) -> torch.Tensor:
+    """Dense W on a sharded client axis: all_gather the blocks, then one
+    full-fp32 product with this shard's rows of W ((n, n), or (S, n, n)
+    per sweep point)."""
+    gathered = _gather_clients(x_blk, axis, sweep)
+    dim = 1 if sweep else 0
+    blk = x_blk.shape[dim]
+    i = axis.axis_index()
+    rows = W[..., i * blk:(i + 1) * blk, :].to(x_blk.device, x_blk.dtype)
+    if not sweep:
+        return (rows @ gathered.reshape(gathered.shape[0], -1)).reshape(
+            x_blk.shape)
+    S, n = gathered.shape[:2]
+    return torch.matmul(rows, gathered.reshape(S, n, -1)).reshape(
+        x_blk.shape)
+
+
+def shard_body(plan: MixPlan, x_blk: torch.Tensor, axis, n: int, *,
+               sweep: bool = False) -> torch.Tensor:
+    """Mix one leaf *block* of a client axis sharded over ``axis`` (a
+    :class:`~repro_torch.launch.mesh.ShardAxis` of size ``n``).
+
+    ``x_blk`` holds this shard's clients on its leading dim (on dim 1 of
+    a sweep's ``(S, blk, ...)`` block, ``sweep=True``).  Kinds:
+
+    * complete  — the block's client mean, then ``pmean`` over the axis
+      (the global mean for any equal block size), broadcast back.
+    * circulant — one ``ppermute`` per offset (one client per shard).
+    * dense     — ``all_gather`` + a full-fp32 product with this shard's
+      rows of W (TF32 must stay off on the card).
+    * chebyshev — ``cheby_k`` unrolled applications of the base kind.
+    * identity  — no-op.
+    """
+    if plan.kind == "identity":
+        return x_blk
+    if plan.kind == "chebyshev":
+        base = plan.base_plan()
+        return _chebyshev_apply(
+            lambda t: {k: shard_body(base, v, axis, n, sweep=sweep)
+                       for k, v in t.items()},
+            plan.lam, plan.cheby_k, {"leaf": x_blk}, sweep)["leaf"]
+    if plan.kind == "complete":
+        local = torch.mean(x_blk, dim=1 if sweep else 0, keepdim=True)
+        return axis.pmean(local).expand(x_blk.shape).contiguous()
+    if plan.kind == "circulant":
+        out = _coef(plan.self_weight, x_blk, sweep) * x_blk
+        for k, off in enumerate(plan.offsets):
+            w = _coef(plan.weights[..., k], x_blk, sweep)
+            out = out + w * shard_shift(x_blk, axis, off, n)
+        return out
+    return _shard_dense(plan.W, x_blk, axis, sweep)
+
+
+def shard_mixer(plan: MixPlan, axis, *, sweep: bool = False,
+                sharded: Optional[dict] = None):
+    """``mix(tree)``: :func:`shard_body` on every leaf of a client axis
+    sharded over ``axis``.  ``sharded`` (leaf name -> bool; None: every
+    leaf) marks the leaves whose client dim is sharded; the others hold
+    every client and mix as :func:`apply_mix` does."""
+    if plan.kind == "identity":
+        return lambda tree: tree
+    local = apply_mix_sweep if sweep else apply_mix
+
+    def mix(tree):
+        return {k: shard_body(plan, x, axis, axis.size, sweep=sweep)
+                if sharded is None or sharded[k] else local(plan, {k: x})[k]
+                for k, x in tree.items()}
+
+    return mix

@@ -30,10 +30,15 @@ integer, ``t // T0``.
 A schedule may carry a :class:`~repro_torch.core.compression.
 CompressionSpec` (:meth:`MixSchedule.with_compression`): its comm steps
 then run the CHOCO error-feedback exchange of
-:mod:`repro_torch.core.compression` (``repro_torch.core.depositum``).  The
-per-shard execution (``shard_schedule_body``, ``wire_supported``,
-``shard_compressed_qmix``) raises until the backends slice (ROADMAP Queue
-1 item 5c).
+:mod:`repro_torch.core.compression` (``repro_torch.core.depositum``).
+
+On a client axis sharded over a process group, :func:`shard_schedule_body`
+runs round ``r``'s mix of one leaf block through the collectives of a
+:class:`~repro_torch.launch.mesh.ShardAxis`, and
+:func:`shard_compressed_qmix` mixes a compressed increment with its packed
+payload on the wire (:func:`wire_supported` says when it can);
+:func:`shard_schedule_mixer` builds the round-indexed mixer of both, the
+one the distributed backend and the placement mixers share.
 """
 from __future__ import annotations
 
@@ -48,7 +53,10 @@ from repro_torch.core.compression import (
     CompressionSpec,
     as_mixed,
     check_spec,
+    pack_payload,
     stack_specs,
+    unpack_payload,
+    wire_mode,
 )
 from repro_torch.core.mixing import (
     _LEAVES as _PLAN_LEAVES,
@@ -57,6 +65,8 @@ from repro_torch.core.mixing import (
     apply_mix,
     apply_mix_sweep,
     as_dense,
+    shard_body,
+    shard_shift,
     stack_mixplans,
     validate_plan,
 )
@@ -445,11 +455,15 @@ def schedule_round_mask(mixer_or_sched, r: int) -> Optional[torch.Tensor]:
     Only ``cohort`` schedules gate local compute (inactive and padding rows
     freeze for the whole round): (n,), or (S, n) for a stacked schedule.
     The round program calls this once a round.  Accepts a
-    :class:`MixSchedule` or a :class:`ScheduleMixer`.
+    :class:`MixSchedule` or a :class:`ScheduleMixer`; a mixer built for
+    one shard of the client axis (``rows``) gives that shard's rows of the
+    global mask.
     """
     sched = getattr(mixer_or_sched, "schedule", mixer_or_sched)
     if isinstance(sched, MixSchedule) and sched.kind == "cohort":
-        return sched.sampler.mask_at(r)
+        mask = sched.sampler.mask_at(r)
+        rows = getattr(mixer_or_sched, "rows", None)
+        return mask if rows is None else mask[..., rows]
     return None
 
 
@@ -466,38 +480,178 @@ def as_schedule(mixer_or_plan) -> MixSchedule:
 @dataclasses.dataclass(frozen=True)
 class ScheduleMixer:
     """A round-indexed mixer ``mix(tree, r) -> tree``, built by the
-    execution backends; the round program supplies ``r = t // T0``."""
+    execution backends; the round program supplies ``r = t // T0``.
+
+    ``wire_fn`` — when a sharded backend can ship the schedule's
+    compressed increments packed (:func:`wire_supported`) — mixes ``q``
+    with value / index pairs or int8 words on the collectives, so the
+    CHOCO exchange puts fewer bytes on the wire than ``fn`` would; None
+    means ``q`` rides ``fn``.  ``rows`` is the slice of the global client
+    axis this process holds (None: all of it); the round program takes
+    those rows of the schedule's global masks (:func:`schedule_round_mask`).
+    """
 
     fn: Callable[[dict, int], dict]
     schedule: MixSchedule
+    wire_fn: Optional[Callable[[dict, int], dict]] = None
+    rows: Optional[slice] = None
 
     def __call__(self, tree: dict, r: int) -> dict:
         return self.fn(tree, r)
 
 
 # ---------------------------------------------------------------------------
-# Per-shard execution: the backends slice
+# Per-shard execution: one block of a client axis sharded over a group
 # ---------------------------------------------------------------------------
 
-def _backends_slice(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet: per-shard execution over a process "
-        "group arrives with the backends slice (ROADMAP Queue 1 item 5c)")
+def shard_round_plan(sched: MixSchedule, r: int,
+                     sweep: bool = False) -> Optional[MixPlan]:
+    """Round ``r``'s mix as one plan for :func:`~repro_torch.core.mixing.
+    shard_body`, resolved once for a whole tree: the schedule's plan, the
+    round's point of a stacked / alternating one, or the lazy-subgraph
+    dense matrix of a lazy / cohort round over a dense base.  None for a
+    lazy round over a circulant base, whose ppermutes are masked edge by
+    edge."""
+    if sched.kind in ("constant", "chebyshev"):
+        return sched.plan
+    if sched.kind in ("stacked", "alternating"):
+        at = 1 if sweep and sched.is_stacked else 0
+        return _plan_index(sched.plan, sched._round_index(r), at)
+    if sched.plan.kind != "dense":
+        return None
+    W = sched.plan.W
+    return MixPlan(kind="dense", W=_lazy_dense_matrix(
+        W, _active_mask(sched, r, sweep).to(W.device)))
 
 
-def shard_schedule_body(sched: MixSchedule, r, x_blk, axis_name, n: int):
-    """Round ``r``'s mix of one leaf block of a sharded client axis."""
-    raise _backends_slice("shard_schedule_body")
+def shard_schedule_body(sched: MixSchedule, r: int, x_blk: torch.Tensor,
+                        axis, n: int, *, sweep: bool = False,
+                        plan: Optional[MixPlan] = None) -> torch.Tensor:
+    """Round ``r``'s mix of one leaf block on a client axis sharded over
+    ``axis`` (size ``n``); ``sweep`` as in :func:`~repro_torch.core.
+    mixing.shard_body`.
+
+    Dispatch follows :func:`~repro_torch.core.mixing.shard_body` per plan
+    kind; the schedule adds:
+
+    * ``stacked`` / ``alternating`` — the round's plan is indexed out of
+      the (replicated) stacked operand, then mixed as usual.
+    * ``lazy`` / ``cohort`` over a dense base — the lazy-subgraph matrix of
+      the round's global mask (drawn identically on every process from the
+      replicated generator: no extra collective) masks the all_gather
+      contraction's rows.  A cohort's padding rows are identity rows.
+    * ``lazy`` over a circulant base — each ``ppermute`` contribution is
+      masked by its active-edge value ``a_i * a_{(i+off) % n}`` (one
+      client per process, like every circulant shard plan).
+    * ``chebyshev`` — k unrolled collectives through the plan's dispatch.
+
+    ``plan``: round ``r``'s :func:`shard_round_plan`, when the caller has
+    resolved it once for a whole tree.
+    """
+    if plan is None:
+        plan = shard_round_plan(sched, r, sweep)
+    if plan is not None:
+        return shard_body(plan, x_blk, axis, n, sweep=sweep)
+    a = _active_mask(sched, r, sweep)
+    plan = sched.plan
+    i = axis.axis_index()
+    out = x_blk
+    for k, off in enumerate(plan.offsets):
+        nb = shard_shift(x_blk, axis, off, n)
+        m = a[..., i] * a[..., (i + off) % n]
+        w = _coef(plan.weights[..., k], x_blk, sweep)
+        out = out + w * _coef(m, x_blk, sweep) * (nb - x_blk)
+    return out
 
 
 def wire_supported(sched: MixSchedule) -> bool:
-    """Whether compressed increments cross the collectives packed."""
-    raise _backends_slice("wire_supported")
+    """True when this schedule's compressed increments can cross the
+    collectives *packed* (:func:`shard_compressed_qmix`).
+
+    Needs a spec with a wire form (``wire_k > 0`` sparse, or qsgd) and a
+    round mix that is a single exchange: the dense-base family (constant /
+    stacked / alternating / lazy / cohort over dense plans — packed
+    ``all_gather`` + row contraction) or a constant circulant (packed
+    ``ppermute`` per offset).  Chebyshev rounds re-mix their own output k
+    times and complete / identity plans carry no per-edge payload: those
+    mix ``q`` with the dense collective (compression still shapes the
+    values, and :mod:`repro_torch.analysis.comm` still prices them).
+    """
+    if wire_mode(sched.compress) is None:
+        return False
+    if sched.plan.kind == "dense" and sched.kind in (
+            "constant", "stacked", "alternating", "lazy", "cohort"):
+        return True
+    return sched.plan.kind == "circulant" and sched.kind == "constant"
 
 
-def shard_compressed_qmix(sched: MixSchedule, r, q_blk, axis_name, n: int):
-    """Round ``r``'s mix of a packed compressed increment block."""
-    raise _backends_slice("shard_compressed_qmix")
+def shard_compressed_qmix(sched: MixSchedule, r: int, q_blk: torch.Tensor,
+                          axis, n: int, *,
+                          plan: Optional[MixPlan] = None) -> torch.Tensor:
+    """Round ``r``'s mix of a compressed increment block with its packed
+    payload on the wire (one configuration, ``(blk, ...)`` rows).
+
+    Where :func:`~repro_torch.core.mixing.shard_body` would put the dense
+    block on the collective, this packs it first
+    (:func:`~repro_torch.core.compression.pack_payload`: ``wire_k``
+    value / index pairs a row, or int8 words and a row norm), one
+    collective a payload component.  The result equals the dense mix of
+    ``q`` whenever the payload fits (``nnz <= wire_k``; qsgd levels <=
+    127).  Only under :func:`wire_supported`; the round matrix is
+    :func:`shard_round_plan`'s (``plan``, when resolved once a tree).
+    """
+    spec = sched.compress
+    blk = q_blk.shape[0]
+    flat = q_blk.reshape(blk, -1)
+    d = flat.shape[-1]
+    payload = pack_payload(spec, flat)
+    base = sched.plan
+    if base.kind == "circulant":
+        out = _coef(base.self_weight, q_blk, False) * q_blk
+        for k, off in enumerate(base.offsets):
+            nb = unpack_payload(spec, tuple(shard_shift(p, axis, off, n)
+                                            for p in payload), d, q_blk.dtype)
+            out = out + _coef(base.weights[k], q_blk, False) * nb.reshape(
+                q_blk.shape)
+        return out
+    gathered = tuple(axis.all_gather(p, tiled=True) for p in payload)
+    q_full = unpack_payload(spec, gathered, d, q_blk.dtype)
+    W = (shard_round_plan(sched, r) if plan is None else plan).W
+    i = axis.axis_index()
+    rows = W[i * blk:(i + 1) * blk].to(q_blk.device, q_blk.dtype)
+    return (rows @ q_full).reshape(q_blk.shape)
+
+
+def shard_schedule_mixer(sched: MixSchedule, axis, rows: Optional[slice],
+                         *, sweep: bool = False,
+                         sharded: Optional[dict] = None) -> ScheduleMixer:
+    """The round-indexed mixer of ``sched`` on a client axis sharded over
+    ``axis``: :func:`shard_schedule_body` on every leaf, the round's plan
+    resolved once a tree, and, where the compressed increments pack
+    (:func:`wire_supported`, one configuration, every leaf sharded),
+    ``wire_fn`` (:func:`shard_compressed_qmix`).  ``sharded`` (leaf name
+    -> bool; None: every leaf) marks the leaves whose client dim is
+    sharded; the others hold every client and mix as the stacked schedule
+    does.  ``rows``: this process's block of the global client axis."""
+    n = axis.size
+    local = apply_schedule_sweep if sweep else apply_schedule
+    every = sharded is None or all(sharded.values())
+
+    def mix(tree, r):
+        plan = shard_round_plan(sched, r, sweep)        # once a tree
+        return {k: shard_schedule_body(sched, r, x, axis, n, sweep=sweep,
+                                       plan=plan)
+                if sharded is None or sharded[k]
+                else local(sched, r, {k: x})[k] for k, x in tree.items()}
+
+    wire = None
+    if every and not sweep and not sched.is_stacked and wire_supported(sched):
+        def wire(tree, r):
+            plan = shard_round_plan(sched, r)
+            return {k: shard_compressed_qmix(sched, r, x, axis, n, plan=plan)
+                    for k, x in tree.items()}
+
+    return ScheduleMixer(mix, sched, wire_fn=wire, rows=rows)
 
 
 # ---------------------------------------------------------------------------

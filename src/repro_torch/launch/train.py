@@ -13,6 +13,15 @@ streams; ``--log-every`` sets how often a round's loss is printed.
 ``--ckpt`` saves the consensus model in the reference's format
 (``repro_torch.training.checkpoint``), which ``launch.serve --ckpt``
 serves.
+
+Started by ``torchrun`` (``WORLD_SIZE`` > 1), every process joins the
+process group it describes (gloo on the CPU, NCCL on the cards, one
+process a device) and the backend follows the processes present, as the
+reference's follows its devices (``suggest_backend``): the trainer's
+dense plan shards the client axis whenever the process count divides the
+client count.  Every process builds its rows and rank 0 prints:
+    PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.train \\
+        --arch qwen3-1.7b --reduced --device cpu --clients 4 --rounds 2
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import time
 from repro_torch.configs import get_config
 from repro_torch.core import DepositumConfig, plan_spectral_lambda
 from repro_torch.data import make_federated_lm_streams
+from repro_torch.launch.mesh import client_axis
 from repro_torch.models import build_model
 from repro_torch.training import save_checkpoint
 from repro_torch.training.train_loop import (
@@ -61,8 +71,25 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build(args):
-    """(trainer, config, initial state, batch iterator) of ``args``."""
+def join_group(device) -> bool:
+    """Join the process group ``torchrun`` describes (``WORLD_SIZE`` > 1
+    and none initialised yet); True when this call initialised it."""
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return False
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
+    return True
+
+
+def build(args, backend=None):
+    """(trainer, config, initial state, batch iterator) of ``args``;
+    ``backend`` (default: the one ``suggest_backend`` picks for the
+    processes present) runs the trainer's mixing."""
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg, device=args.device)
     prox_kwargs = {"lam": args.lam}
@@ -78,7 +105,8 @@ def build(args):
     tc = TrainerConfig(n_clients=args.clients, topology=args.topology,
                        depositum=dep, seed=args.seed,
                        log_every=args.log_every)
-    trainer = FederatedTrainer(model, tc, device=args.device)
+    trainer = FederatedTrainer(model, tc, backend=backend,
+                               device=args.device)
     state = trainer.init_state(args.seed)
     stream = make_federated_lm_streams(cfg.vocab_size, args.clients,
                                        seed=args.seed)
@@ -90,26 +118,36 @@ def build(args):
 def main(argv=None):
     """Train; returns (trainer, final state, history)."""
     args = parse_args(argv)
+    joined = join_group(args.device)
     trainer, _cfg, state, it = build(args)
+    axis = client_axis(trainer.backend)
+    lead = axis.index == 0                      # the process that prints
     lam = float(plan_spectral_lambda(trainer.plan, args.clients))
-    print(f"topology {args.topology} on {args.clients} clients: "
-          f"spectral lambda = {lam:.4f}")
+    if lead:
+        print(f"topology {args.topology} on {args.clients} clients: "
+              f"spectral lambda = {lam:.4f}"
+              + ("" if axis.size == 1 else
+                 f"; {axis.size} processes, rows {trainer.backend.rows}"))
 
     t0 = time.time()
     state, history = trainer.run(state, it, args.rounds, donate=True)
-    for rec in history:
-        print(json.dumps(rec))
-    print(f"trained {args.rounds} rounds in {time.time()-t0:.1f}s "
-          f"({args.rounds * args.t0} iterations)")
+    if lead:
+        for rec in history:
+            print(json.dumps(rec))
+        print(f"trained {args.rounds} rounds in {time.time()-t0:.1f}s "
+              f"({args.rounds * args.t0} iterations)")
 
-    if args.ckpt:
-        save_checkpoint(args.ckpt, trainer.mean_params(state),
-                        step=args.rounds)
+    mean = trainer.mean_params(state) if args.ckpt else None
+    if args.ckpt and lead:
+        save_checkpoint(args.ckpt, mean, step=args.rounds)
         print("checkpoint ->", args.ckpt)
-    if args.log:
+    if args.log and lead:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
         with open(args.log, "w") as f:
             json.dump(history, f, indent=2)
+    if joined:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return trainer, state, history
 
 

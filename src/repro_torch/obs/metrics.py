@@ -63,6 +63,7 @@ from repro_torch.core.schedule import (
     _active_mask,
     _plan_index,
 )
+from repro_torch.launch.mesh import LOCAL_AXIS
 
 Tree = dict
 
@@ -226,7 +227,8 @@ def traced_round_bytes(sched, r: int, d: int, *,
 # The per-round values
 # ---------------------------------------------------------------------------
 
-def _loss_from_aux(aux, device, sweep: bool = False) -> torch.Tensor:
+def _loss_from_aux(aux, device, sweep: bool = False,
+                   axis=LOCAL_AXIS) -> torch.Tensor:
     """Scalar training loss from a grad aux, NaN when unavailable:
     ``aux["ce"]`` wins, ``aux["loss"]`` is the fallback.  On the sweep axis
     the mean is taken per point (every dim after the first)."""
@@ -241,10 +243,11 @@ def _loss_from_aux(aux, device, sweep: bool = False) -> torch.Tensor:
         v = aux
     if v is None:
         return _f32(float("nan"), device)
+    # this shard's clients' losses: the mean over every shard's
     v = v.detach().to(torch.float32)
     if sweep and v.ndim > 0:
-        return torch.mean(v.reshape(v.shape[0], -1), dim=1)
-    return torch.mean(v)
+        return axis.client_mean(v.reshape(v.shape[0], -1), 1)
+    return axis.client_mean(v.reshape(-1))
 
 
 def _point_sum(v: torch.Tensor, sweep: bool) -> torch.Tensor:
@@ -255,50 +258,45 @@ def _point_sum(v: torch.Tensor, sweep: bool) -> torch.Tensor:
     return torch.sum(v.reshape(v.shape[0], -1), dim=1)
 
 
-def _weighted_sq(v: torch.Tensor, weights, sweep: bool) -> torch.Tensor:
+def _weighted_sq(v: torch.Tensor, weights, sweep: bool,
+                 axis=LOCAL_AXIS) -> torch.Tensor:
     """``Σ ‖v‖²`` over one leaf (per point on the sweep axis), rows
-    weighted by ``weights`` ((n,) or (S, n)), as ``depositum._sq_norm``."""
+    weighted by ``weights`` ((n,) or (S, n)), as ``depositum._sq_norm``.
+    ``axis``: the leaf holds this shard's rows of a sharded client axis;
+    the sum is over every shard's (``weights`` global)."""
     sq = torch.square(v.to(torch.float32))
     if weights is None:
-        return _point_sum(sq, sweep)
-    lead = 2 if sweep else 1
-    per_client = torch.sum(sq.reshape(sq.shape[:lead] + (-1,)), dim=-1)
-    w = weights.to(torch.float32)
-    if not sweep:
-        return torch.sum(w * per_client)
-    return torch.sum(w.expand(per_client.shape) * per_client, dim=-1)
+        total = _point_sum(sq, sweep)
+    else:
+        lead = 2 if sweep else 1
+        per_client = torch.sum(sq.reshape(sq.shape[:lead] + (-1,)), dim=-1)
+        w = axis.take(weights.to(torch.float32), -1)
+        if not sweep:
+            total = torch.sum(w * per_client)
+        else:
+            total = torch.sum(w.expand(per_client.shape) * per_client,
+                              dim=-1)
+    return axis.psum(total)
 
 
-def _client_mean(v: torch.Tensor, weights, sweep: bool) -> torch.Tensor:
-    """Mean over the client dim of one leaf, as ``depositum._client_mean``
-    (weights (n,) or (S, n) restrict it to a sub-population)."""
-    dim = 1 if sweep else 0
-    if weights is None:
-        return torch.mean(v, dim=dim)
-    w32 = weights.to(torch.float32)
-    w = w32 / torch.clamp_min(torch.sum(w32, dim=-1, keepdim=True), 1e-12)
-    if not sweep:
-        return torch.einsum("i,i...->...", w, v.to(torch.float32)).to(v.dtype)
-    w = w.expand(v.shape[:2])
-    return torch.einsum("si,si...->s...", w, v.to(torch.float32)).to(v.dtype)
-
-
-def _consensus(tree: Tree, weights, sweep: bool) -> torch.Tensor:
+def _consensus(tree: Tree, weights, sweep: bool,
+               axis=LOCAL_AXIS) -> torch.Tensor:
     """``consensus_error`` (per point on the sweep axis), leaf by leaf."""
     if not sweep:
-        return consensus_error(tree, weights)
+        return consensus_error(tree, weights, axis)
     total = 0
     for v in tree.values():
-        mean = _client_mean(v, weights, True)
-        total = total + _weighted_sq(v - mean[:, None], weights, True)
+        mean = axis.client_mean(v, 1, weights)
+        total = total + _weighted_sq(v - mean[:, None], weights, True, axis)
     return total
 
 
-def _n_clients(state, weights, sweep: bool):
-    """n as ``stationarity_metrics`` divides by: the client count (an int)
-    or the weights' sum (per point on the sweep axis)."""
+def _n_clients(state, weights, sweep: bool, axis=LOCAL_AXIS):
+    """n as ``stationarity_metrics`` divides by: the client count (an int;
+    every shard's) or the weights' sum (per point on the sweep axis)."""
     if weights is None:
-        return next(iter(state.x.values())).shape[1 if sweep else 0]
+        return next(iter(state.x.values())).shape[1 if sweep else 0] \
+            * axis.size
     return torch.sum(weights.to(torch.float32), dim=-1)
 
 
@@ -319,7 +317,7 @@ def _at(s: torch.Tensor, leaf: torch.Tensor, sweep: bool) -> torch.Tensor:
 def prox_gap_sq(state: DepositumState, config: DepositumConfig,
                 hyper: Optional[Hyper] = None,
                 weights: Optional[torch.Tensor] = None, *,
-                sweep: bool = False) -> torch.Tensor:
+                sweep: bool = False, axis=LOCAL_AXIS) -> torch.Tensor:
     """``(1/n) Σ_i ‖(x_i − prox_{αh}(x_i − α ν_i))/α‖²``, the in-loop
     gradient mapping along the momentum direction, leaf by leaf."""
     dev = next(iter(state.x.values())).device
@@ -331,25 +329,25 @@ def prox_gap_sq(state: DepositumState, config: DepositumConfig,
         proxed = prox_apply(config.prox_name, {k: shifted}, a,
                             lam=_at(hp.lam, p, sweep),
                             theta=_at(hp.theta, p, sweep))[k]
-        total = total + _weighted_sq((p - proxed) / a, weights, sweep)
-    return total / _n_clients(state, weights, sweep)
+        total = total + _weighted_sq((p - proxed) / a, weights, sweep, axis)
+    return total / _n_clients(state, weights, sweep, axis)
 
 
 def tracking_error(state: DepositumState, config: DepositumConfig,
                    hyper: Optional[Hyper] = None,
                    weights: Optional[torch.Tensor] = None, *,
-                   sweep: bool = False) -> torch.Tensor:
+                   sweep: bool = False, axis=LOCAL_AXIS) -> torch.Tensor:
     """``(1/n) Σ_i ‖y_i − β ḡ‖²`` with ḡ the client mean of ``state.g``,
     leaf by leaf."""
     dev = next(iter(state.x.values())).device
     hp = _hp(config, hyper, dev)
     total = 0
     for k, y in state.y.items():
-        gbar = _client_mean(state.g[k], weights, sweep)
+        gbar = axis.client_mean(state.g[k], 1 if sweep else 0, weights)
         beta = _at(hp.beta, gbar, sweep).to(y.dtype)
         diff = y - (beta * gbar).unsqueeze(1 if sweep else 0)
-        total = total + _weighted_sq(diff, weights, sweep)
-    return total / _n_clients(state, weights, sweep)
+        total = total + _weighted_sq(diff, weights, sweep, axis)
+    return total / _n_clients(state, weights, sweep, axis)
 
 
 def round_values(
@@ -365,6 +363,7 @@ def round_values(
     n: Optional[int] = None,
     staleness: Any = None,
     sweep: bool = False,
+    axis=LOCAL_AXIS,
 ) -> dict:
     """All :data:`DEFAULT_METRICS` for the round that just finished.
 
@@ -376,7 +375,9 @@ def round_values(
     Reads only; never writes the state, so a run with metrics on is bit
     for bit the run with metrics off.  ``staleness`` None records 0.0.
     ``sweep=True`` takes ``(S, C, ...)`` leaves and (S,) Hyper values and
-    gives (S,) values.
+    gives (S,) values.  ``axis`` (a ``ShardAxis``): the state holds this
+    process's rows of a sharded client axis, and every value reduces over
+    the group (masks and ``weights`` are global).
     """
     first = next(iter(state.x.values()))
     dev = first.device
@@ -390,7 +391,7 @@ def round_values(
             active_mask = sched.sampler.mask_at(r)
     if d is None:
         d = sum(v[(0,) * lead].numel() for v in state.x.values())
-    n_cl = _n_clients(state, weights, sweep)
+    n_cl = _n_clients(state, weights, sweep, axis)
     if active_mask is not None:
         cohort = torch.sum(active_mask.to(torch.float32), dim=-1)
     else:
@@ -402,7 +403,7 @@ def round_values(
                                   sweep=sweep, device=dev)
     else:
         wire = _f32(float("nan"), dev)
-    loss = _loss_from_aux(aux, dev, sweep)
+    loss = _loss_from_aux(aux, dev, sweep, axis)
     stale = _f32(0.0 if staleness is None else staleness, dev)
     if sweep:
         S = first.shape[0]
@@ -410,12 +411,12 @@ def round_values(
                              for v in (wire, loss, stale))
     return {
         "prox_grad_sq": prox_gap_sq(state, config, hyper, weights,
-                                    sweep=sweep),
-        "consensus_x": _consensus(state.x, weights, sweep) / n_cl,
-        "consensus_y": _consensus(state.y, weights, sweep) / n_cl,
-        "momentum_var": _consensus(state.nu, weights, sweep) / n_cl,
+                                    sweep=sweep, axis=axis),
+        "consensus_x": _consensus(state.x, weights, sweep, axis) / n_cl,
+        "consensus_y": _consensus(state.y, weights, sweep, axis) / n_cl,
+        "momentum_var": _consensus(state.nu, weights, sweep, axis) / n_cl,
         "track_err": tracking_error(state, config, hyper, weights,
-                                    sweep=sweep),
+                                    sweep=sweep, axis=axis),
         "cohort_size": cohort.to(torch.float32),
         "wire_bytes": wire.to(torch.float32),
         "loss": loss,

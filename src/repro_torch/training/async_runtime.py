@@ -71,6 +71,7 @@ from repro_torch.core import DepositumState, Hyper, local_then_comm_round
 from repro_torch.core.mixing import MixPlan, as_dense, validate_plan
 from repro_torch.core.schedule import MixSchedule
 from repro_torch.core.staleness import StalenessPolicy, StragglerModel
+from repro_torch.launch.mesh import client_axis
 from repro_torch.launch.steps import make_value_grad_fn
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import round_values
@@ -78,7 +79,11 @@ from repro_torch.obs.record import Telemetry
 from repro_torch.obs.trace import block_until_ready
 from repro_torch.training.backends import ExecutionBackend, suggest_backend
 from repro_torch.training.sweep import _map
-from repro_torch.training.train_loop import FederatedTrainer, TrainerConfig
+from repro_torch.training.train_loop import (
+    FederatedTrainer,
+    TrainerConfig,
+    client_mean_loss,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,16 +247,19 @@ class AsyncTrainer:
         sched = dataclasses.replace(
             self._sched0, active=torch.from_numpy(w)[None].to(self.device))
         dep = self.cfg.depositum
+        # masks and batches are drawn for every client; a sharded client
+        # axis takes this process's rows
+        axis = client_axis(self.backend)
         state, aux = local_then_comm_round(
-            state, batches, self._grad_fn, dep,
-            self.backend.mixer_for(sched), active_mask=sched.active[0],
-            donate=donate)
+            state, axis.take(batches, dim=1), self._grad_fn,
+            dep, self.backend.mixer_for(sched),
+            active_mask=axis.take(sched.active[0]), donate=donate)
         if self.telemetry is not None:
             # reads the post-round state; writes its buffer only
             vals = round_values(
                 state, dep, hyper=hp, mixer=sched, aux=aux,
                 active_mask=torch.from_numpy(applied).to(self.device),
-                n=n, staleness=stal)
+                n=n, staleness=stal, axis=axis)
             carry = self.telemetry.record_and_emit(
                 carry, vals, (state.t - 1) // dep.comm_period,
                 self.cfg.log_every, force=force)
@@ -407,8 +415,7 @@ class AsyncTrainer:
                 if isinstance(aux, dict):
                     loss = aux.get("ce", aux.get("loss"))
                 if loss is not None:
-                    rec["loss"] = float(torch.mean(
-                        torch.as_tensor(loss, dtype=torch.float32)))
+                    rec["loss"] = client_mean_loss(loss, self.backend)
                 by_round[k + 1] = rec
                 history.append(rec)
 

@@ -1,13 +1,31 @@
 """Execution backends: how a mixing operand runs on a placement.
 
-Port of the stacked-clients part of ``repro/training/backends.py``: the
-:class:`ExecutionBackend` protocol, :class:`StackedVmapBackend` and
-``_plan_kind``.  A backend answers one question — how does a
-:class:`~repro_torch.core.mixing.MixPlan` or
+Port of ``repro/training/backends.py``.  A backend answers one question —
+how does a :class:`~repro_torch.core.mixing.MixPlan` or
 :class:`~repro_torch.core.schedule.MixSchedule` execute here — so the round
-program and the sweep engine share it.  ``StackedVmapBackend`` keeps every
-client variable on a leading dim and mixes with plain tensor products, for
-one configuration (``(C, ...)`` leaves) or a sweep (``(S, C, ...)``).
+program, the sweep engine and the trainers share it.
+
+* :class:`StackedVmapBackend` (``"stacked-vmap"``) keeps every client
+  variable on a leading dim and mixes with plain tensor products, for one
+  configuration (``(C, ...)`` leaves) or a sweep (``(S, C, ...)``).
+* :class:`ShardMapBackend` (``"shard_map"``) shards the client axis over a
+  process group, one process a device.  The reference's ``shard_map`` is
+  one SPMD program over global arrays; here **each process holds its
+  contiguous block of ``n / P`` client rows** (``(S, n / P, ...)`` in a
+  sweep; :attr:`ShardMapBackend.rows`), and the contract is:
+
+  - the round program (``step``, ``local_then_comm_round``) runs unchanged
+    on a process's rows, the fused sweep kernels included;
+  - only mixing, and what reduces over clients (the metrics, the logged
+    loss, the consensus model), crosses the group: ``pmean`` for complete,
+    one ``ppermute`` per circulant offset, ``all_gather`` + this shard's
+    rows of W for dense (:func:`~repro_torch.core.mixing.shard_body`,
+    :func:`~repro_torch.core.schedule.shard_schedule_body`);
+  - whatever is drawn for all clients (cohort masks, async staleness
+    weights, the batches a trainer's iterator yields) is drawn whole on
+    every process, which takes its rows; a caller driving ``sweep_run`` /
+    ``step`` directly hands each process its own rows of the data (the
+    grad_fn sees them only).
 
 The local update is orthogonal to the mixing: with the ``fused`` knob the
 round program's update is one grouped launch of the sweep kernels for all
@@ -20,24 +38,23 @@ placement opt out.
 :func:`suggest_backend` applies it to this process.  One process drives
 one device, so ``n_devices`` is the ``torch.distributed`` world size when
 a process group is initialised, else 1, and a single process always gets
-:class:`StackedVmapBackend`.  ``ShardMapBackend`` (the client axis sharded
-over a process group: collective mixers, per-shard schedules) is ROADMAP
-Queue 1 item 5c; where the rule picks it, :func:`suggest_backend` and
-``get_backend("shard_map")`` raise ``NotImplementedError``.
+:class:`StackedVmapBackend`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Protocol, runtime_checkable
 
 import torch.distributed as dist
 
-from repro_torch.core.mixing import apply_mix, apply_mix_sweep
+from repro_torch.core.mixing import apply_mix, apply_mix_sweep, shard_mixer
 from repro_torch.core.schedule import (
     MixSchedule,
     ScheduleMixer,
     apply_schedule,
     apply_schedule_sweep,
+    shard_schedule_mixer,
 )
 
 Mixer = Callable[[Any], Any]
@@ -90,6 +107,70 @@ class StackedVmapBackend:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardMapBackend:
+    """The client axis sharded over ``axis_name`` of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh` over the live process group).
+
+    ``n_clients`` is the *global* client count (the padded one for a
+    cohort schedule; 0: one client a process).  Circulant plans need one
+    client per process on the axis (the ppermute schedule is per shard);
+    dense and complete plans take any equal block size.  Each process
+    holds :attr:`rows` of every client variable.  ``axis_wrapper`` wraps
+    the mesh's axis before any mixer sees it (``analysis.hlo.CountingAxis``
+    counts the collectives; None: the axis as it is).
+    """
+
+    mesh: Any
+    axis_name: Any = "clients"
+    n_clients: int = 0
+    axis_wrapper: Optional[Callable] = None
+    name: str = dataclasses.field(default="shard_map", init=False)
+    #: the fused local update runs on this process's client rows, outside
+    #: the collectives: per-shard client tiles, the same kernels
+    supports_fused_sweep: bool = dataclasses.field(default=True, init=False)
+
+    @functools.cached_property
+    def axis(self):
+        """This process's :class:`~repro_torch.launch.mesh.ShardAxis`."""
+        axis = self.mesh.axis(self.axis_name)
+        return axis if self.axis_wrapper is None else self.axis_wrapper(axis)
+
+    @property
+    def global_clients(self) -> int:
+        return self.n_clients or self.axis.size
+
+    @property
+    def rows(self) -> slice:
+        """This process's block of the global client axis."""
+        return self.axis.rows(self.global_clients)
+
+    def _check_plan(self, plan) -> None:
+        size = self.axis.size
+        n = self.global_clients
+        if n % size != 0:
+            raise ValueError(
+                f"n_clients={n} not divisible by mesh axis "
+                f"{self.axis_name!r} of size {size}")
+        if _plan_kind(plan) == "circulant" and n != size:
+            raise ValueError(
+                "circulant (ppermute) plans need one client per device; "
+                f"got n_clients={n} on a {size}-way axis — use a dense plan")
+
+    def mixer_for(self, plan, *, sweep: bool = False) -> Mixer:
+        """``shard_mixer`` for a plan; for a schedule, the round-indexed
+        ``shard_schedule_mixer`` (with ``wire_fn`` where its compressed
+        increments pack: ``q`` crosses the group as value / index pairs
+        or int8 words)."""
+        if isinstance(plan, MixSchedule):
+            self._check_plan(plan)
+            return shard_schedule_mixer(plan, self.axis, self.rows,
+                                        sweep=sweep)
+        if plan.kind != "identity":
+            self._check_plan(plan)
+        return shard_mixer(plan, self.axis, sweep=sweep)
+
+
+@dataclasses.dataclass(frozen=True)
 class SweepBackend:
     """Grid semantics: whole runs over stacked Hyper / MixPlan axes.
 
@@ -124,10 +205,6 @@ class SweepBackend:
 #: collective costs more in dispatch than it moves, and the single-process
 #: stacked simulation wins.  A deliberately conservative 4 KiB.
 LATENCY_BYTES_FLOOR = 4096
-
-_SHARD_MAP_TODO = ("the shard_map backend (the client axis sharded over a "
-                   "torch.distributed process group) is ROADMAP Queue 1 "
-                   "item 5c")
 
 
 def suggest_backend_name(kind: str, n_clients: int, n_devices: int, *,
@@ -169,13 +246,15 @@ def _process_devices() -> int:
 
 
 def suggest_backend(plan_or_schedule, n_clients: int, *,
-                    devices=None,
+                    devices=None, axis_name: str = "clients",
                     param_dim: int | None = None) -> ExecutionBackend:
     """The backend :func:`suggest_backend_name` picks for the plan's
-    sparsity on ``devices`` (a sequence; default: one device a process
-    of the initialised process group, else one).  ``param_dim`` (flattened per-client parameter count) lets
-    a compressed schedule's payload refine the choice.  Raises
-    ``NotImplementedError`` where the rule picks shard_map.
+    sparsity on ``devices`` (a sequence; default: one device a process of
+    the initialised process group, else one).  ``param_dim`` (flattened
+    per-client parameter count) lets a compressed schedule's payload
+    refine the choice.  Where the rule picks shard_map, the client axis
+    shards over every process of the live group (one-axis mesh named
+    ``axis_name``); that needs ``devices`` to count the group's processes.
     """
     n_devices = len(devices) if devices is not None else _process_devices()
     wire_bytes = None
@@ -189,20 +268,29 @@ def suggest_backend(plan_or_schedule, n_clients: int, *,
     name = suggest_backend_name(_plan_kind(plan_or_schedule), n_clients,
                                 n_devices, wire_bytes=wire_bytes)
     if name == "shard_map":
-        raise NotImplementedError(
-            f"{n_clients} clients on {n_devices} devices want "
-            f"{_SHARD_MAP_TODO}")
+        from repro_torch.launch.mesh import make_client_mesh
+
+        if n_devices != _process_devices():
+            raise ValueError(
+                f"shard_map over {n_devices} devices needs a process group "
+                f"of {n_devices} processes (one a device); this one has "
+                f"{_process_devices()}")
+        return ShardMapBackend(mesh=make_client_mesh(axis_name),
+                               axis_name=axis_name, n_clients=n_clients)
     return StackedVmapBackend()
 
 
-def get_backend(name: str, *,
+def get_backend(name: str, *, mesh=None, axis_name: str = "clients",
+                n_clients: int = 0,
                 inner: Optional[ExecutionBackend] = None) -> ExecutionBackend:
-    """Build a backend by its protocol name (the shard_map backend, and
-    its mesh arguments, are ROADMAP item 5c)."""
+    """Build a backend by its protocol name."""
     if name == "stacked-vmap":
         return StackedVmapBackend()
     if name == "shard_map":
-        raise NotImplementedError(_SHARD_MAP_TODO)
+        if mesh is None:
+            raise ValueError("shard_map backend needs a mesh")
+        return ShardMapBackend(mesh=mesh, axis_name=axis_name,
+                               n_clients=n_clients)
     if name == "sweep":
         return SweepBackend(inner=inner or StackedVmapBackend())
     raise KeyError(

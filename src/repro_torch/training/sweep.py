@@ -43,6 +43,11 @@ lives in the one ``DepositumConfig`` the sweep shares.
 
 :func:`sweep_run_fedalg` runs a fedopt baseline (Table III) over the same
 sweep axis.
+
+``backend=`` a :class:`~repro_torch.training.backends.ShardMapBackend`
+runs every point on this process's block of the client axis (``(S,
+C / P, ...)`` leaves): the grad_fn and the batches are this process's
+rows, the mixing and the recorder's reductions cross the group.
 """
 from __future__ import annotations
 
@@ -65,6 +70,7 @@ from repro_torch.core.depositum import (
 from repro_torch.core.hyper import Hyper, n_sweep, stack_hypers
 from repro_torch.core.mixing import MixPlan, validate_plan
 from repro_torch.core.schedule import MixSchedule, validate_schedule
+from repro_torch.launch.mesh import LOCAL_AXIS, client_axis
 from repro_torch.obs.metrics import round_values
 from repro_torch.training.backends import ExecutionBackend, StackedVmapBackend
 
@@ -265,15 +271,18 @@ def _sweep_x(params0, n_clients: int, n: int,
 
 
 def sweep_init(params0, n_clients: int, n: int, compress: Any = None, *,
-               params_axis: Optional[int] = None) -> DepositumState:
+               params_axis: Optional[int] = None,
+               backend=None) -> DepositumState:
     """Initial sweep state: leaves (n, n_clients, ...) on ``params0``'s
     device, x the same for every client (and, unless ``params_axis`` maps
     per-point initial params, for every point); auxiliaries zero.
 
     ``compress`` (a CompressionSpec or a schedule carrying one) allocates
     the CHOCO memory on every point, as :func:`sweep_run` does: pass the
-    swept schedule here when driving :func:`make_sweep_round` by hand."""
-    x = _sweep_x(params0, n_clients, n, params_axis)
+    swept schedule here when driving :func:`make_sweep_round` by hand.
+    ``backend`` sharding the client axis: this process's rows only."""
+    rows = client_axis(backend).rows(n_clients)
+    x = _sweep_x(params0, rows.stop - rows.start, n, params_axis)
     z = lambda: {k: torch.zeros_like(v) for k, v in x.items()}
     return DepositumState(x=x, y=z(), nu=z(), mu=z(), g=z(), t=0,
                           comm=initial_comm(compress, x))
@@ -336,7 +345,7 @@ def _prepare(params0, config, mixer, hypers, batches, n_clients,
 
 def _recorder(telemetry, config, hypers, plan, n_clients: int,
               log_every: int, rounds: int, device, S: Optional[int], *,
-              tag=None):
+              tag=None, axis=LOCAL_AXIS):
     """``record(state, aux, r)`` of a run with ``telemetry`` (None
     without): the post-round state's :func:`~repro_torch.obs.metrics.
     round_values` into a device buffer (one ring a point when ``S``), the
@@ -350,7 +359,7 @@ def _recorder(telemetry, config, hypers, plan, n_clients: int,
     def record(state, aux, r):
         nonlocal carry
         vals = round_values(state, config, hyper=hp, mixer=plan, aux=aux,
-                            n=n_clients, sweep=S is not None)
+                            n=n_clients, sweep=S is not None, axis=axis)
         carry = telemetry.record_and_emit(
             carry, vals, (state.t - 1) // config.comm_period, log_every,
             tag=tag, force=r == rounds - 1)
@@ -399,12 +408,13 @@ def sweep_run(
     if torch.as_tensor(hypers.alpha).ndim == 0:
         hypers = Hyper(*(torch.as_tensor(v).expand(S) for v in hypers))
     state = sweep_init(params0, n_clients, S, params_axis=params_axis,
-                       compress=plan)
+                       compress=plan, backend=backend)
     sgrad = _sweep_grad(grad_fn, batch_axis)
     mix = _sweep_mixer(legacy, plan, backend)
     metrics = _metrics_caller(metrics_fn)
     record = _recorder(telemetry, config, hypers, plan, n_clients,
-                       log_every, rounds, _first(params0).device, S)
+                       log_every, rounds, _first(params0).device, S,
+                       axis=client_axis(backend))
     per_point = [[] for _ in range(S)]
     for r in range(rounds):
         state, aux = local_then_comm_round(
@@ -455,9 +465,10 @@ def sweep_run_sequential(
         mixer_s = legacy if legacy is not None else backend.mixer_for(plan_s)
         batches_s = _take(batches, s, batch_axis)
         state = dep_init(_take(params0, s, params_axis), n_clients,
-                         compress=plan_s, device=dev)
+                         compress=plan_s, device=dev, backend=backend)
         record = _recorder(telemetry, config, hyper_s, plan_s, n_clients,
-                           log_every, rounds, dev, None, tag=s)
+                           log_every, rounds, dev, None, tag=s,
+                           axis=client_axis(backend))
         outs = []
         for r in range(rounds):
             state, aux = local_then_comm_round(
@@ -498,6 +509,7 @@ def sweep_run_fedalg(
     batch_axis: Optional[int] = None,
     params_axis: Optional[int] = None,
     plan=None,
+    backend: Optional[ExecutionBackend] = None,
 ) -> tuple[Any, dict]:
     """A fedopt baseline's whole run over the sweep axis (Table III).
 
@@ -511,7 +523,9 @@ def sweep_run_fedalg(
     initialisation (Table III's per-seed runs).  A scalar Hyper broadcasts
     over whatever defines the sweep axis.  Runs on ``params0``'s device.
     Returns the final ``FedState`` (leaves (S, C, ...)) and the per-round
-    metrics ``{name: (S, rounds)}``.
+    metrics ``{name: (S, rounds)}``.  ``backend`` sharding the client axis
+    runs each process's rows: the server means reduce over the group and
+    a decentralized baseline gossips through the backend.
     """
     dev = _first(params0).device
     if plan is not None:
@@ -529,9 +543,13 @@ def sweep_run_fedalg(
     rounds = _first(batches).shape[1 if batch_axis == 0 else 0]
     if batch_axis is not None:                 # rounds first: (R, T0, S, ..)
         batches = _map(lambda v: v.movedim(batch_axis, 2), batches)
-    state = alg.init_stacked(_sweep_x(params0, n_clients, S, params_axis))
+    rows = client_axis(backend).rows(n_clients)
+    state = alg.init_stacked(_sweep_x(params0, rows.stop - rows.start, S,
+                                      params_axis))
     sgrad = _sweep_grad(grad_fn, batch_axis)
     kw = {"plan": plan_arg} if plan is not None else {}
+    if backend is not None:
+        kw["backend"] = backend
     metrics = _metrics_caller(metrics_fn)
     per_point = [[] for _ in range(S)]
     for r in range(rounds):

@@ -30,6 +30,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.mixing import MixPlan, validate_plan
 from repro_torch.core.schedule import MixSchedule, validate_schedule
+from repro_torch.launch.mesh import client_axis
 from repro_torch.launch.steps import make_value_grad_fn
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import round_values
@@ -58,7 +59,11 @@ class FederatedTrainer:
     ``cfg.topology``.  For a ``cohort`` schedule ``cfg.n_clients`` is the
     *padded* axis length ``n_max``.  With ``backend=None`` the backend is
     :func:`~repro_torch.training.backends.suggest_backend`'s (one process
-    is one device: the stacked simulation).
+    is one device: the stacked simulation).  A ``ShardMapBackend`` puts
+    this process's block of the client axis in the state: the batch
+    iterator still yields every client, the trainer takes its rows, and
+    the logged loss, the recorded metrics and :meth:`mean_params` reduce
+    over the group.
 
     The model's ``init(seed)`` gives its parameters: an ``nn.Module`` (the
     zoo's) becomes its ``named_parameters`` dict, and the gradients run
@@ -114,6 +119,7 @@ class FederatedTrainer:
         self.timer = RoundTimer()
 
     def _round(self, state, batches, *, donate: bool = False):
+        batches = client_axis(self.backend).take(batches, dim=1)
         return local_then_comm_round(state, batches, self._grad_fn,
                                      self.cfg.depositum, self.mixer,
                                      donate=donate)
@@ -135,7 +141,7 @@ class FederatedTrainer:
         state = dep_init(params, self.cfg.n_clients,
                          compress=self._mix_operand
                          if isinstance(self._mix_operand, MixSchedule)
-                         else None, device=self.device)
+                         else None, device=self.device, backend=self.backend)
         if self._template is not None:
             del params
             self._template.to("meta")
@@ -194,7 +200,8 @@ class FederatedTrainer:
                         vals = round_values(
                             state, self.cfg.depositum, hyper=hp,
                             mixer=self._mix_operand, aux=aux,
-                            n=self.cfg.n_clients)
+                            n=self.cfg.n_clients,
+                            axis=client_axis(self.backend))
                         carry = tel.record_and_emit(
                             carry, vals,
                             (state.t - 1) // self.cfg.depositum.comm_period,
@@ -206,8 +213,7 @@ class FederatedTrainer:
                     if isinstance(aux, dict):
                         loss = aux.get("ce", aux.get("loss"))
                     if loss is not None:
-                        rec["loss"] = float(torch.mean(
-                            torch.as_tensor(loss, dtype=torch.float32)))
+                        rec["loss"] = client_mean_loss(loss, self.backend)
                     if eval_fn is not None:
                         rec.update(eval_fn(state, r + 1))
                     by_round[r + 1] = rec
@@ -224,13 +230,22 @@ class FederatedTrainer:
     def mean_params(self, state: DepositumState):
         """Consensus (client-averaged) model for evaluation/serving: a
         module like the template (on the state's device) for a module
-        model, else a dict."""
-        means = {k: torch.mean(v, dim=0) for k, v in state.x.items()}
+        model, else a dict.  On a sharded client axis, the mean of every
+        process's rows (the same on every process)."""
+        axis = client_axis(self.backend)
+        means = {k: axis.client_mean(v) for k, v in state.x.items()}
         if self._template is None:
             return means
         module = copy.deepcopy(self._template)
         module.load_state_dict(means, strict=True, assign=True)
         return module
+
+
+def client_mean_loss(loss, backend=None) -> float:
+    """The logged loss: the mean of the clients' losses, over every
+    process's clients when ``backend`` shards the client axis."""
+    v = torch.as_tensor(loss, dtype=torch.float32)
+    return float(client_axis(backend).client_mean(v.reshape(-1)))
 
 
 def lm_batch_iterator(stream, trainer_cfg: TrainerConfig, batch: int,

@@ -8,7 +8,9 @@ after the test) and then asks both packages the same questions: every
 architecture of the zoo under every ``INPUT_SHAPES`` entry.  The formulas
 are the same host arithmetic on the same float64 numbers: equal exactly.
 """
+import jax
 import pytest
+import torch
 
 from repro.analysis import roofline as jroof
 from repro.configs import get_config as jget
@@ -38,10 +40,29 @@ def test_hw_is_one_h100_sxm():
 
 
 def test_mesh_builders_wait_for_the_distributed_backends():
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        tmesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        tmesh.make_host_mesh(1, 1)
+    """The mesh builders have landed: without a process group the
+    production meshes are abstract (the reference's axis shapes, no
+    processes behind them), and the host mesh covers this one process,
+    refusing more as the reference refuses more devices than it has."""
+    assert tmesh.make_production_mesh().shape == {"data": 16, "model": 16}
+    assert tmesh.make_production_mesh(multi_pod=True).shape == {
+        "pod": 2, "data": 16, "model": 16}
+    with pytest.raises(ValueError, match="no processes behind it"):
+        tmesh.make_production_mesh().axis("data")
+    host = tmesh.make_host_mesh(1, 1)
+    assert host.shape == {"data": 1, "model": 1}
+    ax = host.axis("data")
+    x = torch.arange(6.0).reshape(3, 2)
+    assert ax.axis_index() == 0 and ax.rows(3) == slice(0, 3)
+    for out in (ax.ppermute(x, [(0, 0)]), ax.all_gather(x), ax.pmean(x),
+                ax.psum(x)):
+        assert torch.equal(out, x)
+    n = len(jax.devices())
+    with pytest.raises(ValueError) as ref:
+        jmesh.make_host_mesh(n + 1, 1)
+    with pytest.raises(ValueError) as port:
+        tmesh.make_host_mesh(2, 1)
+    assert str(port.value) == str(ref.value).replace(str(n + 1), "2")
 
 
 @pytest.mark.parametrize("arch", sorted(jlist()))

@@ -40,8 +40,9 @@ own CPU path:
   of ``benchmarks/async_throughput.py``'s problem: virtual times, applies
   and rejects exactly.
 
-The reference's shard_map case has no port here (ROADMAP Queue 1 item 5c)
-and its retrace pin no counterpart (eager PyTorch does not trace).
+The reference's shard_map case runs through ``ShardMapBackend`` in
+``test_torch_distributed.py`` (gloo groups); its retrace pin has no
+counterpart (eager PyTorch does not trace).
 """
 import dataclasses
 import math

@@ -265,12 +265,41 @@ def test_spec_validation(case):
 
 
 def test_wire_paths_wait_for_the_backends_slice():
-    sched = as_schedule(MixPlan.from_topology("ring", 6, **CPU)) \
-        .with_compression(CompressionSpec.qsgd(4, **CPU))
-    for fn, args in ((wire_supported, (sched,)),
-                     (shard_compressed_qmix, (sched, 0, None, "c", 6))):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn(*args)
+    """The wire paths have landed: ``wire_supported`` decides as the
+    reference's does, and on one process (a size-1 axis holding all six
+    clients) the packed exchange equals the dense mix of ``q``, exactly
+    where the payload fits (the per-rank gloo runs are in
+    ``test_torch_distributed.py``)."""
+    from repro_torch.launch.mesh import ShardAxis
+
+    ring = ([(+1, 1 / 3), (-1, 1 / 3)], 1 / 3)
+    jplans = {"dense": JPlan.from_topology("ring", 6),
+              "circulant": JPlan.circulant(*ring),
+              "complete": JPlan.complete()}
+    tplans = {"dense": MixPlan.from_topology("ring", 6, **CPU),
+              "circulant": MixPlan.circulant(*ring, **CPU),
+              "complete": MixPlan.complete()}
+    jspecs = {"qsgd": jc.CompressionSpec.qsgd(4),
+              "topk": jc.CompressionSpec.topk(0.25),
+              "topk_wire": jc.CompressionSpec.topk(0.25, wire_k=16)}
+    tspecs = {"qsgd": CompressionSpec.qsgd(4, **CPU),
+              "topk": CompressionSpec.topk(0.25, **CPU),
+              "topk_wire": CompressionSpec.topk(0.25, wire_k=16, **CPU)}
+    for p in jplans:
+        for k in jspecs:
+            assert wire_supported(as_schedule(tplans[p]).with_compression(
+                tspecs[k])) == jsch.wire_supported(jsch.as_schedule(
+                    jplans[p]).with_compression(jspecs[k])), (p, k)
+    ax = ShardAxis("c", 1, 0)
+    rng = np.random.default_rng(0)
+    for k in ("qsgd", "topk_wire"):
+        sched = as_schedule(tplans["dense"]).with_compression(tspecs[k])
+        x = torch.from_numpy(rng.standard_normal((6, 8, 4)).astype(
+            np.float32))
+        q = compress(tspecs[k], {"w": x})["w"]
+        got = shard_compressed_qmix(sched, 0, q, ax, 1)
+        want = apply_mix(tplans["dense"], {"w": q})["w"]
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
                 "repro_torch.configs.grok_1_314b",
                 "repro_torch.serve_drift", "repro_torch.models.encdec",
                 "repro_torch.launch.mesh", "repro_torch.analysis.roofline",
-                "repro_torch.configs.seamless_m4t_medium"):
+                "repro_torch.configs.seamless_m4t_medium",
+                "repro_torch.launch.specs", "repro_torch.launch.sharding",
+                "repro_torch.launch.dryrun", "repro_torch.launch.gossip_dist",
+                "repro_torch.analysis.hlo", "repro_torch.core.gossip",
+                "repro_torch.core.schedule", "repro_torch.core.mixing"):
         assert mod in names
     assert int(count) == len(names) >= 30

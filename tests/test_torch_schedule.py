@@ -166,11 +166,22 @@ def test_stacking_densifying_and_validation_match_reference():
     for pkg in ("j", "t"):
         with pytest.raises(TypeError, match="CompressionSpec"):
             _build(pkg, "constant").with_compression(object())
-    for fn, args in ((shard_schedule_body, (tg, 0, None, "clients", N)),
-                     (wire_supported, (tg,)),
-                     (shard_compressed_qmix, (tg, 0, None, "clients", N))):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn(*args)
+    # the per-shard bodies have landed: on one process (a size-1 axis
+    # holding every client) each round's mix is the stacked one bit for
+    # bit, the grid's points included; wire_supported decides as the
+    # reference's does (the per-rank gloo runs: test_torch_distributed.py)
+    from repro_torch.launch.mesh import ShardAxis
+    ax = ShardAxis("clients", 1, 0)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, N, 5)).astype(np.float32))
+    for r in range(ROUNDS):
+        assert torch.equal(shard_schedule_body(tg, r, x, ax, 1, sweep=True),
+                           apply_schedule_sweep(tg, r, {"w": x})["w"])
+        one = tg.point(1)
+        assert torch.equal(shard_schedule_body(one, r, x[1], ax, 1),
+                           apply_schedule(one, r, {"w": x[1]})["w"])
+    assert wire_supported(tg) == jsch.wire_supported(jg) is False
+    assert shard_compressed_qmix.__module__ == "repro_torch.core.schedule"
     plan = MixPlan.dense(_w(), device="cpu")
     assert as_schedule(plan) == MixSchedule.constant(plan)
     assert as_schedule(het) is het

@@ -350,10 +350,12 @@ def test_host_side_errors_come_before_any_step(error):
 
 
 def test_later_slices_raise_naming_their_queue_item():
-    """Baselines (item 7) and telemetry (item 8) have landed: the sweep
-    takes a recorder and ``sweep_run_fedalg`` runs (both held against the
-    reference in ``test_torch_obs.py`` / ``test_torch_fedopt.py``); the
-    distributed wire path (item 5c) still raises."""
+    """Baselines, telemetry and the distributed backends have landed: the
+    sweep takes a recorder and ``sweep_run_fedalg`` runs (both held
+    against the reference in ``test_torch_obs.py`` /
+    ``test_torch_fedopt.py``); the wire path decides as the reference's,
+    and a sweep through a one-process ``ShardMapBackend`` is the stacked
+    sweep bit for bit (the gloo runs: ``test_torch_distributed.py``)."""
     from repro_torch.core.fedopt import FedAlgConfig, make_algorithm
     from repro_torch.obs.record import Telemetry
 
@@ -368,10 +370,20 @@ def test_later_slices_raise_naming_their_queue_item():
     assert final.t == R and final.x["w"].shape == (3, N, DL)
     from repro_torch.core import CompressionSpec, as_schedule
     from repro_torch.core.schedule import wire_supported
-    with pytest.raises(NotImplementedError, match="item 5"):
-        wire_supported(as_schedule(MixPlan.from_topology(
-            "ring", N, device="cpu")).with_compression(
-                CompressionSpec.qsgd(4, device="cpu")))
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.backends import get_backend
+    assert wire_supported(as_schedule(MixPlan.from_topology(
+        "ring", N, device="cpu")).with_compression(
+            CompressionSpec.qsgd(4, device="cpu")))
+    be = get_backend("shard_map", mesh=make_host_mesh(1, 1),
+                     axis_name="data", n_clients=N)
+    got, _ = sweep_run(params0, lsq_grad_fn, _cfg(), mixer, hypers, batches,
+                       n_clients=N, backend=be)
+    want, _ = sweep_run(params0, lsq_grad_fn, _cfg(), mixer, hypers,
+                        batches, n_clients=N)
+    for f in ("x", "y", "nu", "g"):
+        for k in getattr(want, f):
+            assert torch.equal(getattr(got, f)[k], getattr(want, f)[k])
 
 
 def test_one_config_step_refuses_a_stacked_hyper():

@@ -578,7 +578,9 @@ def test_suggest_backend_name_matches_reference():
 def test_backends_of_one_process():
     ring = MixPlan.from_topology("ring", 4, device="cpu")
     assert isinstance(suggest_backend(ring, 4), StackedVmapBackend)
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    # shard_map on two devices needs a process of each (the gloo groups
+    # of test_torch_distributed.py run it)
+    with pytest.raises(ValueError, match="process group of 2 processes"):
         suggest_backend(MixPlan.from_topology("complete", 4, device="cpu"),
                         4, devices=[0, 1])
     # a compressed payload under the floor stays on the simulation
@@ -586,8 +588,13 @@ def test_backends_of_one_process():
         .with_compression(CompressionSpec.topk(0.01, device="cpu"))
     assert isinstance(suggest_backend(sched, 4, devices=[0, 1, 2, 3],
                                       param_dim=100), StackedVmapBackend)
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         get_backend("shard_map")
+    from repro_torch.launch.mesh import make_host_mesh
+    shard = get_backend("shard_map", mesh=make_host_mesh(1, 1),
+                        axis_name="data", n_clients=4)
+    assert shard.name == "shard_map" and shard.supports_fused_sweep
+    assert shard.rows == slice(0, 4) and shard.axis.size == 1
     sweep = get_backend("sweep")
     assert isinstance(sweep, SweepBackend) and sweep.supports_fused_sweep
     assert isinstance(get_backend("stacked-vmap"), StackedVmapBackend)
