@@ -170,12 +170,33 @@ final line):
      B 2, a 64-token prompt and 8 greedy tokens through ``BatchedServer``
      (28 launches of the bf16 flash kernel, tokens in range, logits
      finite).  No full-width checkpoint is written (fp32 on disk: 8.1 GB);
+   * ``train_zoo``: the zoo's other families that fit two bf16 clients on
+     the card, at full width and depth, one at a time (``TRAIN_ZOO``):
+     ``zamba2-2.7b``, ``mamba2-130m`` and ``seamless-m4t-medium`` (the
+     last with ``TRAIN_ZOO_FRAMES`` stub frames a sample from a seeded
+     generator), ``train_llm``'s cell, one warm-up and
+     ``TRAIN_ZOO_ROUNDS`` timed rounds each: each sweep kernel launches
+     ceil(leaves / 48) = 9 / 5 / 6 times a step (417 / 218 / 256
+     leaves), held bit for bit against its plain version at each leaf
+     table (``TRAIN_ZOO_ULPS``); the state bytes equal to
+     ``launch/dryrun.py``'s; round walls, tokens/s, peak memory (zamba2's
+     beside ``TRAIN_ZOO_PEAK_GB``), losses finite; then each consensus
+     served: zamba2's through ``BatchedServer`` (9 bf16 flash launches a
+     prefill through the head-dim route at D 80, each held against the
+     plain version), mamba2's saved by ``save_checkpoint`` and served by
+     ``launch.serve --ckpt`` (restored = saved bit for bit, tokens = the
+     consensus served directly), seamless's through the prefill step (36
+     launches) and ``BatchedServer`` (12 a decode step);
    * ``train_ckpt``: reduced fp32, ``launch.train --ckpt`` then
      ``launch.serve --ckpt`` on the card: the restored params bit-equal to
      the saved consensus, the served tokens equal to serving it directly;
    * ``train_card_vs_cpu``: reduced fp32, 2 rounds from one state on the
      card and on the CPU, x / y / nu / g within ``CPU_ATOL`` /
      ``CPU_RTOL``;
+   * ``train_zoo_card_vs_cpu``: the same for the reduced MoE, VLM, SSM,
+     hybrid and enc-dec configs (``TRAIN_ZOO_CPU_ARCHS``, vision embeds
+     and frames from a numpy seed), and the hybrid's and the enc-dec's
+     consensus through a checkpoint on the card, restored bit for bit;
    the ``check`` phase also holds the grouped bf16 sweep pair at the LM
    head's leaf (2 clients x 2048 x 152064) against its plain version;
 6b. the paper's baselines and remaining figures, and telemetry:
@@ -499,6 +520,50 @@ BF16_REL = {"dx": 6e-2, "y": 5e-2, "nu": 5e-2, "g": 5e-2}
 # launch/dryrun.py's state bytes for Qwen3-1.7B at 2 bf16 clients against
 # the allocation measured for that state
 DRYRUN_REL = 0.01
+# The zoo's other families trained at full width (train_zoo), one at a
+# time, each freed before the next: zamba2-2.7b (the main path of this
+# phase), mamba2-130m and seamless-m4t-medium, bf16, remat "full", each on
+# 2 clients under TRAIN's cell (complete, T0 4, alpha 0.02, beta 1, gamma
+# 0.8, Polyak, l1 1e-5, B 2 x L 512 a client a step, fused="auto",
+# donated rounds): one warm-up round and TRAIN_ZOO_ROUNDS timed rounds.
+# Only these three non-dense archs fit two bf16 clients on 80 GB
+# (launch/dryrun.py).  The sweep pair takes ceil(leaves / MAX_LEAVES)
+# grouped launches a step (TRAIN_ZOO_LAUNCHES: 417, 218 and 256 leaves,
+# the smallest 80 and 24 elements) and is held against its plain version
+# at each new leaf table after the warm-up round, every bf16 output within
+# TRAIN_ZOO_ULPS.  The enc-dec's batches carry TRAIN_ZOO_FRAMES stub frames
+# a sample from a seeded generator on the card (the LM stream has none).
+# Then each consensus: zamba2's serves TRAIN_ZOO_SERVE (9 flash launches a
+# prefill through the head-dim route at D 80, each call held against the
+# plain version); mamba2's is written by save_checkpoint (0.52 GB of fp32
+# npz) and served by launch.serve --ckpt (restored = saved bit for bit,
+# tokens = the consensus served directly); seamless's through the prefill
+# step and BatchedServer (TRAIN_ZOO_ENCDEC_SERVE: 36 flash launches a
+# prefill step, 12 a decode step).  TRAIN_ZOO_PEAK_GB: zamba2's peak
+# reckoned before the first run (41.27 GB of state, 16.51 GB of a step's
+# temporaries, activations under remat, a 4.13 GB consensus).
+TRAIN_ZOO = ("zamba2-2.7b", "mamba2-130m", "seamless-m4t-medium")
+TRAIN_ZOO_LAUNCHES = {"zamba2-2.7b": 9, "mamba2-130m": 5,
+                      "seamless-m4t-medium": 6}
+TRAIN_ZOO_ROUNDS = 2
+TRAIN_ZOO_FRAMES = 1024
+TRAIN_ZOO_ULPS = 0
+TRAIN_ZOO_PEAK_GB = (58.0, 66.0)
+TRAIN_ZOO_SERVE = {"batch": 2, "prompt": 256, "new": 8, "cache": 512}
+TRAIN_ZOO_ENCDEC_SERVE = {"batch": 2, "frames": 1024, "prompt": 16,
+                          "new": 8, "cache": 64}
+# train_zoo_card_vs_cpu: the reduced fp32 configs of the families that
+# train only reduced on one card (MoE, VLM) and of the three above, 2
+# rounds from one state on the card and on the CPU, x / y / nu / g within
+# CPU_ATOL / CPU_RTOL; a VLM's vision embeds and an enc-dec's 16 frames a
+# sample drawn from a numpy seed, the same on both devices
+TRAIN_ZOO_CPU_ARCHS = ("qwen3-moe-235b-a22b", "grok-1-314b",
+                       "phi-3-vision-4.2b", "mamba2-130m", "zamba2-2.7b",
+                       "seamless-m4t-medium")
+TRAIN_ZOO_CPU = ["--reduced", "--clients", "4", "--topology", "ring",
+                 "--batch", "2", "--seq", "32", "--t0", "2", "--rounds", "2",
+                 "--seed", "1", "--log-every", "1"]
+TRAIN_ZOO_CPU_FRAMES = 16
 
 
 def hw() -> dict:
@@ -3007,6 +3072,21 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
         async_launches, async_line)
 
 
+def _assert_restores(path: str, ck: str, mean) -> int | None:
+    """The checkpoint ``ck`` restored on the card into the family's module
+    (its ``init`` on ``meta``) equals the module ``mean`` it was written
+    from, dtype and bits, leaf by leaf; returns the saved step."""
+    from repro_torch.models import build_model
+    from repro_torch.training import restore_checkpoint
+    restored, step = restore_checkpoint(
+        ck, build_model(mean.cfg, device="meta").init()[0], device="cuda")
+    for (k, a), (_, b) in zip(restored.named_parameters(),
+                              mean.named_parameters()):
+        if a.dtype != b.dtype or not bits_equal(a, b):
+            raise AssertionError(f"{path}: {k} restored != saved")
+    return step
+
+
 def phase_train_ckpt() -> tuple[dict, dict]:
     """launch.train --ckpt then launch.serve --ckpt on the card (reduced
     fp32): the restored params bit-equal to the saved consensus, the
@@ -3016,8 +3096,6 @@ def phase_train_ckpt() -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import Transformer, init_params
-    from repro_torch.training import restore_checkpoint
 
     cfg = get_config("qwen3-1.7b", reduced=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3030,13 +3108,7 @@ def phase_train_ckpt() -> tuple[dict, dict]:
         expect_counts("train_ckpt", train_launches, {
             "fused_update_sweep": steps, "fused_tracking_sweep": steps})
         mean = trainer.mean_params(state)
-        restored, step = restore_checkpoint(
-            ck, Transformer(cfg, init_params(cfg, device="meta")[0]),
-            device="cuda")
-        for (k, a), (_, b) in zip(restored.named_parameters(),
-                                  mean.named_parameters()):
-            if not bits_equal(a, b):
-                raise AssertionError(f"train_ckpt: {k} restored != saved")
+        step = _assert_restores("train_ckpt", ck, mean)
         reset_counts()
         served = serve.main(["--arch", "qwen3-1.7b", "--reduced", "--ckpt",
                              ck, "--batch", "2", "--prompt-len", "8",
@@ -3098,6 +3170,384 @@ def phase_train_card_vs_cpu() -> tuple[dict, dict]:
                       "max_abs_diff": diff, "losses_card": gl,
                       "losses_cpu": cl, "launches": launches}
 
+
+
+def _with_arch(argv: list, arch: str) -> list:
+    """``argv`` with the value of ``--arch`` replaced by ``arch``."""
+    i = argv.index("--arch")
+    return argv[:i + 1] + [arch] + argv[i + 2:]
+
+
+def _with_extras(it, cfg, frames: int, draw):
+    """The LM batch iterator with a VLM's vision embeds or an enc-dec's
+    ``frames`` stub frames a sample added, ``draw(shape)`` giving them."""
+    for b in it:
+        lead = tuple(b["tokens"].shape[:3])
+        if cfg.family == "vlm":
+            b["vision_embeds"] = draw(lead + (cfg.n_vision_tokens,
+                                              cfg.d_model))
+        if cfg.family == "encdec":
+            b["frames"] = draw(lead + (frames, cfg.d_model))
+        yield b
+
+
+def _hold_sweep_pair(trainer, state) -> dict:
+    """One step's two grouped calls at the state's leaf table against the
+    plain versions leaf by leaf, on the same inputs: every bf16 output
+    within TRAIN_ZOO_ULPS (fp32 bit for bit).  The launches are a check's,
+    not the path's."""
+    import torch
+    from repro_torch.kernels.prox import kernel as K
+    from repro_torch.kernels.prox.ops import (fused_local_update,
+                                              fused_tracking,
+                                              hyper_param_vec)
+    dep = trainer.cfg.depositum
+    hp = hyper_param_vec(dep.hyper(), device="cuda")
+    table = hp[None]
+    worst = {"fused_update_sweep": 0, "fused_tracking_sweep": 0}
+    differing = dict(worst)
+
+    def hold(name, k, out, ref):
+        if out.dtype == torch.bfloat16:
+            d = bf16_ulps(out, ref)
+            u, n = int(d.max()), int((d > 0).sum())
+        else:
+            u = n = 0 if bits_equal(out, ref) else 1
+        worst[name] = max(worst[name], u)
+        differing[name] += n
+        if u > TRAIN_ZOO_ULPS:
+            raise AssertionError(f"{name} at leaf {k}: {u} ulps from plain "
+                                 f"({n} elements differ)")
+
+    xs, nus = fused_local_update(state.x, state.y, state.nu, hp,
+                                 kind=dep.prox_name)
+    for k in state.x:
+        rx, rnu = K.fused_update_sweep_grouped_plain(
+            [state.x[k]], [state.y[k]], [state.nu[k]], table,
+            kind=dep.prox_name, lead=1)
+        hold("fused_update_sweep", k, xs[k], rx[0])
+        hold("fused_update_sweep", k, nus[k], rnu[0])
+    del xs, nus, rx, rnu
+    ys, _ = fused_tracking(state.y, state.g, state.nu, hp)
+    for k in state.y:
+        ry, _ = K.fused_tracking_sweep_grouped_plain(
+            [state.y[k]], [state.g[k]], [state.nu[k]], table, lead=1)
+        hold("fused_tracking_sweep", k, ys[k], ry[0])
+    del ys, ry
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"max_ulps": worst, "differing": differing,
+            "ulps_limit": TRAIN_ZOO_ULPS}
+
+
+def _train_zoo_arch(arch: str):
+    """Full-width DEPOSITUM rounds of ``arch`` on 2 bf16 clients; returns
+    (launches, line, trainer, consensus module)."""
+    import torch
+    from repro_torch.kernels.prox import kernel as K
+    from repro_torch.launch import dryrun, train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = train.parse_args(_with_arch(TRAIN, arch)
+                            + ["--rounds", str(1 + TRAIN_ZOO_ROUNDS)])
+    trainer, cfg, state, it = train.build(args)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    it = _with_extras(it, cfg, TRAIN_ZOO_FRAMES, lambda shape: torch.randn(
+        shape, generator=gen, device="cuda").to(cfg.torch_dtype))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v[0].numel() for v in state.x.values())
+    n_leaves = len(state.x)
+    smallest = min(v[0].numel() for v in state.x.values())
+    per_step = -(-n_leaves // K.MAX_LEAVES)
+    if per_step != TRAIN_ZOO_LAUNCHES[arch]:
+        raise AssertionError(f"train_zoo {arch}: {n_leaves} leaves take "
+                             f"{per_step} launches a step, want "
+                             f"{TRAIN_ZOO_LAUNCHES[arch]}")
+    state_bytes = sum(v.numel() * v.element_size() for f in
+                      ("x", "y", "nu", "mu", "g")
+                      for v in getattr(state, f).values())
+    dry = dryrun.run_one(arch, "train_4k", mesh="1x1",
+                         n_clients=args.clients)
+    if state_bytes != dry["state_bytes_per_device"]:
+        raise AssertionError(f"train_zoo {arch}: state {state_bytes} bytes, "
+                             f"the dry run's {dry['state_bytes_per_device']}")
+    T0 = args.t0
+    want = lambda rounds: {"fused_update_sweep": per_step * T0 * rounds,
+                           "fused_tracking_sweep": per_step * T0 * rounds}
+
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = trainer.run(state, it, 1, donate=True)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    warm = read_counts()
+    expect_counts(f"train_zoo {arch} warm-up", warm, want(1))
+    losses = [hist[-1]["loss"]]
+    pair = _hold_sweep_pair(trainer, state)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls = []
+    for _ in range(TRAIN_ZOO_ROUNDS):
+        t0 = time.perf_counter()
+        state, hist = trainer.run(state, it, 1, donate=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(hist[-1]["loss"])
+    launches = read_counts()
+    expect_counts(f"train_zoo {arch}", launches, want(TRAIN_ZOO_ROUNDS))
+    peak_gb = _gb(torch.cuda.max_memory_allocated() - base)
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"train_zoo {arch}: a loss is not finite: "
+                             f"{losses}")
+    steps = int(state.t)
+    mean = trainer.mean_params(state)
+    del state
+    torch.cuda.empty_cache()
+    tokens = args.clients * args.batch * args.seq * T0
+    path = {k: warm[k] + launches[k] for k in launches}
+    return path, {
+        "arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+        "params": n_params, "leaves": n_leaves,
+        "smallest_leaf": smallest, "dtype": cfg.dtype, "remat": cfg.remat,
+        "clients": args.clients, "batch": args.batch, "seq": args.seq,
+        "t0": T0, "steps": steps, "init_s": init_s,
+        "warmup_round_s": warmup_s, "round_ms": walls,
+        "tokens_per_round": tokens,
+        "tokens_per_s": [tokens / w * 1e3 for w in walls],
+        "losses": losses, "state_bytes": state_bytes,
+        "dryrun_state_bytes": dry["state_bytes_per_device"],
+        "train_peak_gb": peak_gb, "launches_per_step": per_step,
+        "launches": path, "sweep_pair_vs_plain": pair,
+        **({"frames": TRAIN_ZOO_FRAMES} if cfg.family == "encdec" else {}),
+        **({"predicted_peak_gb": list(TRAIN_ZOO_PEAK_GB)}
+           if arch == "zamba2-2.7b" else {})}, trainer, mean
+
+
+def _serve_trained(cfg, model, mean) -> tuple[dict, dict]:
+    """The trained consensus of a decoder family through BatchedServer
+    (TRAIN_ZOO_SERVE): the flash launches of one prefill, each call of a
+    prefill held against the plain version."""
+    import torch
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.serve_drift import prefill_drift
+    from repro_torch.serving import BatchedServer, ServeConfig
+    ts = TRAIN_ZOO_SERVE
+    srv = BatchedServer(model, mean, ServeConfig(
+        max_new_tokens=ts["new"], cache_capacity=ts["cache"]))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab_size, (ts["batch"], ts["prompt"]),
+                            generator=gen, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = srv.generate(prompts)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts(f"train_zoo {cfg.name} serve", launches,
+                  _zoo_want(cfg, 1, "flash_attention"))
+    if toks.shape != (ts["batch"], ts["new"]) or not bool(
+            ((toks >= 0) & (toks < pad_vocab(cfg.vocab_size))).all()):
+        raise AssertionError(f"train_zoo {cfg.name}: served tokens bad")
+    line = {**ts, "generate_s": generate_s, "launches": launches,
+            "sample": toks[0].tolist()}
+    if _attention_layers(cfg):
+        drift = prefill_drift(srv, prompts, call_tol=FLASH_TOL["bfloat16"],
+                              logit_tol=(SERVE_LOGIT_ATOL, SERVE_LOGIT_RTOL))
+        if drift["flash_calls"] != _attention_layers(cfg):
+            raise AssertionError(f"train_zoo {cfg.name}: "
+                                 f"{drift['flash_calls']} flash calls held")
+        line.update(flash_call_tol=FLASH_TOL["bfloat16"], drift=drift)
+    with torch.inference_mode():
+        logits, _ = srv.prefill(prompts)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"train_zoo {cfg.name}: logits not finite")
+    return launches, line
+
+
+def _serve_ckpt(cfg, model, mean, steps: int) -> tuple[dict, dict]:
+    """The consensus saved as ``launch.train --ckpt`` saves it, then
+    served by ``launch.serve --ckpt``: restored bit-equal to the saved
+    module, the served tokens equal to serving the consensus directly."""
+    import tempfile
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.training import save_checkpoint
+    ts = TRAIN_ZOO_SERVE
+    argv = ["--arch", cfg.name, "--batch", str(ts["batch"]), "--prompt-len",
+            str(ts["prompt"]), "--max-new", str(ts["new"]), "--cache",
+            str(ts["cache"])]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "consensus.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(ck, mean, step=steps)
+        save_s = time.perf_counter() - t0
+        ck_gb = _gb(os.path.getsize(ck))
+        t0 = time.perf_counter()
+        step = _assert_restores(f"train_zoo {cfg.name}", ck, mean)
+        restore_s = time.perf_counter() - t0
+        reset_counts()
+        served = serve.main(argv + ["--ckpt", ck])
+        launches = read_counts()
+    expect_counts(f"train_zoo {cfg.name} serve --ckpt", launches,
+                  _zoo_want(cfg, 1, "flash_attention"))
+    direct = serve.generate(model, mean, batch=ts["batch"],
+                            prompt_len=ts["prompt"], max_new=ts["new"],
+                            cache=ts["cache"])
+    if not torch.equal(served, direct):
+        raise AssertionError(f"train_zoo {cfg.name}: tokens served from the "
+                             "checkpoint differ from the consensus's")
+    return launches, {"ckpt_gb": ck_gb, "step": step, "save_s": save_s,
+                      "restore_s": restore_s, "launches": launches,
+                      "restored_bit_equal": True, "tokens_equal": True,
+                      "sample": served[0].tolist()}
+
+
+def _serve_trained_encdec(cfg, model, mean) -> tuple[dict, dict]:
+    """The enc-dec's consensus: the prefill step over stub frames (36
+    flash launches), then BatchedServer from its memory (12 a step), every
+    call of the prefill step held against the plain version."""
+    import torch
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.common import pad_vocab
+    from repro_torch.serve_drift import flash_drift
+    from repro_torch.serving import BatchedServer, ServeConfig
+    B, S, Lp, new, cap = (TRAIN_ZOO_ENCDEC_SERVE[k] for k in (
+        "batch", "frames", "prompt", "new", "cache"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"frames": torch.randn((B, S, cfg.d_model), generator=gen,
+                                   device="cuda").to(cfg.torch_dtype),
+             "tokens": torch.randint(0, cfg.vocab_size, (B, Lp),
+                                     generator=gen, device="cuda")}
+    step = build_prefill_step(model, cap)
+    want_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, memory = step(mean, batch)
+    prefill_launches = read_counts()
+    expect_counts("train_zoo enc-dec prefill step", prefill_launches,
+                  {"flash_attention": want_prefill})
+    toks = BatchedServer(model, mean, ServeConfig(
+        max_new_tokens=new, cache_capacity=cap)).generate(
+        batch["tokens"], extra={"memory": memory})
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts("train_zoo enc-dec serve", launches, {
+        "flash_attention": want_prefill + cfg.n_layers * (Lp + new - 1)})
+    if toks.shape != (B, new) or not bool(
+            ((toks >= 0) & (toks < pad_vocab(cfg.vocab_size))).all()):
+        raise AssertionError("train_zoo enc-dec: served tokens bad")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(memory).all())):
+        raise AssertionError("train_zoo enc-dec: prefill not finite")
+    drift = flash_drift(lambda: step(mean, batch)[0],
+                        call_tol=FLASH_TOL["bfloat16"],
+                        logit_tol=(SERVE_LOGIT_ATOL, SERVE_LOGIT_RTOL))
+    if drift["flash_calls"] != want_prefill:
+        raise AssertionError(f"train_zoo enc-dec: {drift['flash_calls']} "
+                             "flash calls held")
+    return launches, {**TRAIN_ZOO_ENCDEC_SERVE, "serve_s": serve_s,
+                      "launches": launches,
+                      "prefill_step_launches":
+                          prefill_launches["flash_attention"],
+                      "flash_call_tol": FLASH_TOL["bfloat16"],
+                      "drift": drift, "sample": toks[0].tolist()}
+
+
+def phase_train_zoo() -> tuple[dict, dict]:
+    """The TRAIN_ZOO archs trained at full width on 2 bf16 clients, one at
+    a time, each consensus then served; returns (launches summed over
+    them, the line)."""
+    import torch
+    total, lines = {}, {}
+    for arch in TRAIN_ZOO:
+        path, line, trainer, mean = _train_zoo_arch(arch)
+        cfg = trainer.model.cfg
+        if cfg.family == "encdec":
+            served, line["serve"] = _serve_trained_encdec(
+                cfg, trainer.model, mean)
+        elif cfg.family == "ssm":
+            served, line["serve_ckpt"] = _serve_ckpt(
+                cfg, trainer.model, mean, line["steps"] // line["t0"])
+        else:
+            served, line["serve"] = _serve_trained(cfg, trainer.model, mean)
+        del trainer, mean
+        torch.cuda.empty_cache()
+        for k in path:
+            total[k] = total.get(k, 0) + path[k] + served[k]
+        lines[arch] = line
+    return total, {"phase": "train_zoo", "launches": total, **lines}
+
+
+def phase_train_zoo_card_vs_cpu() -> tuple[dict, dict]:
+    """The TRAIN_ZOO_CPU_ARCHS reduced, fp32: 2 rounds from one state on
+    the card (kernels) and on the CPU (plain versions), x / y / nu / g
+    within CPU_ATOL / CPU_RTOL and the losses within CPU_RTOL; then the
+    hybrid's and the enc-dec's consensus through a checkpoint on the
+    card, restored bit for bit."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels.prox import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.training import save_checkpoint
+
+    out, total = {}, {}
+    for arch in TRAIN_ZOO_CPU_ARCHS:
+        args = train.parse_args(["--arch", arch] + TRAIN_ZOO_CPU)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            args.device = dev
+            trainer, cfg, _, it = train.build(args)
+            rng = np.random.default_rng(6)
+            it = _with_extras(it, cfg, TRAIN_ZOO_CPU_FRAMES,
+                              lambda shape, dev=dev: torch.from_numpy(
+                                  rng.standard_normal(shape).astype(
+                                      np.float32)).to(dev))
+            if dev == "cpu":
+                start, _ = trainer.model.init(args.seed)
+            state = trainer.state_from_params(copy.deepcopy(start).to(dev))
+            if dev == "cuda":
+                reset_counts()
+            state, hist = trainer.run(state, it, args.rounds)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+            runs[dev] = (trainer, state, [h["loss"] for h in hist])
+        (_, cs, cl), (gtr, gs, gl) = runs["cpu"], runs["cuda"]
+        diff = {}
+        for f in ("x", "y", "nu", "g"):
+            a, b = getattr(gs, f), getattr(cs, f)
+            for k in a:
+                torch.testing.assert_close(
+                    a[k].cpu(), b[k], atol=CPU_ATOL, rtol=CPU_RTOL,
+                    msg=lambda m: f"{arch} {f}/{k}: {m}")
+            diff[f] = max(float((a[k].cpu() - b[k]).abs().max()) for k in a)
+        torch.testing.assert_close(torch.tensor(gl), torch.tensor(cl),
+                                   atol=0, rtol=CPU_RTOL)
+        steps = int(gs.t) * -(-len(gs.x) // K.MAX_LEAVES)
+        expect_counts(f"train_zoo_card_vs_cpu {arch}", launches, {
+            "fused_update_sweep": steps, "fused_tracking_sweep": steps})
+        line = {"leaves": len(gs.x), "launches": launches,
+                "max_abs_diff": diff, "losses_card": gl, "losses_cpu": cl}
+        if cfg.family in ("hybrid", "encdec"):
+            mean = gtr.mean_params(gs)
+            with tempfile.TemporaryDirectory() as tmp:
+                ck = str(Path(tmp) / "consensus.npz")
+                save_checkpoint(ck, mean, step=args.rounds)
+                _assert_restores(f"train_zoo_card_vs_cpu {arch}", ck, mean)
+            line["ckpt_round_trip_bit_equal"] = True
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        out[arch] = line
+    return total, {"phase": "train_zoo_card_vs_cpu", "atol": CPU_ATOL,
+                   "rtol": CPU_RTOL, "launches": total, **out}
 
 
 def _x_rel(a: dict, b: dict) -> float:
@@ -4070,7 +4520,12 @@ def main() -> int:
     emit(async_llm)
     train_paths = [llm_launches, async_llm_launches]
     torch.cuda.empty_cache()
-    for phase in (phase_train_ckpt, phase_train_card_vs_cpu):
+    train_zoo_launches, train_zoo = phase_train_zoo()
+    emit(train_zoo)
+    train_paths.append(train_zoo_launches)
+    torch.cuda.empty_cache()
+    for phase in (phase_train_ckpt, phase_train_card_vs_cpu,
+                  phase_train_zoo_card_vs_cpu):
         path_launches, line = phase()
         emit(line)
         train_paths.append(path_launches)
@@ -4133,7 +4588,8 @@ def main() -> int:
     bf16_launches = serve_launches["flash_attention"] + sum(
         n["flash_attention"] for n in train_paths) \
         + zoo_launches["flash_attention"] + encdec_launches["flash_attention"]
-    padded = {"bfloat16": zoo_launches["flash_fwd_padded"],
+    padded = {"bfloat16": zoo_launches["flash_fwd_padded"]
+              + train_zoo_launches["flash_fwd_padded"],
               "float32": zoo_cpu_launches["flash_fwd_padded"]}
     # the bf16 kernel's error at the route's and the enc-dec's timed shapes
     timed_err = max(timing_flash[label]["max_abs_err"]

@@ -8,8 +8,9 @@ Example (CPU, reduced config):
 
 Without ``--device cpu`` it runs on the card (and raises without one); the
 first call on the card builds the kernels with ``nvcc``.  Weights are drawn
-from ``--seed``, or read from ``--ckpt`` (a transformer family's checkpoint
-in the reference's format, as ``launch.train --ckpt`` writes); prompts are
+from ``--seed``, or read from ``--ckpt`` (a checkpoint of any family in
+the reference's format, as ``launch.train --ckpt`` or the reference's
+``save_checkpoint`` writes it); prompts are
 uniform tokens from the seed, a VLM's stub vision embeds (B,
 n_vision_tokens, d) and an enc-dec's stub encoder memory (B, 32, d)
 standard normal draws from it, as the reference's launcher stubs them.
@@ -27,7 +28,6 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.models.transformer import FAMILIES, Transformer, init_params
 from repro_torch.serving import BatchedServer, ServeConfig
 from repro_torch.training.checkpoint import restore_checkpoint
 
@@ -79,11 +79,8 @@ def main(argv=None):
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg, device=device)
     if args.ckpt:
-        if cfg.family not in FAMILIES:
-            raise ValueError(f"--ckpt restores the transformer families "
-                             f"{FAMILIES} only, not {cfg.family!r} (the "
-                             "SSM, hybrid and enc-dec serve from --seed)")
-        template = Transformer(cfg, init_params(cfg, device="meta")[0])
+        # the family's module built by its init_params on meta: shapes only
+        template, _ = build_model(cfg, device="meta").init()
         params, step = restore_checkpoint(args.ckpt, template, device=device)
         print(f"restored {args.ckpt} (step {step})")
     else:

@@ -10,10 +10,15 @@ temporary file, then rename).  A restore checks every leaf of the
 template: a missing one raises ``KeyError``, a shape that differs
 ``ValueError``.
 
-A :class:`~repro_torch.models.transformer.Transformer` is saved in the
-reference's layout, its layers stacked on axis 0 (``blocks/attn/wq`` of
-shape ``(L, d, H*hd)``), so a checkpoint written by either package
-restores into the other.
+A zoo module (:class:`~repro_torch.models.transformer.Transformer`,
+:class:`~repro_torch.models.ssm.SSM`, :class:`~repro_torch.models.hybrid.
+Hybrid`, :class:`~repro_torch.models.encdec.EncDec`) is saved in the
+reference's stacked layout (:func:`~repro_torch.convert.
+model_params_to_numpy`: ``blocks/attn/wq`` of shape ``(L, d, H*hd)``, a
+hybrid's ``mamba/...`` over ``(n_groups, per_group)``, an enc-dec's
+``encoder/...`` and ``decoder/...`` over their layers), so a checkpoint
+written by either package restores into the other.  A leaf that is
+neither a tensor nor a numeric array raises: nothing is pickled.
 """
 from __future__ import annotations
 
@@ -26,10 +31,17 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.convert import (
-    transformer_params_from_numpy,
-    transformer_params_to_numpy,
+    _init_fn,
+    model_params_from_numpy,
+    model_params_to_numpy,
 )
+from repro_torch.models.encdec import EncDec
+from repro_torch.models.hybrid import Hybrid
+from repro_torch.models.ssm import SSM
 from repro_torch.models.transformer import Transformer
+
+#: the modules of the zoo's families, saved in the reference's layout
+ZOO_MODULES = (Transformer, SSM, Hybrid, EncDec)
 
 
 def _leaves(tree, prefix: str = ""):
@@ -45,30 +57,37 @@ def _leaves(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def _to_numpy(v) -> np.ndarray:
+def _to_numpy(path: str, v) -> np.ndarray:
+    """A leaf as the array the file stores; anything but a tensor, a
+    number or a numeric array raises ``TypeError``."""
     if isinstance(v, torch.Tensor):
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
             v = v.to(torch.float32)
         return v.numpy()
+    if not isinstance(v, (np.ndarray, np.generic, int, float)):
+        raise TypeError(f"checkpoint leaf {path!r} is a {type(v).__name__}, "
+                        "not a tensor or a numeric array")
     arr = np.asarray(v)
     if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
         # npz cannot store ml_dtypes; upcast losslessly (restore re-casts)
         arr = arr.astype(np.float32)
+    if arr.dtype.kind not in "biuf":
+        raise TypeError(f"checkpoint leaf {path!r} has dtype {arr.dtype}, "
+                        "not a numeric one")
     return arr
 
 
 def _tree(module_or_tree):
-    """What a checkpoint stores of ``module_or_tree``: a Transformer in the
+    """What a checkpoint stores of ``module_or_tree``: a zoo module in the
     reference's stacked layout, anything else as it is."""
-    if isinstance(module_or_tree, Transformer):
-        return transformer_params_to_numpy(module_or_tree,
-                                           module_or_tree.cfg)
+    if isinstance(module_or_tree, ZOO_MODULES):
+        return model_params_to_numpy(module_or_tree)
     return module_or_tree
 
 
 def save_checkpoint(path: str, tree: Any, step: int | None = None) -> None:
-    arrays = {p: _to_numpy(v) for p, v in _leaves(_tree(tree))}
+    arrays = {p: _to_numpy(p, v) for p, v in _leaves(_tree(tree))}
     if step is not None:
         arrays["__step__"] = np.asarray(step)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -94,24 +113,33 @@ def _checked(data, key: str, shape) -> np.ndarray:
     return arr
 
 
-def _restore_transformer(data, template: Transformer, device):
-    """The template's leaves in the stacked layout, checked, then carried
-    into a new Transformer on ``device``."""
+def _stacked_shapes(tree, prefix: str = "", lead: tuple = ()):
+    """(path, shape) of every leaf of a port params tree in the reference's
+    layout: each list of per-layer trees stacked on a leading axis."""
+    if isinstance(tree, list):
+        yield from _stacked_shapes(tree[0], prefix, lead + (len(tree),))
+    elif isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _stacked_shapes(tree[k], f"{prefix}{k}/", lead)
+    else:
+        yield prefix[:-1], lead + tuple(tree.shape)
+
+
+def _restore_module(data, template: torch.nn.Module, device):
+    """The leaves of the template's family (its ``init_params`` on
+    ``meta``) in the stacked layout, checked, then carried into a new
+    module of the template's class on ``device``."""
     cfg = template.cfg
-    want = {name: child.tensors() for name, child in
-            template.named_children() if name != "blocks"}
-    want["blocks"] = template.blocks[0].tensors()
+    want, _ = _init_fn(cfg)(cfg, device="meta")
     tree: dict = {}
-    for p, t in _leaves(want):
-        shape = ((cfg.n_layers,) + tuple(t.shape) if p.startswith("blocks/")
-                 else t.shape)
+    for p, shape in _stacked_shapes(want):
         node = tree
         *parents, leaf = p.split("/")
         for k in parents:
             node = node.setdefault(k, {})
         node[leaf] = _checked(data, p, shape)
-    return Transformer(cfg, transformer_params_from_numpy(
-        tree, cfg, device=device))
+    return type(template)(cfg, model_params_from_numpy(tree, cfg,
+                                                       device=device))
 
 
 def _rebuild(template, arrays, device):
@@ -131,21 +159,22 @@ def restore_checkpoint(path: str, template: Any, *,
                        device=None) -> tuple[Any, int | None]:
     """Restore into the structure of ``template``; returns (tree, step).
 
-    ``template`` is a Transformer (its weights may be on ``meta``: only
-    shapes are read; a new Transformer is returned) or a dict / list tree
-    of tensors or numpy arrays (the same tree of the template's dtypes is
-    returned).  Tensors land on ``device``, default the template's.
+    ``template`` is a zoo module (its weights may be on ``meta``: only its
+    class and config are read; a new module of its class is returned) or
+    a dict / list tree of tensors or numpy arrays (the same tree of the
+    template's dtypes is returned).  Tensors land on ``device``, default
+    the template's.
     """
     if device is not None:
         device = resolve_device(device)
     with np.load(path) as data:
         step = int(data["__step__"]) if "__step__" in data else None
-        if isinstance(template, Transformer):
+        if isinstance(template, ZOO_MODULES):
             if device is None:
                 device = template.embed["table"].device
             if device.type == "meta":
                 raise ValueError("a template on meta needs device=")
-            return _restore_transformer(data, template, device), step
+            return _restore_module(data, template, device), step
         arrays = {id(leaf): _checked(data, p, leaf.shape)
                   for p, leaf in _leaves(template)}
     return _rebuild(template, arrays, device), step

@@ -22,8 +22,10 @@ from repro.models import build_model as jbuild
 from repro.training import restore_checkpoint as j_restore
 from repro.training import save_checkpoint as j_save
 from repro_torch.configs import get_config
-from repro_torch.convert import (transformer_params_from_numpy,
+from repro_torch.convert import (model_params_to_numpy,
+                                 transformer_params_from_numpy,
                                  transformer_params_to_numpy)
+from repro_torch.models import build_model
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.training import restore_checkpoint, save_checkpoint
 
@@ -142,3 +144,60 @@ def test_flat_params_dict_crosses_with_nested(tmp_path):
     assert step == 4 and sorted(out) == sorted(flat)
     for k, v in flat.items():
         assert torch.equal(out[k], v)
+
+
+ZOO_ARCHS = ["mamba2-130m", "zamba2-2.7b", "seamless-m4t-medium",
+             "qwen3-moe-235b-a22b", "phi-3-vision-4.2b"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_zoo_checkpoints_cross_bit_for_bit(tmp_path, arch, dtype):
+    jcfg = dataclasses.replace(jget(arch, reduced=True), dtype=dtype)
+    tcfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
+    jp, _ = jbuild(jcfg).init(jax.random.PRNGKey(0))
+    f32 = lambda t: jax.tree_util.tree_map(
+        lambda v: np.asarray(v, np.float32), t)
+
+    # reference -> port, into the family's module built on meta
+    ref = str(tmp_path / "ref.npz")
+    j_save(ref, jp, step=7)
+    template, _ = build_model(tcfg, device="meta").init()
+    module, step = restore_checkpoint(ref, template, device="cpu")
+    assert step == 7 and type(module) is type(template)
+    assert all(p.dtype == tcfg.torch_dtype and p.device.type == "cpu"
+               for p in module.parameters())
+    jax.tree_util.tree_map(lambda a, b: _bits(a, b) or pytest.fail("bits"),
+                           model_params_to_numpy(module), f32(jp))
+
+    # port -> reference
+    port = str(tmp_path / "port.npz")
+    save_checkpoint(port, module, step=9)
+    back, step = j_restore(port, jp)
+    assert step == 9
+    jax.tree_util.tree_map(
+        lambda a, b: (a.dtype == b.dtype and _bits(f32(a), f32(b)))
+        or pytest.fail("bits"), back, jp)
+
+    # the same leaf names and shapes as the reference's own file
+    with np.load(port) as a, np.load(ref) as b:
+        assert {k: a[k].shape for k in a} == {k: b[k].shape for k in b}
+        assert all(a[k].dtype == b[k].dtype for k in a)
+    if tcfg.family == "hybrid":
+        with np.load(port) as a:
+            assert a["mamba/mamba/in_proj"].shape[:2] == (
+                tcfg.n_layers // tcfg.shared_attn_every,
+                tcfg.shared_attn_every - 1)
+
+
+@pytest.mark.parametrize("tree", [
+    {"w": torch.ones(2), "m": torch.nn.Linear(2, 2)},
+    torch.nn.Linear(2, 2),
+    {"w": torch.ones(2), "s": "text"},
+    {"o": np.array([object()])},
+], ids=["module-leaf", "module", "str-leaf", "object-array"])
+def test_non_tensor_leaf_raises(tmp_path, tree):
+    path = tmp_path / "bad.npz"
+    with pytest.raises(TypeError, match="checkpoint leaf"):
+        save_checkpoint(str(path), tree)
+    assert not path.exists() and not list(tmp_path.iterdir())

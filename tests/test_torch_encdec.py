@@ -368,17 +368,27 @@ def test_batched_server_greedy_tokens_match_reference(pair):
     assert torch.equal(cache.memory, extra["memory"])
 
 
-def test_serve_launcher_runs_the_encdec(capsys):
+def test_serve_launcher_runs_the_encdec(capsys, tmp_path):
     from repro_torch.launch.serve import main
-    out = main(["--arch", ARCH, "--reduced", "--device", "cpu", "--batch",
-                "2", "--prompt-len", "5", "--max-new", "3", "--cache", "16"])
+    from repro_torch.training import save_checkpoint
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "5", "--max-new", "3", "--cache", "16"]
+    out = main(argv)
     assert tuple(out.shape) == (2, 3)
     assert ((out >= 0) & (out < 512)).all()
     assert capsys.readouterr().out.splitlines()[0].startswith(
         "generated (2, 3) in ")
-    with pytest.raises(ValueError, match="enc-dec serve from --seed"):
-        main(["--arch", ARCH, "--reduced", "--device", "cpu", "--ckpt",
-              "missing.npz"])
+    # --ckpt restores the enc-dec as it does every family: the seed's own
+    # weights through a checkpoint serve the same tokens
+    with pytest.raises(FileNotFoundError):
+        main(argv + ["--ckpt", str(tmp_path / "missing.npz")])
+    cfg = get_config(ARCH, reduced=True)
+    params, _ = build_model(cfg, device="cpu").init(seed=0)
+    ck = str(tmp_path / "seed0.npz")
+    save_checkpoint(ck, params, step=3)
+    again = main(argv + ["--ckpt", ck])
+    assert "(step 3)" in capsys.readouterr().out
+    assert torch.equal(again, out)
 
 
 def test_flash_drift_of_the_prefill_step_on_the_cpu(pair):
