@@ -13,9 +13,10 @@ final line):
    ``nvcc`` runs started together; print what ``-Xptxas
    -v`` says of both flash kernels per D (registers, shared memory,
    spills) and of every sweep-kernel instantiation (registers, spills),
-   and fail if the bf16 or the fp32 D = 128 instantiation spills,
-   or if the bf16 SASS (``cuobjdump -sass``) lacks the wgmma of Q K^T (A
-   from shared memory) or of P V (A from registers);
+   and fail if the bf16 D = 80 / 96 / 128 or the fp32 D = 128
+   instantiation spills, or if the bf16 SASS (``cuobjdump -sass``) of
+   D = 80, 96 or 128 lacks the wgmma of Q K^T (A from shared memory) or of
+   P V (A from registers); the HGMMA shapes of each D are printed;
 2. hold each kernel against its plain PyTorch version on the card:
    * the sweep-major pair: all three prox kinds, gated and ungated, S = 3
      configs x C = 10 clients, an odd d (scalar loads) and a d that is a
@@ -35,16 +36,17 @@ final line):
      within ``BF16_HEAD_ULPS``, fp32 and frozen rows bit for bit;
    * ``prox_cuda`` and ``fused_update_cuda``: three kinds, odd, float4 and
      0-d leaves, fp32 within ``ATOL`` / ``RTOL`` and bf16;
-   * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 128 / 256, GQA
-     groups 1 / 2 / 8, causal with window 0 and 128 and non-causal,
-     L = 1 / 17 / 200 / 1024, within ``FLASH_TOL``; every bf16 case
-     launches the tensor-core kernel and every fp32 case the fp32 one;
-     and D = 32 / 80 / 96 (groups 1 / 8, L = 17 / 200 / 1024) through
-     the head-dim route (zero-padded to 64 / 128 / 128), each launch
-     counted under ``flash_fwd_padded`` too; and ``Lq != Lk`` at D 64
-     (``FLASH_CROSS_PAIRS``: decode's one query and a prompt's 16 against
-     1024 or a ragged 1000 keys, short ragged pairs both ways), groups 1 /
-     2, non-causal and causal;
+   * ``flash_attention_cuda``: fp32 and bf16, D = 64 / 80 / 96 / 128 /
+     256, GQA groups 1 / 2 / 8, causal with window 0 and 128 and
+     non-causal, L = 1 / 17 / 200 / 1024, within ``FLASH_TOL``; every
+     bf16 case launches the tensor-core kernel (D 80 and 96 natively, no
+     ``flash_fwd_padded`` count) and every fp32 case the fp32 one; the
+     head dims a dtype's kernel is not built for (fp32 32 / 80 / 96, bf16
+     32; D 32 at groups 1 / 8, L = 17 / 200 / 1024) through the head-dim
+     route, each such launch counted under ``flash_fwd_padded`` too; and
+     ``Lq != Lk`` at D 64, 80 and 96 (``FLASH_CROSS_PAIRS``: decode's one
+     query and a prompt's 16 against 1024 or a ragged 1000 keys, short
+     ragged pairs both ways), groups 1 / 2, non-causal and causal;
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
@@ -118,12 +120,12 @@ final line):
    ``minitron-4b`` (32), ``qwen3-moe-235b-a22b`` at its published width
    with its depth cut to 8 of 94 layers (``ZOO_DEPTH``; 8 launches),
    ``phi-3-vision-4.2b`` (1024 stub vision embeds before the prompt, a
-   4096-slot cache; 32 launches through the head-dim route, D 96),
-   ``mamba2-130m`` (attention-free: none) and ``zamba2-2.7b`` (9 shared
-   block invocations through the route, D 80): launch counts exact per
-   route, tokens in range, logits finite, every flash call of a prefill
-   held against ``flash_attention_plain`` on its inputs at ``FLASH_TOL``
-   (not for mamba2); prints the end-to-end drift of the prefill logits
+   4096-slot cache; 32 launches at D 96), ``mamba2-130m``
+   (attention-free: none) and ``zamba2-2.7b`` (9 shared block
+   invocations at D 80), none through the head-dim route: launch counts
+   exact per route, tokens in range, logits finite, every flash call of a
+   prefill held against ``flash_attention_plain`` on its inputs at
+   ``FLASH_TOL`` (not for mamba2); prints the end-to-end drift of the prefill logits
    against the plain attention swapped in, prefill ms, decode ms a
    token, tokens/s and peak memory of each;
 5b. ``serve_encdec``: the encoder-decoder family at full width
@@ -182,8 +184,8 @@ final line):
      ``launch/dryrun.py``'s; round walls, tokens/s, peak memory (zamba2's
      beside ``TRAIN_ZOO_PEAK_GB``), losses finite; then each consensus
      served: zamba2's through ``BatchedServer`` (9 bf16 flash launches a
-     prefill through the head-dim route at D 80, each held against the
-     plain version), mamba2's saved by ``save_checkpoint`` and served by
+     prefill at D 80, none through the head-dim route, each held against
+     the plain version), mamba2's saved by ``save_checkpoint`` and served by
      ``launch.serve --ckpt`` (restored = saved bit for bit, tokens = the
      consensus served directly), seamless's through the prefill step (36
      launches) and ``BatchedServer`` (12 a decode step);
@@ -284,8 +286,10 @@ final line):
    flash kernel at the served shape and
    at L = 8192), and the
    DEPOSITUM round wall time fused and unfused; the bf16 flash kernel
-   through the head-dim route at the zoo's D 80 and D 96 served shapes
-   against SDPA and the bound at the true D; and the bf16 kernel
+   at the zoo's D 80 and D 96 served shapes (``FLASH_ZOO_SHAPES``) in
+   turns with the head-dim route it replaced (q, k, v zero-padded to
+   D 128, the D 128 launch, the slice), SDPA and the bound at the true
+   D; and the bf16 kernel
    non-causal at the enc-dec's three served shapes
    (``FLASH_ENCDEC_SHAPES``: the encoder's L 1024, the prefill's 16 and
    decode's 1 queries against 1024 memory rows).  Every bound reads the
@@ -298,7 +302,8 @@ to 0; it is read just after.  The kernels line's launches of the two
 sweep kernels sum the paths that run them (3, 4a, 4b, 6a, 6b, 6c and
 6d), the flash kernels' the served
 paths (5, 5a, 5b, 6 and 6a), with ``flash_fwd_padded`` the share of them
-through the head-dim route.  Prints JSON lines per
+through the head-dim route (bf16: 0, every served D is native; fp32: the
+reduced configs' D 32).  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -343,9 +348,10 @@ FLASH_SOURCES = {
     "bfloat16": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
     "float32": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"}
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:34"
-# the flash kernels' instantiations at D = 128 (the served path, bf16; the
-# card-vs-CPU path, fp32) must not spill
-FLASH_NO_SPILL = "flash_fwd_sm90_kernelILi128E"
+# the flash kernels' instantiations that must not spill, and (bf16) must
+# hold the wgmma of Q K^T and of P V in their SASS: the served head dims
+# (bf16 D 80, 96 and 128; the card-vs-CPU path's fp32 D 128)
+FLASH_SM90_CHECKED = (80, 96, 128)
 FP32_NO_SPILL = "flash_fwd_fp32_kernelILi128E"
 # flash kernel vs plain: blockwise online softmax sums in another order
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -380,11 +386,12 @@ ZOO_CPU_ARCHS = ("qwen2.5-14b", "minitron-4b", "grok-1-314b",
                  "qwen3-moe-235b-a22b", "phi-3-vision-4.2b", "mamba2-130m",
                  "zamba2-2.7b")
 ZOO_CPU = {"batch": 2, "prompt": 96, "new": 8, "cache": 128}
-# the bf16 kernel through the head-dim route at the two served shapes
-# that need it (zamba2: D 80, phi-3-vision: D 96), in turns with SDPA at
-# the true D
-FLASH_PADDED_SHAPES = {"zamba2_d80": (4, 1024, 32, 32, 80),
-                       "phi3_d96": (4, 2048, 32, 32, 96)}
+# the bf16 kernel at the zoo's two served shapes of a head dim other than
+# 64 / 128 (zamba2: D 80, phi-3-vision: D 96), in turns with the head-dim
+# route that served them before the kernel was built for them (zero-padded
+# to D 128) and SDPA at the true D
+FLASH_ZOO_SHAPES = {"zamba2_d80": (4, 1024, 32, 32, 80),
+                    "phi3_d96": (4, 2048, 32, 32, 96)}
 # The encoder-decoder family served at full width (seamless-m4t-medium:
 # 12 + 12 layers, d 1024, 16/16 heads of 64, bf16, random weights): B 4,
 # 1024 stub frame embeddings (the reference's stand-in for the speech
@@ -407,7 +414,8 @@ ENCDEC_CPU = {"batch": 2, "frames": 64, "prompt": 8, "new": 8, "cache": 32}
 FLASH_ENCDEC_SHAPES = {"encdec_encoder": (4, 1024, 1024, 16, 16, 64),
                        "encdec_cross": (4, 16, 1024, 16, 16, 64),
                        "encdec_decode_cross": (4, 1, 1024, 16, 16, 64)}
-# check_flash's Lq != Lk pairs (D 64, groups 1 and 2, causal and not):
+# check_flash's Lq != Lk pairs (D 64, 80, 96, groups 1 and 2, causal and
+# not):
 # decode's one query and a prompt's 16 against 1024 memory rows and a
 # ragged 1000, and short ragged pairs both ways
 FLASH_CROSS_PAIRS = ((1, 1024), (16, 1024), (16, 1000), (1, 17), (17, 200),
@@ -534,8 +542,8 @@ DRYRUN_REL = 0.01
 # TRAIN_ZOO_ULPS.  The enc-dec's batches carry TRAIN_ZOO_FRAMES stub frames
 # a sample from a seeded generator on the card (the LM stream has none).
 # Then each consensus: zamba2's serves TRAIN_ZOO_SERVE (9 flash launches a
-# prefill through the head-dim route at D 80, each call held against the
-# plain version); mamba2's is written by save_checkpoint (0.52 GB of fp32
+# prefill at D 80, none through the head-dim route, each call held against
+# the plain version); mamba2's is written by save_checkpoint (0.52 GB of fp32
 # npz) and served by launch.serve --ckpt (restored = saved bit for bit,
 # tokens = the consensus served directly); seamless's through the prefill
 # step and BatchedServer (TRAIN_ZOO_ENCDEC_SERVE: 36 flash launches a
@@ -635,24 +643,25 @@ def _ptxas(log: str) -> dict:
 
 
 def _sass_wgmma(lib) -> dict:
-    """The wgmma (SASS ``HGMMA``) instructions of the bf16 flash kernel's
-    D = 128 instantiation in ``lib``, by shape and by where A comes from
-    (``ss``: shared memory, Q K^T; ``rs``: registers, P V)."""
+    """The wgmma (SASS ``HGMMA``) instructions of each instantiation of the
+    bf16 flash kernel in ``lib``: {D: {"shape ss|rs": count}}, ``ss`` for A
+    from shared memory (Q K^T), ``rs`` for A from registers (P V)."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts, inside = {}, False
+    out, counts = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            inside = FLASH_NO_SPILL in ln
-        m = re.search(r"HGMMA\.(\w+)\.F32\.BF16 R\d+, (\S+)", ln) if inside \
-            else None
+            d = re.search(r"flash_fwd_sm90_kernelILi(\d+)E", ln)
+            counts = out.setdefault(int(d.group(1)), {}) if d else None
+        m = re.search(r"HGMMA\.(\w+)\.F32\.BF16 R\d+, (\S+)", ln) \
+            if counts is not None else None
         if m:
             key = f"{m.group(1)} {'ss' if 'desc' in m.group(2) else 'rs'}"
             counts[key] = counts.get(key, 0) + 1
-    return counts
+    return out
 
 
 def phase_build() -> dict:
@@ -676,18 +685,21 @@ def phase_build() -> dict:
         raise AssertionError("prox_sweep.cu: no ptxas report in its log")
     sm90 = _ptxas(paths[2].with_suffix(".log").read_text())
     fp32 = _ptxas(paths[1].with_suffix(".log").read_text())
-    for label, report, key in (("bf16", sm90, FLASH_NO_SPILL),
-                               ("fp32", fp32, FP32_NO_SPILL)):
+    checked = [("bf16", sm90, f"flash_fwd_sm90_kernelILi{D}E")
+               for D in FLASH_SM90_CHECKED] + [("fp32", fp32, FP32_NO_SPILL)]
+    for label, report, key in checked:
         spilling = [name for name, p in report.items() if key in name
                     and (p["spill_store_bytes"] or p["spill_load_bytes"])]
         if spilling or not any(key in name for name in report):
-            raise AssertionError(f"{label} flash kernel, D = 128: spills or "
+            raise AssertionError(f"{label} flash kernel {key}: spills or "
                                  f"is missing: {spilling or sorted(report)}")
     wgmma = _sass_wgmma(paths[2])
-    if not any(k.endswith(" ss") for k in wgmma) \
-            or not any(k.endswith(" rs") for k in wgmma):
-        raise AssertionError(f"bf16 flash kernel, D = 128: no wgmma for "
-                             f"Q K^T or for P V in its SASS: {wgmma}")
+    for D in FLASH_SM90_CHECKED:
+        kinds = wgmma.get(D, {})
+        if not any(k.endswith(" ss") for k in kinds) \
+                or not any(k.endswith(" rs") for k in kinds):
+            raise AssertionError(f"bf16 flash kernel, D = {D}: no wgmma for "
+                                 f"Q K^T or for P V in its SASS: {wgmma}")
     return {"phase": "build",
             "libraries": [str(p.relative_to(ROOT)) for p in paths],
             "seconds": time.perf_counter() - t0, "flash_sm90_wgmma": wgmma,
@@ -1110,10 +1122,11 @@ def phase_check_prox() -> dict:
 
 def phase_check_flash() -> dict:
     """flash_attention_cuda against flash_attention_plain over dtypes, head
-    dims, GQA groups, masks and lengths (B = 2, 8 query heads); the head
-    dims of no kernel instantiation (32, 80, 96) through the head-dim
-    route, each such launch counted under ``flash_fwd_padded`` too; and
-    ``Lq != Lk`` at D 64 (``FLASH_CROSS_PAIRS``), non-causal and causal."""
+    dims, GQA groups, masks and lengths (B = 2, 8 query heads); a head dim
+    its dtype's kernel is not instantiated for (fp32 32, 80, 96; bf16 32)
+    through the head-dim route, each such launch counted under
+    ``flash_fwd_padded`` too, and bf16 D 80 / 96 never; and ``Lq != Lk`` at
+    D 64, 80 and 96 (``FLASH_CROSS_PAIRS``), non-causal and causal."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as F
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -1123,8 +1136,8 @@ def phase_check_flash() -> dict:
 
     def held(q32, k32, v32, label, masks):
         D = q32.shape[-1]
-        route_pad = D not in F.HEAD_DIMS
         for dtype in (torch.float32, torch.bfloat16):
+            route_pad = D not in F.HEAD_DIMS[dtype]
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
             name = str(dtype).split(".")[-1]
             for causal, window in masks:
@@ -1150,8 +1163,9 @@ def phase_check_flash() -> dict:
                 n["cases"] += 1
                 n["padded"] += route_pad
 
-    for D in (64, 128, 256, 32, 80, 96):
-        route_pad = D not in F.HEAD_DIMS
+    for D in (64, 80, 96, 128, 256, 32):
+        # the full sweep at every head dim of the tensor-core kernel
+        route_pad = D not in F.HEAD_DIMS[torch.bfloat16]
         for group in ((1, 8) if route_pad else (1, 2, 8)):
             for L in ((17, 200, 1024) if route_pad else (1, 17, 200, 1024)):
                 q32 = torch.randn((2, L, H, D), generator=g, device="cuda")
@@ -1160,13 +1174,14 @@ def phase_check_flash() -> dict:
                 held(q32, k32, v32, f"D={D} group={group} L={L}",
                      ((True, 0), (True, 128), (False, 0)))
     before = n["cases"]
-    for Lq, Lk in FLASH_CROSS_PAIRS:
-        for group in (1, 2):
-            q32 = torch.randn((2, Lq, H, 64), generator=g, device="cuda")
-            k32, v32 = (torch.randn((2, Lk, H // group, 64), generator=g,
-                                    device="cuda") for _ in range(2))
-            held(q32, k32, v32, f"D=64 group={group} Lq={Lq} Lk={Lk}",
-                 ((False, 0), (True, 0)))
+    cross = [(D, Lq, Lk, group) for D in (64, 80, 96)
+             for Lq, Lk in FLASH_CROSS_PAIRS for group in (1, 2)]
+    for D, Lq, Lk, group in cross:
+        q32 = torch.randn((2, Lq, H, D), generator=g, device="cuda")
+        k32, v32 = (torch.randn((2, Lk, H // group, D), generator=g,
+                                device="cuda") for _ in range(2))
+        held(q32, k32, v32, f"D={D} group={group} Lq={Lq} Lk={Lk}",
+             ((False, 0), (True, 0)))
     n["cross"] = n["cases"] - before
     return {"phase": "check_flash", "cases": n["cases"],
             "padded_cases": n["padded"], "cross_cases": n["cross"],
@@ -1428,10 +1443,14 @@ def _attention_layers(cfg) -> int:
 
 
 def _zoo_want(cfg, prefills: int, route: str) -> dict:
-    """Launch counts of ``prefills`` prefills of ``cfg`` on the card."""
+    """Launch counts of ``prefills`` prefills of ``cfg`` on the card through
+    ``route`` ("flash_attention": bf16, "flash_attention_fp32": fp32)."""
+    import torch
     from repro_torch.kernels.flash_attention import kernel as F
+    dtype = torch.bfloat16 if route == "flash_attention" else torch.float32
     n = prefills * _attention_layers(cfg)
-    return {route: n, "flash_fwd_padded": 0 if cfg.hd in F.HEAD_DIMS else n}
+    return {route: n,
+            "flash_fwd_padded": 0 if cfg.hd in F.HEAD_DIMS[dtype] else n}
 
 
 def _zoo_extra(cfg, batch: int, gen, device):
@@ -2120,10 +2139,14 @@ def phase_timing_flash() -> dict:
     """Flash kernels vs the plain version vs scaled_dot_product_attention
     (enable_gqa), in turns: causal bf16 (the tensor-core kernel) and fp32
     (the CUDA-core kernel), each at the served shape and at L = 8192; bf16
-    through the head-dim route at the zoo's served D 80 and D 96 shapes
-    (SDPA and the bound at the true D); and bf16 non-causal at the
-    enc-dec's three served shapes (``FLASH_ENCDEC_SHAPES``).  The plain
-    version at fp32 L = 8192 (~4.3 GB of scores) is timed once."""
+    at the zoo's served D 80 and D 96 shapes (``FLASH_ZOO_SHAPES``), with
+    the head-dim route (``route_ms``: q, k, v zero-padded to D 128, the
+    D 128 launch at the true D's scale, the slice) in the same turns and
+    the D 128 kernel alone on operands padded beforehand; and bf16
+    non-causal at the enc-dec's three served shapes
+    (``FLASH_ENCDEC_SHAPES``).  The plain version at fp32 L = 8192 (~4.3
+    GB of scores) is timed once."""
+    import math
     import torch
     import torch.nn.functional as TF
     from repro_torch.kernels.flash_attention import kernel as F
@@ -2138,7 +2161,7 @@ def phase_timing_flash() -> dict:
             ("served_fp32", served, True, torch.float32, 20),
             ("long_fp32", long, True, torch.float32, 5),
             *((label, square(*shape), True, torch.bfloat16, 20)
-              for label, shape in FLASH_PADDED_SHAPES.items()),
+              for label, shape in FLASH_ZOO_SHAPES.items()),
             *((label, shape, False, torch.bfloat16, 50)
               for label, shape in FLASH_ENCDEC_SHAPES.items())):
         q = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
@@ -2150,8 +2173,17 @@ def phase_timing_flash() -> dict:
         sdpa = lambda: TF.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal, enable_gqa=True).transpose(1, 2)
+        zoo = label in FLASH_ZOO_SHAPES
+
+        def route():
+            padded = (TF.pad(t, (0, 128 - D)) for t in (q, k, v))
+            return F._launch(*padded, causal=causal, window=0,
+                             scale=1.0 / math.sqrt(D))[..., :D].contiguous()
+
         a, b, c = kern(), plain(), sdpa()
         others = [("plain", b), ("sdpa", c)]
+        if zoo:
+            others.append(("route", route()))
         torch.cuda.synchronize()
         tol = FLASH_TOL[tname]
         for name, o in others:
@@ -2160,9 +2192,12 @@ def phase_timing_flash() -> dict:
                 msg=lambda m: f"flash {label} kernel vs {name}: {m}")
         err = float((a.float() - b.float()).abs().max())
         del a, b, c, others
-        times = {"ms": [], "plain_ms": [], "library_ms": []}
+        times = {"ms": [], "plain_ms": [], "library_ms": [],
+                 **({"route_ms": []} if zoo else {})}
         turns = [("plain_ms", plain), ("ms", kern), ("library_ms", sdpa),
                  ("library_ms", sdpa), ("ms", kern), ("plain_ms", plain)]
+        if zoo:
+            turns[3:3] = [("route_ms", route), ("route_ms", route)]
         once = label == "long_fp32"
         for name, fn in turns:
             if once and name == "plain_ms":
@@ -2186,15 +2221,18 @@ def phase_timing_flash() -> dict:
                           flops / min(times["library_ms"]) / 1e9,
                       "vs_library": ms / min(times["library_ms"]),
                       "max_abs_err": err}
-        if D not in F.HEAD_DIMS:
-            # the route's parts: the kernel alone on operands padded
-            # beforehand, against the whole route (pads, launch, slice)
-            Dp = F.padded_head_dim(D)
-            qp, kp, vp = (TF.pad(t, (0, Dp - D)) for t in (q, k, v))
-            out[label]["kernel_at_padded_d_ms"] = min(
-                time_ms(lambda: F.flash_attention_cuda(qp, kp, vp,
-                                                       causal=True),
-                        iters=iters, warmup=2) for _ in range(2))
+        if zoo:
+            # native against the route it replaced: the whole route (pads,
+            # launch, slice) and its D 128 kernel alone on operands padded
+            # beforehand
+            route_ms = min(times["route_ms"])
+            qp, kp, vp = (TF.pad(t, (0, 128 - D)) for t in (q, k, v))
+            out[label].update(
+                route_ms=route_ms, vs_route=ms / route_ms,
+                kernel_at_padded_d_ms=min(
+                    time_ms(lambda: F.flash_attention_cuda(qp, kp, vp,
+                                                           causal=True),
+                            iters=iters, warmup=2) for _ in range(2)))
             del qp, kp, vp
         del q, k, v
         torch.cuda.empty_cache()
@@ -4579,7 +4617,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
     # bf16 on the served paths (the zoo's too); fp32 on the card-vs-CPU
-    # paths; "flash_fwd_padded": those of them through the head-dim route
+    # paths; "flash_fwd_padded": those of them through the head-dim route,
+    # by dtype (bf16 0: the zoo's D 80 and 96 run natively, as each path's
+    # expect_counts holds; fp32 the reduced configs' D 32)
     fp32_launches = sum(card_vs_cpu[arch]["launches"]["flash_attention_fp32"]
                         for arch in ("qwen3-1.7b", "starcoder2-7b")) + sum(
         n["flash_attention_fp32"] for n in train_paths) \
@@ -4593,7 +4633,7 @@ def main() -> int:
               "float32": zoo_cpu_launches["flash_fwd_padded"]}
     # the bf16 kernel's error at the route's and the enc-dec's timed shapes
     timed_err = max(timing_flash[label]["max_abs_err"]
-                    for label in (*FLASH_PADDED_SHAPES, *FLASH_ENCDEC_SHAPES))
+                    for label in (*FLASH_ZOO_SHAPES, *FLASH_ENCDEC_SHAPES))
     for name, dtype, launched, t, err in (
             ("flash_attention", "bfloat16", bf16_launches,
              timing_flash["served"], timed_err),

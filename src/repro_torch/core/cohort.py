@@ -50,7 +50,11 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """A 32-bit integer mixer (xor-shift / multiply, two rounds): a
-    bijection of [0, 2**32) whose outputs look independent of its inputs."""
+    bijection of [0, 2**32) whose outputs look independent of its inputs.
+    The xor-shift / multiply rounds alone map 0 to 0, which would pin the
+    commonest input (seed 0, round 0, client 0) to the uniform 0.0, so the
+    input is first xored with an odd constant (the golden ratio's bits)."""
+    x = x ^ 0x9E3779B9
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)

@@ -8,9 +8,9 @@
 // causal.  fp32 inputs go to flash_fwd.cu beside this file.
 //
 // Layout: q and o are contiguous (B, Lq, H, D) bfloat16, k and v
-// (B, Lk, KV, D); D is a template parameter (64, 128 or 256).  Rows and
-// columns both index from 0, as in the reference.  Lq and Lk are arbitrary:
-// no divisibility rule.
+// (B, Lk, KV, D); D is a template parameter (64, 80, 96, 128 or 256).  Rows
+// and columns both index from 0, as in the reference.  Lq and Lk are
+// arbitrary: no divisibility rule.
 //
 // Bound on an H100 SXM: 4 D flops per visible (query, key) pair and head
 // (Q K^T and P V) against 989 TFLOP/s bf16 on the tensor cores; the bytes
@@ -22,13 +22,18 @@
 //     registers, one thread issues every load with TMA.  q, k and v are
 //     described to TMA as 4-D tensors (D, heads, L, B), so a box
 //     {64, 1, rows, 1} is one head's rows of 64 columns (128 bytes, the
-//     widest box the 128-byte swizzle allows); a tile of D columns is D / 64
-//     boxes, the GQA kv head is a coordinate, and rows past Lq or Lk arrive
-//     as zeros.  The Q tile is loaded once; K and V tiles go into a ring of
-//     kStages shared-memory stages, each with its own "full" mbarrier
-//     (transaction bytes) for K and for V, and one "empty" mbarrier on which
-//     every consumer thread arrives when its P V product on the stage has
-//     retired.
+//     widest box the 128-byte swizzle allows); a tile of D columns is
+//     ceil(D / 64) boxes, the GQA kv head is a coordinate, and rows past Lq
+//     or Lk arrive as zeros.  The map's inner dimension is the true D, so at
+//     D 80 and 96 the second box starts at column 64 and runs past the end
+//     of the row: TMA fills its last 48 or 32 columns with zeros in shared
+//     memory and reads nothing past column D from device memory (the
+//     transaction count is the whole box, zero fill included, as for the
+//     rows past Lq or Lk).  The Q tile is loaded once; K and V tiles go
+//     into a ring of kStages shared-memory stages, each with its own "full"
+//     mbarrier (transaction bytes) for K and for V, and one "empty"
+//     mbarrier on which every consumer thread arrives when its P V product
+//     on the stage has retired.
 //   * warpgroups 1 and 2 are the consumers (setmaxnreg raises them to 232
 //     registers); each owns 64 query rows.  Per K/V tile:
 //       S = Q K^T by wgmma m64nBNk16, A = the Q tile and B = the K tile,
@@ -42,7 +47,13 @@
 //         the A-register fragment of the next wgmma;
 //       O += P V by wgmma m64nDk16 with A from registers and B = the V tile
 //         in shared memory, which is MN-major (D contiguous): the
-//         instruction's transpose bit for B, no copy.
+//         instruction's transpose bit for B, no copy.  At D 80 and 96 that
+//         is one m64n80k16 or m64n96k16 over the two boxes, not an n64 and
+//         a narrower tail instruction: the leading byte offset is the
+//         stride between boxes, as at D 128, and the second 64-column atom
+//         of the canonical MN-major 128-byte-swizzled layout gives its
+//         first 16 or 32 columns.  Q K^T runs D / 16 k-steps, so neither
+//         product reads the zero-filled columns.
 //     BN = 128 keys a tile for D <= 128 and 64 for D = 256, so S, O and P
 //     fit the 232 registers.
 // Only K tiles that meet the causal / window band are loaded, and only the
@@ -86,9 +97,11 @@ constexpr unsigned kFull = 0xffffffffu;
 template <int D>
 struct Tile {
   static constexpr int BN = D <= 128 ? 128 : 64;  // keys per K/V tile
-  static constexpr int kBoxes = D / 64;           // 64-column swizzle boxes
-  static constexpr uint32_t kQBytes = kBM * D * 2;
-  static constexpr uint32_t kKVBytes = BN * D * 2;  // one K or V tile
+  static constexpr int kBoxes = (D + 63) / 64;    // 64-column swizzle boxes
+  // bytes of a tile as TMA writes it: whole boxes, the zero fill past D
+  // included (also the transaction count of its loads)
+  static constexpr uint32_t kQBytes = kBM * kBoxes * 128;
+  static constexpr uint32_t kKVBytes = BN * kBoxes * 128;  // one K or V tile
   static constexpr uint32_t kOffK = kQBytes;
   static constexpr uint32_t kOffV = kOffK + kStages * kKVBytes;
   static constexpr uint32_t kOffBar = kOffV + kStages * kKVBytes;
@@ -234,6 +247,41 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n80k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n96k16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -297,6 +345,8 @@ __device__ __forceinline__ void mma_ss(float* d, uint64_t a, uint64_t b, int sca
 template <int N>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t b) {
   if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, b);
+  else if constexpr (N == 80) wgmma_rs_m64n80k16(d, a, b);
+  else if constexpr (N == 96) wgmma_rs_m64n96k16(d, a, b);
   else if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, b);
   else wgmma_rs_m64n256k16(d, a, b);
 }
@@ -588,6 +638,8 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch<64>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
+    case 80: return launch<80>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
+    case 96: return launch<96>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
     case 128: return launch<128>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
     case 256: return launch<256>(q, k, v, o, B, Lq, Lk, H, KV, scale, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -8,13 +8,17 @@ causal mask, and a sliding window that applies only when causal.  q is
 256.  Unlike the Pallas wrapper there is no ``Lq % block`` rule: any Lq
 and Lk.
 
-Both CUDA kernels are instantiated for D in ``HEAD_DIMS`` (64, 128, 256).
-Any other D <= 256 takes the head-dim route (:func:`pad_head_dim`): q, k
-and v zero-padded along D to the next kernel dimension (32 -> 64; 80 and
-96 -> 128), the scale ``1 / sqrt(D)`` of the true D passed to the same
-kernel, and the first D output columns returned.  That is exact: zero
-columns add nothing to ``Q K^T`` and give zero output columns.  It wastes
-the padded share of the tensor-core work (37.5% at D 80, 25% at D 96).
+Each CUDA kernel is instantiated for the head dims of its dtype in
+``HEAD_DIMS``: bf16 for 64, 80, 96, 128 and 256 (80 and 96 at their true
+width: TMA boxes past D zero-filled in shared memory, P V one
+``m64n80k16`` / ``m64n96k16``), fp32 for 64, 128 and 256.  Any other D <=
+256 takes the head-dim route (:func:`pad_head_dim`): q, k and v
+zero-padded along D to the dtype's next kernel dimension (fp32: 32 -> 64,
+80 and 96 -> 128; bf16: 32 -> 64), the scale ``1 / sqrt(D)`` of the true D
+passed to the same kernel, and the first D output columns returned.  That
+is exact: zero columns add nothing to ``Q K^T`` and give zero output
+columns.  It costs three padded copies in, one sliced copy out, and the
+padded share of the kernel's work.
 
 :func:`flash_attention` dispatches by device and dtype, with no fallback
 from one route to another:
@@ -47,7 +51,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)
+#: the head dims each dtype's kernel is instantiated for
+HEAD_DIMS = {torch.bfloat16: (64, 80, 96, 128, 256),
+             torch.float32: (64, 128, 256)}
 _DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 
@@ -109,24 +115,25 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v differ in device")
 
 
-def padded_head_dim(D: int) -> int:
-    """The kernel head dim that serves ``D``: the least of ``HEAD_DIMS``
-    not below it."""
+def padded_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The kernel head dim that serves ``D`` in ``dtype``: the least of
+    ``HEAD_DIMS[dtype]`` not below it."""
     if D < 1:
         raise ValueError(f"flash_attention: head dim {D}")
-    for kd in HEAD_DIMS:
+    dims = HEAD_DIMS[dtype]
+    for kd in dims:
         if D <= kd:
             return kd
-    raise ValueError(f"flash_attention: head dim {D} exceeds "
-                     f"{HEAD_DIMS[-1]}, the widest kernel instantiation")
+    raise ValueError(f"flash_attention: head dim {D} exceeds {dims[-1]}, "
+                     "the widest kernel instantiation")
 
 
 def pad_head_dim(fn, q, k, v, *, causal: bool = True, window: int = 0):
     """``fn`` (a flash function taking ``scale=``) on q, k, v zero-padded
-    along D to :func:`padded_head_dim`, with the true D's scale; returns
-    the first D columns of its output, contiguous."""
+    along D to :func:`padded_head_dim` of their dtype, with the true D's
+    scale; returns the first D columns of its output, contiguous."""
     D = q.shape[-1]
-    width = padded_head_dim(D) - D
+    width = padded_head_dim(D, q.dtype) - D
     q, k, v = (torch.nn.functional.pad(t, (0, width)) for t in (q, k, v))
     out = fn(q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(D))
     return out[..., :D].contiguous()
@@ -171,7 +178,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """The CUDA kernel of q's dtype on contiguous CUDA tensors: bf16 runs
     ``flash_fwd_sm90.cu`` (tensor cores), fp32 ``flash_fwd.cu``.  A head
-    dim not in ``HEAD_DIMS`` (up to 256) takes the head-dim route."""
+    dim not in ``HEAD_DIMS`` of the dtype (up to 256) takes the head-dim
+    route."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: tensors on {q.device}, "
@@ -181,7 +189,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             raise ValueError(f"flash_attention_cuda: {name} must be "
                              "contiguous")
     D = q.shape[3]
-    if D in HEAD_DIMS:
+    if D in HEAD_DIMS[q.dtype]:
         return _launch(q, k, v, causal=causal, window=window,
                        scale=1.0 / math.sqrt(D))
     return pad_head_dim(functools.partial(_launch, padded=True), q, k, v,
@@ -190,7 +198,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
 
 def _launch(q, k, v, *, causal: bool, window: int, scale: float,
             padded: bool = False):
-    """One launch of the kernel of q's dtype at a D of ``HEAD_DIMS``."""
+    """One launch of the kernel of q's dtype at a D of its ``HEAD_DIMS``."""
     B, Lq, H, D = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:

@@ -7,9 +7,11 @@ causal (or sliding-window) attention through the port's flash kernel
 same function as the reference's ``_sdpa`` under ``causal_mask``, computed
 blockwise.  That holds for every decoder family's prefill: dense, MoE and
 VLM blocks, and the hybrid's shared block (the SSM family has no
-attention).  A head dim that the kernels are not instantiated for (32, 80,
-96: not in ``HEAD_DIMS``) goes through the kernel's head-dim route, zero
-padding along D.  ``attention_train`` keeps the reference's
+attention).  The bf16 kernel runs D 64, 80, 96, 128 and 256 at their
+true width (zamba2's 80 and phi-3's 96 included); a head dim that the
+kernel of the dtype is not instantiated for (``HEAD_DIMS``: fp32 32, 80,
+96; bf16 32) goes through the kernel's head-dim route, zero padding along
+D.  ``attention_train`` keeps the reference's
 ``use_flash=False`` default.  Decode attention (one query against the
 cache) stays plain torch ops, as the reference computes it outside any
 kernel.

@@ -249,6 +249,16 @@ def test_sampler_prefix_consistency(seed, r):
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
 
 
+def test_uniforms_not_pinned_at_zero_input():
+    # seed 0, round 0, client 0 is the commonest draw: it must be an
+    # ordinary uniform, not the mixer's image of an all-zero input
+    for seed in (0, 1):
+        u = client_uniforms(torch.tensor(seed), 0, N_MAX)
+        assert float(u[0]) > 0.0
+    s = CohortSampler.bernoulli(1e-6, N_MAX, seed=0, device="cpu")
+    assert not s.mask_at(0).any()
+
+
 @settings(max_examples=15, deadline=None)
 @given(seed=st.integers(min_value=0, max_value=10_000),
        p=st.floats(min_value=0.0, max_value=1.0))

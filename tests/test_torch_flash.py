@@ -173,6 +173,69 @@ def test_sm90_rounding_model_matches_pallas_and_ref(L, window):
         .float().numpy(), **BF16)
 
 
+# zamba2's D 80 and phi-3's D 96, which the bf16 kernel runs at their true
+# width: causal, windowed, non-causal; GQA groups 1 and 4; Lq != Lk both
+# ways (no row without a visible key: there the ref averages V)
+NATIVE_80_96_CASES = [
+    (2, 17, 17, 4, 4, True, 0), (1, 200, 200, 8, 2, True, 0),
+    (1, 200, 200, 4, 1, True, 64), (2, 17, 40, 4, 1, True, 0),
+    (1, 40, 17, 4, 4, False, 0), (2, 16, 300, 8, 2, False, 0),
+]
+
+
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("B,Lq,Lk,H,KV,causal,window", NATIVE_80_96_CASES)
+def test_plain_at_head_dims_80_96_matches_the_reference(B, Lq, Lk, H, KV,
+                                                        causal, window, D):
+    """``flash_attention_plain`` at D 80 / 96 (the card holds the bf16
+    kernel to it there) against the reference's ``attention_ref`` on the
+    same numpy inputs, fp32, within 1e-5: one softmax each, the sums in
+    another order."""
+    q, k, v = _qkv(D * 31 + Lq * 7 + Lk, B, Lq, H, KV, D, Lk)
+    out = fk.flash_attention_plain(*_t(q, k, v), causal=causal,
+                                   window=window)
+    want = j_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                 window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("window", [0, 64])
+def test_sm90_rounding_model_at_head_dims_80_96(D, window):
+    """The bf16 kernel's arithmetic at D 80 / 96 (P rounded to bf16 per key
+    tile) stays within the bf16 tolerance of the reference's
+    ``attention_ref`` and of the plain version, as at D 128."""
+    q, k, v = _qkv(D + window, 1, 300, 4, 2, D)
+    tq, tk_, tv = _t(q, k, v, dtype=torch.bfloat16)
+    out = _sm90_model(tq, tk_, tv, causal=True, window=window)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        np.asarray(j_ref(jq, jk, jv, causal=True, window=window),
+                   np.float32), **BF16)
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        fk.flash_attention_plain(tq, tk_, tv, causal=True, window=window)
+        .float().numpy(), **BF16)
+
+
+@pytest.mark.parametrize("source,dtype", [
+    ("flash_fwd_sm90", torch.bfloat16), ("flash_fwd", torch.float32)])
+def test_kernel_switch_cases_equal_the_wrappers_head_dims(source, dtype):
+    """The head dims each CUDA source's C switch instantiates, read from its
+    text, are the wrapper's ``HEAD_DIMS`` of that source's dtype: a D the
+    wrapper launches natively is one the kernel has a case for, and no
+    instantiated D takes the head-dim route."""
+    import re
+    text = fk.SOURCES[source].read_text()
+    cases = [int(d) for d, t in re.findall(
+        r"case (\d+): return launch<(\d+)>", text) if d == t]
+    assert len(cases) == len(re.findall(r"case \d+:", text))
+    assert tuple(cases) == fk.HEAD_DIMS[dtype]
+    assert {fk.padded_head_dim(d, dtype) for d in cases} == set(cases)
+
+
 def test_ref_matches_the_reference_oracle():
     q, k, v = _qkv(4, 2, 48, 4, 2, 64)
     for causal, window in ((True, 0), (True, 16), (False, 0)):

@@ -11,11 +11,12 @@ Tolerance: the prox kernels and their plain versions do the same fp32
 operations in the same order (built with -fmad=false), held at atol = rtol
 = 1e-6; frozen rows of the cohort gate are held bit for bit.  The flash
 kernels sum their online softmax blockwise: fp32 (``flash_fwd.cu``) at
-2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2;
-the head-dim route (D 32, 80, 96: both kernels on zero-padded operands)
-at the same two, and so are the encoder-decoder's shapes (non-causal, and
-causal, ``Lq != Lk``: cross-attention of 1 or 16 queries against 1024 or
-a ragged 1000 memory rows).  The reduced enc-dec (fp32) on the card
+2e-5, bf16 (``flash_fwd_sm90.cu``, which also rounds P to bf16) at 3e-2,
+bf16 D 80 and 96 at their true width too; the head-dim route (fp32 D 32,
+80, 96 and bf16 D 32, on zero-padded operands) at the same two, and so
+are the encoder-decoder's shapes (non-causal, and causal, ``Lq != Lk``:
+cross-attention of 1 or 16 queries against 1024 or a ragged 1000 memory
+rows).  The reduced enc-dec (fp32) on the card
 against the CPU: prefill-step logits and memory at 1e-4, greedy tokens
 identical.  The sweep rounds hold fused against unfused bit for
 bit, and the card against the CPU at rtol 1e-4 / atol 1e-6 (products
@@ -412,10 +413,13 @@ def test_flash_kernel_matches_plain_version(D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [32, 80, 96])
 def test_flash_head_dim_route_matches_plain_version(D):
-    """Head dims the kernels are not built for go through the route: q, k,
-    v zero-padded to 64 or 128 and the true D's scale.  Both kernels,
-    against the plain version at the true D at the flash tolerances; every
-    launch counted under its kernel and under "flash_fwd_padded"."""
+    """Head dims a dtype's kernel is not built for go through the route: q,
+    k, v zero-padded to 64 or 128 and the true D's scale (fp32 at D 32, 80
+    and 96; bf16 at D 32).  bf16 D 80 and 96 launch the tensor-core kernel
+    at the true D, never the route.  Both kernels, against the plain
+    version at the true D at the flash tolerances; every launch counted
+    under its kernel, and under "flash_fwd_padded" where it took the
+    route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -444,14 +448,58 @@ def test_flash_head_dim_route_matches_plain_version(D):
                                    f"window={window}: {m}"))
                 cases[dtype] += 1
     torch.cuda.synchronize()
-    n = sum(cases.values())
-    assert fk.LAUNCH_COUNTS["flash_fwd"] == fk.LAUNCH_COUNTS[
-        "flash_fwd_padded"] == n
+    routed = {dt: D not in fk.HEAD_DIMS[dt] for dt in cases}
+    assert routed == {torch.float32: True, torch.bfloat16: D == 32}
+    assert fk.LAUNCH_COUNTS["flash_fwd"] == sum(cases.values())
+    assert fk.LAUNCH_COUNTS["flash_fwd_padded"] == sum(
+        n for dt, n in cases.items() if routed[dt])
     assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == cases[torch.bfloat16]
     assert fk.LAUNCH_COUNTS["flash_fwd_fp32"] == cases[torch.float32]
     q = torch.zeros((1, 4, 2, 257), device="cuda")
     with pytest.raises(ValueError, match="exceeds"):
         fk.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [80, 96])
+def test_bf16_flash_kernel_at_native_head_dims_80_96(D):
+    """The tensor-core kernel at zamba2's D 80 and phi-3's D 96 (TMA boxes
+    past D zero-filled, P V one m64n80k16 / m64n96k16): ragged lengths on
+    and off the tile edges, Lq != Lk both ways, decode's one query and a
+    prompt's 16 against 1024 keys; causal with windows 0 and 64 and
+    non-causal; GQA groups 1, 2 and 8.  Every case one launch of the
+    kernel and none through the head-dim route, within 3e-2 of the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device="cuda").manual_seed(1000 + D)
+    fk.reset_launch_counts()
+    n = 0
+    pairs = [(L, L) for L in (17, 129, 200, 1000)] + [
+        (17, 200), (200, 17), (129, 1000), (1, 1024), (16, 1024)]
+    for Lq, Lk in pairs:
+        for group in (1, 2, 8):
+            q = torch.randn((2, Lq, 8, D), generator=g, device="cuda").to(
+                torch.bfloat16)
+            k, v = (torch.randn((2, Lk, 8 // group, D), generator=g,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                out = fk.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+                ref = fk.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+                assert out.shape == q.shape and out.is_contiguous()
+                torch.testing.assert_close(
+                    out, ref, atol=3e-2, rtol=3e-2,
+                    msg=lambda m: (f"D={D} Lq={Lq} Lk={Lk} group={group} "
+                                   f"causal={causal} window={window}: {m}"))
+                n += 1
+    torch.cuda.synchronize()
+    assert fk.LAUNCH_COUNTS["flash_fwd_sm90"] == fk.LAUNCH_COUNTS[
+        "flash_fwd"] == n
+    assert fk.LAUNCH_COUNTS["flash_fwd_padded"] == 0
 
 
 @pytest.mark.gpu

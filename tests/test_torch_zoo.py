@@ -400,13 +400,18 @@ def test_serve_launcher_runs_every_new_arch(arch, capsys):
 # The flash kernel's head-dim route
 # ---------------------------------------------------------------------------
 
-def test_padded_head_dims():
-    assert [fk.padded_head_dim(d) for d in (1, 32, 64, 65, 80, 96, 128, 200,
-                                            256)] == [64, 64, 64, 128, 128,
-                                                      128, 128, 256, 256]
+@pytest.mark.parametrize("dtype,want", [
+    # fp32: D 32 / 80 / 96 through the route
+    (torch.float32, [64, 64, 64, 128, 128, 128, 128, 256, 256]),
+    # bf16: D 80 / 96 native, D 32 through the route
+    (torch.bfloat16, [64, 64, 64, 80, 80, 96, 128, 256, 256]),
+])
+def test_padded_head_dims(dtype, want):
+    assert [fk.padded_head_dim(d, dtype) for d in (1, 32, 64, 65, 80, 96,
+                                                   128, 200, 256)] == want
     for bad in (0, 257, 512):
         with pytest.raises(ValueError, match="head dim"):
-            fk.padded_head_dim(bad)
+            fk.padded_head_dim(bad, dtype)
 
 
 @pytest.mark.parametrize("D", [32, 80, 96])
