@@ -42,6 +42,7 @@ from repro_torch.core.depositum import step as depositum_step
 from repro_torch.core.mixing import MixPlan
 from repro_torch.core.schedule import MixSchedule
 from repro_torch.models.registry import Model
+from repro_torch.obs.trace import annotate
 
 if TYPE_CHECKING:   # the training package imports this module
     from repro_torch.training.backends import ExecutionBackend
@@ -130,12 +131,14 @@ def _stacked(loss, microbatch: int, with_value: bool):
         g = {k: torch.empty_like(v) for k, v in x_stacked.items()}
         values, auxs = [], []
         for i in range(n):
-            value, aux, grads = _client_value_grad(
-                loss, {k: v[i] for k, v in x_stacked.items()},
-                _map(lambda v: v[i], batch), microbatch)
-            for k, gk in grads.items():
-                g[k][i].copy_(gk)
-            del grads       # this client's autograd output, before the next
+            with annotate("model_step"):
+                value, aux, grads = _client_value_grad(
+                    loss, {k: v[i] for k, v in x_stacked.items()},
+                    _map(lambda v: v[i], batch), microbatch)
+                with annotate("grad_copy"):
+                    for k, gk in grads.items():
+                        g[k][i].copy_(gk)
+                del grads   # this client's autograd output, before the next
             values.append(value)
             auxs.append(aux)
         aux = _stack_aux(auxs)

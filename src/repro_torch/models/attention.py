@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.models.common import Initializer, apply_rope, rms_norm
+from repro_torch.models.common import Initializer, apply_rope, cast, rms_norm
 
 NEG_INF = -1e30
 
@@ -92,11 +92,11 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     KV = k.shape[2]
     group = H // KV
     qg = q.reshape(B, L, KV, group, hd)
-    scores = torch.einsum("blkgh,bskh->bklgs", qg, k).to(torch.float32)
+    scores = cast(torch.einsum("blkgh,bskh->bklgs", qg, k), torch.float32)
     scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     if mask is not None:
         scores = torch.where(mask[:, None, :, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = cast(torch.softmax(scores, dim=-1), v.dtype)
     out = torch.einsum("bklgs,bskh->blkgh", probs, v)
     return out.reshape(B, L, H, hd)
 

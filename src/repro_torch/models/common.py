@@ -24,6 +24,8 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch.obs import trace
+
 
 @dataclasses.dataclass
 class ParamSpec:
@@ -146,7 +148,8 @@ def maybe_checkpoint(fn, cfg):
     as tensors (:meth:`ParamTree.tensors`), not as a module whose
     attributes a ``functional_call`` swaps back before the backward pass.
     ``torch.func`` transforms reject checkpointing (saved-tensor hooks):
-    ``torch.func.grad`` of a remat config raises.
+    ``torch.func.grad`` of a remat config raises.  While tracing is on,
+    the recompute runs in span ``remat``.
     """
     if not cfg.remat:
         return fn
@@ -159,13 +162,25 @@ def maybe_checkpoint(fn, cfg):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                          "have full | dots")
 
+    body = trace.recomputed(fn)
+
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(body, *args, use_reentrant=False,
                           context_fn=context_fn, **kwargs)
 
     return wrapped
+
+
+def cast(x, dtype):
+    """``x.to(dtype)``, the model's explicit floating conversions; while
+    tracing is on, a conversion that changes the dtype adds the bytes it
+    reads and writes to the ``cast_bytes`` counter."""
+    if x.dtype != dtype and trace.on():
+        trace.count("cast_bytes",
+                    x.numel() * (x.element_size() + dtype.itemsize))
+    return x.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -175,10 +190,10 @@ def maybe_checkpoint(fn, cfg):
 def rms_norm(x, weight, eps: float = 1e-6):
     """RMS norm in fp32 with a zero-centred scale (``1 + weight``)."""
     dtype = x.dtype
-    x = x.to(torch.float32)
+    x = cast(x, torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
-    return (out * (1.0 + weight.to(torch.float32))).to(dtype)
+    return cast(out * (1.0 + cast(weight, torch.float32)), dtype)
 
 
 def init_rms_norm(ini: Initializer, dim: int):
@@ -212,9 +227,9 @@ def apply_rope(x, positions, theta: float = 1e4):
     angles = positions[..., None].to(torch.float32) * freqs     # (..., seq, hd/2)
     angles = angles[..., None, :]                                # (..., seq, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(cast(x, torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return cast(out, x.dtype)
 
 
 # ---------------------------------------------------------------------------

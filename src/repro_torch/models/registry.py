@@ -21,11 +21,13 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, hybrid, ssm, transformer
+from repro_torch.models.common import cast
+from repro_torch.obs import trace
 
 
 def cross_entropy(logits, labels, mask=None):
     """Mean token CE. logits: (B,L,V) labels: (B,L) int; mask (B,L) opt."""
-    logits = logits.to(torch.float32)
+    logits = cast(logits, torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None].long(),
                                 dim=-1)[..., 0]
@@ -55,7 +57,8 @@ def _loss(module, batch):
     labels = batch["labels"]
     if cfg.family == "vlm":
         logits = logits[:, logits.shape[1] - labels.shape[1]:, :]
-    ce = cross_entropy(logits, labels, batch.get("loss_mask"))
+    ce = trace.layer("ce", cross_entropy, logits, labels,
+                     batch.get("loss_mask"))
     total = ce + cfg.router_aux_weight * aux.get("moe_aux", 0.0)
     return total, {"ce": ce, **aux}
 

@@ -35,6 +35,7 @@ from repro_torch.models.common import (
     split_params,
 )
 from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe
+from repro_torch.obs import trace
 
 #: the families this backbone runs
 FAMILIES = ("dense", "moe", "vlm")
@@ -68,14 +69,15 @@ def _ffn(params, x, cfg: ModelConfig):
     normed = rms_norm(x, params["ln2"]["scale"])
     if cfg.family == "moe":
         return moe(params["moe"], normed, cfg)
-    return mlp(params["mlp"], normed, cfg), 0.0
+    return trace.layer("mlp", mlp, params["mlp"], normed, cfg), 0.0
 
 
 def block_train(params, x, cfg: ModelConfig, *, window: int = 0,
                 use_flash: bool = False):
     """Returns (x, router aux loss: 0.0 for a dense block)."""
-    h = attn.attention_train(params["attn"], rms_norm(x, params["ln1"]["scale"]),
-                             cfg, window=window, use_flash=use_flash)
+    h = trace.layer("attention", attn.attention_train, params["attn"],
+                    rms_norm(x, params["ln1"]["scale"]), cfg, window=window,
+                    use_flash=use_flash)
     x = x + h
     out, aux = _ffn(params, x, cfg)
     return x + out, aux
@@ -177,11 +179,11 @@ class Transformer(nn.Module):
         body = maybe_checkpoint(block_train, self.cfg)
         moe_aux = 0.0
         for blk in self.blocks:
-            x, a = body(blk.tensors(), x, self.cfg, window=window,
-                        use_flash=use_flash)
+            x, a = trace.layer("block", body, blk.tensors(), x, self.cfg,
+                               window=window, use_flash=use_flash)
             moe_aux = moe_aux + a
-        return self._logits(x), {"moe_aux": moe_aux / max(self.cfg.n_layers,
-                                                          1)}
+        return (trace.layer("loss_head", self._logits, x),
+                {"moe_aux": moe_aux / max(self.cfg.n_layers, 1)})
 
     forward = forward_train
 

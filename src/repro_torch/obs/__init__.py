@@ -5,9 +5,9 @@
   error, momentum variance), cohort size and bytes on the wire.
 * :mod:`repro_torch.obs.record` — *how*: a device ring buffer copied to
   the host once every B logged rows.
-* :mod:`repro_torch.obs.trace` / :mod:`repro_torch.obs.sinks` — profiler
-  annotations, dispatch-vs-blocked timers, and the JSONL / CSV / in-memory
-  event sinks.
+* :mod:`repro_torch.obs.trace` / :mod:`repro_torch.obs.sinks` — the
+  program's spans and counters, dispatch-vs-blocked timers, and the JSONL /
+  CSV / in-memory event sinks.
 
 Attributes resolve lazily (PEP 562): ``repro_torch.core`` modules
 annotate their phases through :mod:`repro_torch.obs.trace` while
@@ -24,9 +24,10 @@ _EXPORTS = {
     "Telemetry": "record", "TelemetryCarry": "record",
     "CsvSink": "sinks", "JsonlSink": "sinks", "MemorySink": "sinks",
     "validate_event": "sinks", "validate_jsonl": "sinks",
-    "PHASES": "trace", "RoundTimer": "trace", "Timing": "trace",
-    "annotate": "trace", "block_until_ready": "trace",
-    "profile_capture": "trace", "time_fn": "trace",
+    "COUNTERS": "trace", "SPANS": "trace", "STORE": "trace",
+    "RoundTimer": "trace", "Timing": "trace",
+    "annotate": "trace", "block_until_ready": "trace", "layer": "trace",
+    "profile_capture": "trace", "recording": "trace", "time_fn": "trace",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -35,7 +35,7 @@ from repro_torch.launch.steps import make_value_grad_fn
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import round_values
 from repro_torch.obs.record import Telemetry
-from repro_torch.obs.trace import RoundTimer, profile_capture
+from repro_torch.obs.trace import RoundTimer, annotate, profile_capture
 from repro_torch.training.backends import ExecutionBackend, suggest_backend
 
 
@@ -192,33 +192,41 @@ class FederatedTrainer:
                          for v in self.cfg.depositum.hyper()))
         with profile_capture(profile_dir, enabled=profile_dir is not None):
             for r in range(n_rounds):
-                batches = next(batch_iter)
-                with timer.round():
-                    state, aux = self._round(state, batches, donate=donate)
-                    if tel is not None:
-                        # reads the post-round state; writes its buffer only
-                        vals = round_values(
-                            state, self.cfg.depositum, hyper=hp,
-                            mixer=self._mix_operand, aux=aux,
-                            n=self.cfg.n_clients,
-                            axis=client_axis(self.backend))
-                        carry = tel.record_and_emit(
-                            carry, vals,
-                            (state.t - 1) // self.cfg.depositum.comm_period,
-                            self.cfg.log_every, force=r == n_rounds - 1)
-                if (r + 1) in logged:
-                    rec = {"round": r + 1,
-                           "wall_s": time.perf_counter() - t0}
-                    loss = None
-                    if isinstance(aux, dict):
-                        loss = aux.get("ce", aux.get("loss"))
-                    if loss is not None:
-                        rec["loss"] = client_mean_loss(loss, self.backend)
-                    if eval_fn is not None:
-                        rec.update(eval_fn(state, r + 1))
-                    by_round[r + 1] = rec
-                    history.append(rec)
-        timer.block_on(state)
+                with annotate("round"):
+                    with annotate("round.batch"):
+                        batches = next(batch_iter)
+                    with timer.round():
+                        with annotate("round.program"):
+                            state, aux = self._round(state, batches,
+                                                     donate=donate)
+                        if tel is not None:
+                            # reads the post-round state; writes its buffer
+                            # only
+                            vals = round_values(
+                                state, self.cfg.depositum, hyper=hp,
+                                mixer=self._mix_operand, aux=aux,
+                                n=self.cfg.n_clients,
+                                axis=client_axis(self.backend))
+                            carry = tel.record_and_emit(
+                                carry, vals, (state.t - 1)
+                                // self.cfg.depositum.comm_period,
+                                self.cfg.log_every, force=r == n_rounds - 1)
+                    if (r + 1) in logged:
+                        with annotate("round.log"):
+                            rec = {"round": r + 1,
+                                   "wall_s": time.perf_counter() - t0}
+                            loss = None
+                            if isinstance(aux, dict):
+                                loss = aux.get("ce", aux.get("loss"))
+                            if loss is not None:
+                                rec["loss"] = client_mean_loss(loss,
+                                                               self.backend)
+                            if eval_fn is not None:
+                                rec.update(eval_fn(state, r + 1))
+                            by_round[r + 1] = rec
+                            history.append(rec)
+        with annotate("run.sync"):
+            timer.block_on(state)
         if tel is not None:
             for event in tel.events(0):
                 rec = by_round.get(event["round"])

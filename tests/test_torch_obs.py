@@ -16,8 +16,14 @@ host copies.  Beyond them:
 * the JSONL the port writes passes the reference's ``validate_jsonl`` and
   holds the same lines the reference writes for the same events;
 * the recorder copies its buffer to the host once every B logged rows and
-  once at the end (``host_copies``), never a round.
+  once at the end (``host_copies``), never a round;
+* the program's spans and counters (``obs/trace.py``) record nothing with
+  tracing off, are host events but not user annotations under a profiler,
+  cover a reduced qwen3 grad step with backward halves and the remat
+  recompute, leave losses and gradients bit-equal, and count the casts'
+  bytes as the shapes give them.
 """
+import collections
 import json
 import math
 
@@ -651,3 +657,284 @@ def test_quickstart_records_streams_and_keeps_the_trajectory(tmp_path):
     other = dataclasses.replace(cfg, n_clients=N + 1)
     with pytest.raises(ValueError, match="single static-config group"):
         run_depositum_grid([cfg, other], telemetry=Telemetry.memory(), **CPU)
+
+
+# ---------------------------------------------------------------------------
+# Spans and counters (obs/trace.py): on only under a profiler or recording()
+# ---------------------------------------------------------------------------
+
+def _qwen(remat=False, policy="full", dtype="float32"):
+    """(config, grad_fn, stacked x of 2 clients, batch) of reduced qwen3."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", reduced=True),
+                              remat=bool(remat), remat_policy=policy,
+                              dtype=dtype)
+    model = build_model(cfg, device="cpu")
+    module, _ = model.init(0)
+    x = {k: torch.stack([p.detach(), 1.01 * p.detach()])
+         for k, p in module.named_parameters()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 17),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    return cfg, make_grad_fn(model, template=module), x, batch
+
+
+def _qwen_trainer():
+    """A reduced-qwen3 trainer on 2 clients, T0 1 (every step gossips),
+    its state and token batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_federated_lm_streams
+    from repro_torch.models import build_model
+    from repro_torch.training.train_loop import lm_batch_iterator
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    tc = TrainerConfig(n_clients=2, topology="complete", log_every=1,
+                       depositum=DepositumConfig(comm_period=1, fused="auto"))
+    tr = FederatedTrainer(build_model(cfg, device="cpu"), tc, **CPU)
+    it = lm_batch_iterator(make_federated_lm_streams(cfg.vocab_size, 2), tc,
+                           batch=2, seq_len=16, **CPU)
+    return tr, tr.init_state(0), it
+
+
+def _graph_names(t):
+    """Names of every autograd node behind ``t``."""
+    seen, todo, names = set(), [t.grad_fn], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+MODEL_SPANS = ("model_step", "grad_copy", "block", "attention", "mlp",
+               "loss_head", "ce")
+
+
+def test_tracing_off_records_nothing_and_opens_no_range(monkeypatch):
+    from repro_torch.models import build_model
+    from repro_torch.obs import trace
+    opened = []
+    monkeypatch.setattr(trace, "_HostRange",
+                        lambda name: opened.append(name) or trace._OFF)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", opened.append)
+    trace.STORE.reset()
+    assert not trace.on()
+    cfg, grad_fn, x, batch = _qwen(remat="full", dtype="bfloat16")
+    grad_fn(x, batch)
+    tr, state, it = _qwen_trainer()
+    tr.run(state, it, 1)
+    assert opened == [] and len(trace.STORE) == 0
+    assert not trace.STORE.counters
+    # no boundary node in the graph off; a control with recording() on
+    model = build_model(cfg, device="cpu")
+    module, _ = model.init(0)
+    one = {k: v[0] for k, v in batch.items()}
+    assert not any("Boundary" in n
+                   for n in _graph_names(model.loss(module, one)[0]))
+    with trace.recording():
+        assert trace.on()
+        with trace.recording():
+            pass
+        assert trace.on()
+        on_loss = model.loss(module, one)[0]
+    assert not trace.on()
+    assert _graph_names(on_loss) == _graph_names(model.loss(module, one)[0])
+
+
+def test_profiler_spans_are_host_events_not_user_annotations():
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+    tr, state, it = _qwen_trainer()
+    trace.STORE.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert trace.on()
+        tr.run(state, it, 1)
+    seen = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in trace.SPANS:
+            seen.setdefault(e.name(), set()).add(e.is_user_annotation())
+    want = {"round", "round.batch", "round.program", "round.log", "run.sync",
+            "gossip", *MODEL_SPANS}
+    assert want <= set(seen)
+    # fused_kernel stays a user annotation, its sweep launches unlinked
+    assert all(flags == {name in trace._USER_RANGES}
+               for name, flags in seen.items()), seen
+    assert want <= set(trace.STORE.summary())
+    # a profiler alone takes no device events: the trace has device times
+    assert trace.STORE._used == 0
+
+
+def _span_tree(spans):
+    """(name, phase) -> Counter of the parents' (name, phase)."""
+    tree = collections.defaultdict(collections.Counter)
+    for sp in spans:
+        p = spans[sp.parent] if sp.parent is not None else None
+        tree[sp.name, sp.phase][p and (p.name, p.phase)] += 1
+    return {k: dict(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("remat", [False, "full", "dots"])
+def test_grad_step_records_the_span_table_and_self_times_add_up(remat):
+    from repro_torch.obs import trace
+    cfg, grad_fn, x, batch = _qwen(remat=bool(remat), policy=remat or "full")
+    with trace.recording():
+        grad_fn(x, batch)
+    spans = trace.STORE.spans()
+    assert all(sp.t1 is not None for sp in spans)
+    # two clients; the block's recompute runs in its MLP's backward half
+    L, step = cfg.n_layers, ("model_step", "forward")
+    want = {step: {None: 2}, ("grad_copy", "forward"): {step: 2},
+            ("loss_head", "forward"): {step: 2},
+            ("loss_head", "backward"): {step: 2},
+            ("ce", "forward"): {step: 2}, ("ce", "backward"): {step: 2},
+            ("block", "forward"): {step: 2 * L},
+            ("block", "backward"): {step: 2 * L}}
+    for n in ("attention", "mlp"):
+        for ph in ("forward", "backward"):
+            want[n, ph] = {("block", ph): 2 * L}
+        if remat:
+            want[n, "recompute"] = {("remat", "recompute"): 2 * L}
+    if remat:
+        want["remat", "recompute"] = {("mlp", "backward"): 2 * L}
+    assert _span_tree(spans) == want
+    # every interval of a client's model step counts in exactly one span's
+    # self time (the host clock; the CPU has no device events)
+    rows = trace.STORE.summary(by_phase=True)
+    assert all(0 <= r["self_host_s"] <= r["host_s"] for r in rows.values())
+    assert all(r["device_s"] == 0 for r in rows.values())
+    total_self = sum(r["self_host_s"] for r in rows.values())
+    assert total_self == pytest.approx(rows["model_step:forward"]["host_s"],
+                                       rel=1e-9)
+    trace.STORE.reset()
+    assert trace.STORE.summary() == {}
+
+
+def test_pruned_backward_closes_its_halves():
+    """``autograd.grad`` for the last block's MLP alone never reaches the
+    inputs of the halves it opens: they close by the backward's end, and
+    the next step's spans nest as before."""
+    from repro_torch.models import build_model
+    from repro_torch.obs import trace
+    cfg, grad_fn, x, batch = _qwen()
+    model = build_model(cfg, device="cpu")
+    module, _ = model.init(0)
+    one = {k: v[0] for k, v in batch.items()}
+    last = [p for k, p in module.named_parameters()
+            if k.startswith(f"blocks.{cfg.n_layers - 1}.mlp")]
+    with trace.recording():
+        torch.autograd.grad(model.loss(module, one)[0], last)
+        assert trace._OPEN == [] and trace.STORE.top() == -1
+        n = len(trace.STORE)
+        grad_fn(x, batch)
+    spans = trace.STORE.spans()
+    assert all(sp.t1 is not None for sp in spans)
+    pruned = _span_tree(spans[:n])
+    assert pruned[("mlp", "backward")] == {("block", "backward"): 1}
+    assert ("attention", "backward") not in pruned
+    tree = _span_tree([sp._replace(parent=None if sp.parent is None
+                                   else sp.parent - n) for sp in spans[n:]])
+    assert tree[("block", "backward")] == {("model_step", "forward"):
+                                           2 * cfg.n_layers}
+    assert tree[("mlp", "backward")] == {("block", "backward"):
+                                         2 * cfg.n_layers}
+
+
+def test_store_holds_one_session_and_no_python_objects_a_span():
+    import gc
+
+    from repro_torch.obs import trace
+    cfg, grad_fn, x, batch = _qwen(remat="full")
+    with trace.recording():
+        grad_fn(x, batch)
+        first = len(trace.STORE)
+        # a span is a row of integers: a traced step leaves behind no
+        # more objects for the collector than an untraced one
+        gc.collect()
+        gc.disable()
+        try:
+            before = len(gc.get_objects())
+            grad_fn(x, batch)
+            kept_on = len(gc.get_objects()) - before
+        finally:
+            gc.enable()
+        assert len(trace.STORE) == 2 * first
+    gc.collect()
+    gc.disable()
+    try:
+        before = len(gc.get_objects())
+        grad_fn(x, batch)
+        kept_off = len(gc.get_objects()) - before
+    finally:
+        gc.enable()
+    assert kept_on <= kept_off + 2
+    # tracing on anew starts a new session; a full one drops spans
+    with trace.recording():
+        grad_fn(x, batch)
+        assert len(trace.STORE) == first
+    old = trace.SpanStore.CAPACITY
+    trace.SpanStore.CAPACITY = 5
+    try:
+        with trace.recording():
+            grad_fn(x, batch)
+        assert len(trace.STORE) == 5 and trace.STORE.dropped == first - 5
+        assert trace.STORE.top() == -1
+    finally:
+        trace.SpanStore.CAPACITY = old
+
+
+@pytest.mark.parametrize("remat,dtype", [(False, "float32"),
+                                         ("full", "float32"),
+                                         ("dots", "float32"),
+                                         ("full", "bfloat16")])
+def test_tracing_keeps_losses_and_gradients_bit_equal(remat, dtype):
+    from repro_torch.obs import trace
+    _, grad_fn, x, batch = _qwen(remat=bool(remat), policy=remat or "full",
+                                 dtype=dtype)
+    g_off, a_off = grad_fn(x, batch)
+    with trace.recording():
+        g_on, a_on = grad_fn(x, batch)
+    assert torch.equal(a_off["ce"], a_on["ce"])
+    for k in g_off:
+        assert torch.equal(g_off[k], g_on[k]), k
+
+
+def _cast_reckoning(cfg, B, L, passes):
+    """bf16 <-> fp32 bytes read plus written by one client's forward
+    (``passes`` 2 under remat: the recompute casts again), from shapes."""
+    from repro_torch.models.common import pad_vocab
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    e = 2 + 4
+    tok = B * L
+
+    def norm(rows, width):      # x in, the scale, the result out
+        return e * (2 * rows * width + width)
+
+    block = (2 * norm(tok, d)                           # ln1, ln2
+             + norm(tok * H, hd) + norm(tok * KV, hd)   # q-norm, k-norm
+             + 2 * e * tok * (H + KV) * hd              # RoPE of q and k
+             + 2 * e * B * H * L * L)                   # scores, probs
+    return (cfg.n_layers * passes * block + norm(tok, d)      # final norm
+            + e * tok * pad_vocab(cfg.vocab_size))             # CE logits
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_cast_bytes_equal_the_reckoning_from_shapes(remat):
+    from repro_torch.obs import trace
+    cfg, grad_fn, x, batch = _qwen(remat=remat, dtype="bfloat16")
+    with trace.recording():
+        grad_fn(x, batch)
+    B, L = batch["tokens"].shape[1:]
+    assert trace.STORE.counters["cast_bytes"] == 2 * _cast_reckoning(
+        cfg, B, L, 2 if remat else 1)
+    # an fp32 model converts nothing
+    _, grad_fn, x, batch = _qwen(remat=remat)
+    with trace.recording():
+        grad_fn(x, batch)
+    assert "cast_bytes" not in trace.STORE.counters
