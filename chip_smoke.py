@@ -159,8 +159,11 @@ final line):
      parameters, bf16, remat "full", random weights from a seed) on 2
      clients (complete), T0 4, B 2 x L 512 a client a step, one warm-up
      round then ``TRAIN_ROUNDS`` timed rounds with donated states: each
-     sweep kernel launches ceil(311 / 48) = 7 times a step, every loss is
-     finite; prints the round walls, tokens/s, the peak memory beside the
+     sweep kernel launches ceil(311 / 48) = 7 times a step, attention
+     trains through the bf16 flash kernels (the backward once a layer,
+     client and step, the forward with its logsumexp twice under remat,
+     no ``_sdpa`` dispatch), every loss is finite; prints the round walls,
+     tokens/s, the peak memory beside the
      ``TRAIN_PEAK_GB`` reckoning, the caching allocator's device
      allocations in the timed rounds, one more round under
      ``torch.profiler`` (device busy share, host phases, top kernels) and
@@ -292,9 +295,14 @@ final line):
    D; and the bf16 kernel
    non-causal at the enc-dec's three served shapes
    (``FLASH_ENCDEC_SHAPES``: the encoder's L 1024, the prefill's 16 and
-   decode's 1 queries against 1024 memory rows).  Every bound reads the
-   card's rates from the port's hardware model
-   (``repro_torch.launch.mesh.HW``).
+   decode's 1 queries against 1024 memory rows); the training kernels
+   at the benchmark cells' attention (``FLASH_TRAIN_SHAPE``): the bf16
+   backward against its bound, its plain version (within
+   ``FLASH_BWD_REL``, the plain backward given the plain forward's ``o``
+   and ``lse``, which the training forward's are held to first) and
+   SDPA's backward, forward + recompute + backward of one layer, and the
+   forward with and without ``lse`` there and at the served shape.  Every bound reads the card's rates from the
+   port's hardware model (``repro_torch.launch.mesh.HW``).
 
 Before each path (phases 3, 4, 4a, 4b, 5, 5a, 5b, 6, 6a, 6b, 6c, 6d;
 each architecture of 5a and 6, each run of 6d) every launch count is set
@@ -303,7 +311,10 @@ sweep kernels sum the paths that run them (3, 4a, 4b, 6a, 6b, 6c and
 6d), the flash kernels' the served
 paths (5, 5a, 5b, 6 and 6a), with ``flash_fwd_padded`` the share of them
 through the head-dim route (bf16: 0, every served D is native; fp32: the
-reduced configs' D 32).  Prints JSON lines per
+reduced configs' D 32); the bf16 entry adds ``flash_fwd_train``, the
+training forward's launches in ``train_llm``'s (6a) timed rounds, and the
+``flash_attention_bwd`` entry (the backward, which replaces no TPU
+kernel) counts its launches there.  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -348,6 +359,10 @@ FLASH_SOURCES = {
     "bfloat16": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu",
     "float32": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"}
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:34"
+# the bf16 backward: it replaces no TPU kernel (the reference's flash
+# kernel has none)
+FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_bwd_sm90.cu")
 # the flash kernels' instantiations that must not spill, and (bf16) must
 # hold the wgmma of Q K^T and of P V in their SASS: the served head dims
 # (bf16 D 80, 96 and 128; the card-vs-CPU path's fp32 D 128)
@@ -355,6 +370,14 @@ FLASH_SM90_CHECKED = (80, 96, 128)
 FP32_NO_SPILL = "flash_fwd_fp32_kernelILi128E"
 # flash kernel vs plain: blockwise online softmax sums in another order
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# the benchmark cells' attention (B, L, H, KV, D), trained through the bf16
+# forward with lse and the backward; the backward against its plain version
+# in fp32, relative L2 (the kernel rounds P and dS to bf16 as operands)
+FLASH_TRAIN_SHAPE = (2, 2048, 16, 8, 128)
+FLASH_BWD_REL = 1e-2
+# the training forward's row logsumexp against the plain version's (fp32 on
+# the same bf16 inputs), largest absolute difference
+FLASH_LSE_ATOL = 1e-4
 # full-width prefill, flash vs plain attention: both compute the attention
 # in fp32 and round it to bf16, so an element may differ by one bf16 ulp
 # (2^-8 relative); 28 bf16 layers carry that into the logits (std ~1)
@@ -665,16 +688,18 @@ def _sass_wgmma(lib) -> dict:
 
 
 def phase_build() -> dict:
-    """The three nvcc runs started together (one thread each), then loaded;
-    both flash kernels' ptxas reports, and their spill checks; the sweep
-    source's report (registers and spills of each instantiation of the
-    update, tracking and prox kernels), printed."""
+    """The four nvcc runs started together (one thread each), then loaded;
+    the flash kernels' ptxas reports, and their spill checks (the bf16
+    backward's dK / dV and dQ kernels at every ``TRAIN_HEAD_DIMS``); the
+    sweep source's report (registers and spills of each instantiation of
+    the update, tracking and prox kernels), printed."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.prox import kernel as prox
     t0 = time.perf_counter()
     jobs = (prox.build_library, lambda: flash.build_library("flash_fwd"),
-            lambda: flash.build_library("flash_fwd_sm90"))
+            lambda: flash.build_library("flash_fwd_sm90"),
+            lambda: flash.build_library("flash_bwd_sm90"))
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: job(), jobs))
     prox._lib()
@@ -685,8 +710,11 @@ def phase_build() -> dict:
         raise AssertionError("prox_sweep.cu: no ptxas report in its log")
     sm90 = _ptxas(paths[2].with_suffix(".log").read_text())
     fp32 = _ptxas(paths[1].with_suffix(".log").read_text())
+    bwd = _ptxas(paths[3].with_suffix(".log").read_text())
     checked = [("bf16", sm90, f"flash_fwd_sm90_kernelILi{D}E")
-               for D in FLASH_SM90_CHECKED] + [("fp32", fp32, FP32_NO_SPILL)]
+               for D in FLASH_SM90_CHECKED] + [("fp32", fp32, FP32_NO_SPILL)] \
+        + [("bf16 backward", bwd, f"flash_bwd_{part}_kernelILi{D}E")
+           for D in flash.TRAIN_HEAD_DIMS for part in ("dkdv", "dq")]
     for label, report, key in checked:
         spilling = [name for name, p in report.items() if key in name
                     and (p["spill_store_bytes"] or p["spill_load_bytes"])]
@@ -704,6 +732,7 @@ def phase_build() -> dict:
             "libraries": [str(p.relative_to(ROOT)) for p in paths],
             "seconds": time.perf_counter() - t0, "flash_sm90_wgmma": wgmma,
             "flash_sm90_ptxas": sm90, "flash_fp32_ptxas": fp32,
+            "flash_bwd_ptxas": bwd,
             "sweep_ptxas": sweep,
             "sweep_spilling": sorted(n for n, p in sweep.items()
                                      if p.get("spill_store_bytes")
@@ -717,8 +746,10 @@ def _modules():
 
 
 def reset_counts() -> None:
+    from repro_torch.models import attention
     for m in _modules():
         m.reset_launch_counts()
+    attention.DISPATCH_COUNTS.clear()
 
 
 def read_counts() -> dict:
@@ -748,6 +779,24 @@ def expect_counts(path: str, counts: dict, want: dict) -> None:
         if n != want.get(name, 0):
             raise AssertionError(f"{path}: {name} launched {n} times, want "
                                  f"{want.get(name, 0)}")
+
+
+def expect_train_flash(path: str, passes: int) -> dict:
+    """Training attention went through the kernels: the backward launched
+    once an attention layer, client and step (``passes``), the training
+    forward twice (remat "full": forward and recompute), and no call fell
+    through to ``_sdpa``; returns the three counts."""
+    from repro_torch.models import attention
+    _, flash = _modules()
+    got = {"flash_bwd": flash.LAUNCH_COUNTS["flash_bwd"],
+           "flash_fwd_train": flash.LAUNCH_COUNTS["flash_fwd_train"],
+           "train_sdpa": attention.DISPATCH_COUNTS["train_sdpa"]}
+    want = {"flash_bwd": passes, "flash_fwd_train": 2 * passes,
+            "train_sdpa": 0}
+    if got != want:
+        raise AssertionError(f"{path}: training attention launched {got}, "
+                             f"want {want}")
+    return got
 
 
 def _operands(S, C, d, dtype, seed):
@@ -2239,6 +2288,120 @@ def phase_timing_flash() -> dict:
     return {"phase": "timing_flash", **out}
 
 
+def phase_timing_flash_train() -> dict:
+    """The training kernels at the benchmark cells' attention
+    (``FLASH_TRAIN_SHAPE``, causal, bf16), in turns: the backward
+    (``flash_attention_bwd_cuda``: Delta, dK / dV and dQ; ``ms``) against
+    its bound (10 D flops a visible pair and head at the bf16 peak), the
+    plain backward (``plain_ms``) and PyTorch SDPA's backward
+    (``library_ms``, a yardstick the port never calls); forward +
+    recompute + backward of one layer (``layer_ms``); the bf16 forward
+    with and without ``lse`` at the served shape and at the cells'.  The
+    training forward's ``o`` and ``lse`` are held against the plain
+    version's in fp32 on the same inputs, and the backward against the
+    plain backward given the plain ``o`` and ``lse``."""
+    import torch
+    import torch.nn.functional as TF
+    from repro_torch.kernels.flash_attention import kernel as F
+    g = torch.Generator(device="cuda").manual_seed(37)
+    B, L, H, KV, D = FLASH_TRAIN_SHAPE
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q, k, v, do = rnd(B, L, H, D), rnd(B, L, KV, D), rnd(B, L, KV, D), \
+        rnd(B, L, H, D)
+    o, lse = F.flash_attention_fwd_train_cuda(q, k, v, causal=True)
+    bwd = lambda: F.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                             causal=True)
+    plain = lambda: F.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=True)
+
+    def layer():
+        F.flash_attention_fwd_train_cuda(q, k, v, causal=True)  # forward
+        F.flash_attention_fwd_train_cuda(q, k, v, causal=True)  # recompute
+        return bwd()
+
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    os_ = TF.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                          enable_gqa=True)
+    dos = do.transpose(1, 2)
+    sdpa = lambda: torch.autograd.grad(os_, (qs, ks, vs), dos,
+                                       retain_graph=True)
+    got = bwd()
+    f32 = [t.float() for t in (q, k, v)]
+    o_ref, lse_ref = F.flash_attention_plain(*f32, causal=True,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(
+        o.float(), o_ref, atol=tol, rtol=tol,
+        msg=lambda m: f"flash training forward o vs plain: {m}")
+    seen = torch.isfinite(lse_ref)
+    rows = lse[..., :L]
+    if not (torch.equal(torch.isfinite(rows), seen)
+            and bool(torch.isinf(lse[..., L:]).all())):
+        raise AssertionError("flash training forward: lse is +inf on other "
+                             "rows than the plain version's")
+    lse_err = float((rows[seen] - lse_ref[seen]).abs().max())
+    if lse_err > FLASH_LSE_ATOL:
+        raise AssertionError(f"flash training forward lse vs plain: "
+                             f"{lse_err} > {FLASH_LSE_ATOL}")
+    err = {"o_max_abs": float((o.float() - o_ref).abs().max()),
+           "lse_max_abs": lse_err}
+    want = F.flash_attention_bwd_plain(*f32, o_ref, lse_ref, do.float(),
+                                       causal=True)
+    del f32, o_ref, lse_ref, seen, rows
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e = a.float() - b
+        err[name] = {"rel_l2": float(e.norm() / b.norm()),
+                     "max_abs": float(e.abs().max()),
+                     "max_ref": float(b.abs().max())}
+        if err[name]["rel_l2"] > FLASH_BWD_REL:
+            raise AssertionError(f"flash backward {name}: {err[name]}")
+    del got, want
+    times = {"ms": [], "plain_ms": [], "library_ms": [], "layer_ms": []}
+    for name, fn in (("plain_ms", plain), ("ms", bwd), ("library_ms", sdpa),
+                     ("layer_ms", layer), ("layer_ms", layer),
+                     ("library_ms", sdpa), ("ms", bwd), ("plain_ms", plain)):
+        slow = name == "plain_ms"
+        times[name].append(time_ms(fn, iters=3 if slow else 20,
+                                   warmup=1 if slow else 3))
+    fwd_bound, _, fwd_flops = _flash_bound_ms(B, L, L, H, KV, D, 2, True)
+    flops = 2.5 * fwd_flops  # 10 D flops a pair where the forward makes 4 D
+    bound = flops / hw()["peak_flops_bf16"] * 1e3
+    ms = min(times["ms"])
+    out = {"phase": "timing_flash_train",
+           "shape": {"B": B, "L": L, "H": H, "KV": KV, "D": D,
+                     "causal": True, "dtype": "bfloat16"},
+           "ms": ms, "plain_ms": min(times["plain_ms"]),
+           "library_ms": min(times["library_ms"]),
+           "layer_ms": min(times["layer_ms"]), "all_ms": times,
+           "bound_ms": bound, "bound_by": "operations",
+           "share_of_bound": bound / ms, "tflops_per_s": flops / ms / 1e9,
+           "vs_library": ms / min(times["library_ms"]), "err": err,
+           "forward": {}}
+    del os_, qs, ks, vs, dos
+    served = (SERVE["batch"], SERVE["prompt"], 16, 8, 128)
+    for label, (b, n, h, kv, d) in (("served", served),
+                                    ("cell", FLASH_TRAIN_SHAPE)):
+        q, k, v = rnd(b, n, h, d), rnd(b, n, kv, d), rnd(b, n, kv, d)
+        fwd = {"ms": [], "lse_ms": []}
+        for name, fn in (
+                ("ms", lambda: F.flash_attention_cuda(q, k, v, causal=True)),
+                ("lse_ms", lambda: F.flash_attention_fwd_train_cuda(
+                    q, k, v, causal=True)),
+                ("lse_ms", lambda: F.flash_attention_fwd_train_cuda(
+                    q, k, v, causal=True)),
+                ("ms", lambda: F.flash_attention_cuda(q, k, v, causal=True))):
+            fwd[name].append(time_ms(fn, iters=20, warmup=3))
+        bound_f, _, _ = _flash_bound_ms(b, n, n, h, kv, d, 2, True)
+        out["forward"][label] = {"B": b, "L": n, "ms": min(fwd["ms"]),
+                                 "lse_ms": min(fwd["lse_ms"]),
+                                 "bound_ms": bound_f, "all_ms": fwd}
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_round_time() -> dict:
     """Round wall time (host clock, synchronised), fused and unfused, in
     turns (fused, off, off, fused); no metrics inside the timed loop."""
@@ -2980,6 +3143,8 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
     expect_counts("train_llm", launches, {
         "fused_update_sweep": per_step * T0 * TRAIN_ROUNDS,
         "fused_tracking_sweep": per_step * T0 * TRAIN_ROUNDS})
+    attn_launches = expect_train_flash(
+        "train_llm", cfg.n_layers * args.clients * T0 * TRAIN_ROUNDS)
     tokens = args.clients * args.batch * args.seq * T0
 
     # recorded rounds in turns with unrecorded ones: round wall and peak
@@ -3103,6 +3268,7 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
         "launches_warmup": warm, "launches_timed": launches,
         "telemetry": tel, "launches_telemetry": tel_launches,
         "launches_per_step": per_step, "allocator_timed": allocator,
+        "attention_launches_timed": attn_launches,
         "profiled_round": profiled, "sweep_step": sweep,
         "serve": {"batch": ts["batch"], "prompt": ts["prompt"],
                   "new_tokens": ts["new"], "generate_s": serve_s,
@@ -4588,6 +4754,8 @@ def main() -> int:
     emit(timing_prox)
     timing_flash = phase_timing_flash()
     emit(timing_flash)
+    timing_train = phase_timing_flash_train()
+    emit(timing_train)
     emit(phase_round_time())
     emit(phase_round_time_comm())
 
@@ -4634,20 +4802,35 @@ def main() -> int:
     # the bf16 kernel's error at the route's and the enc-dec's timed shapes
     timed_err = max(timing_flash[label]["max_abs_err"]
                     for label in (*FLASH_ZOO_SHAPES, *FLASH_ENCDEC_SHAPES))
+    # the training forward (bf16, with lse) and the backward: their
+    # launches in train_llm's timed rounds
+    train_attn = llm["attention_launches_timed"]
     for name, dtype, launched, t, err in (
             ("flash_attention", "bfloat16", bf16_launches,
-             timing_flash["served"], timed_err),
+             timing_flash["served"],
+             max(timed_err, timing_train["err"]["o_max_abs"])),
             ("flash_attention_fp32", "float32", fp32_launches,
              timing_flash["served_fp32"], 0.0)):
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCES[dtype],
             "replaces": FLASH_REPLACES, "launches": launched,
             "flash_fwd_padded": padded[dtype],
+            **({"flash_fwd_train": train_attn["flash_fwd_train"]}
+               if dtype == "bfloat16" else {}),
             "max_abs_err": max(check_flash["max_abs_err"][dtype],
                                t["max_abs_err"], err),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    t = timing_train
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": FLASH_BWD_SOURCE, "replaces": None,
+        "launches": train_attn["flash_bwd"],
+        "max_abs_err": max(t["err"][g]["max_abs"] for g in ("dq", "dk", "dv")),
+        "max_rel_l2": max(t["err"][g]["rel_l2"] for g in ("dq", "dk", "dv")),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

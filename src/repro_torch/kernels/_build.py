@@ -3,8 +3,10 @@
 Each kernel module compiles its ``csrc/*.cu`` at first use into the
 git-ignored ``build/`` beside it and loads it with ``ctypes`` (a plain C
 interface: no PyTorch headers, so a build takes seconds).  The library's
-name carries a hash of the source and the flags, and it is renamed into
-place atomically, so concurrent builders never load a torn file.
+name carries a hash of the source, of the headers it includes with
+``#include "..."`` (and those include, in turn) and of the flags, and it
+is renamed into place atomically, so concurrent builders never load a
+torn file.
 ``nvcc``'s diagnostics (``-Xptxas -v`` where a module asks for them) are
 kept beside the library as ``<name>.log``.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,11 +38,24 @@ def nvcc() -> str:
     return str(path)
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: dict) -> dict:
+    """``path`` and the headers beside it that it includes, transitively:
+    path -> text, in the order first reached."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for name in _LOCAL_INCLUDE.findall(text):
+            _sources(path.parent / name.decode(), seen)
+    return seen
+
+
 def build_library(source: Path, build_dir: Path, flags) -> Path:
-    """Compile ``source`` with ``flags`` (once per source and flags) and
-    return the shared library's path."""
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:16]
+    """Compile ``source`` with ``flags`` (once per source, the headers it
+    includes, and flags) and return the shared library's path."""
+    text = b"".join(_sources(source, {}).values())
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     out = build_dir / f"lib{source.stem}_{tag}.so"
     if out.exists():
         return out

@@ -1,4 +1,4 @@
-"""Flash-attention forward: CUDA kernels for Hopper, plain PyTorch beside.
+"""Flash attention: CUDA kernels for Hopper, plain PyTorch beside.
 
 Port of ``repro/kernels/flash_attention/kernel.py``: :func:`flash_attention`
 replaces ``flash_attention`` (``_fa_kernel``), blockwise online-softmax
@@ -31,12 +31,24 @@ from one route to another:
 * CPU: :func:`flash_attention_plain` (any D; the route is never reached);
 * anything else raises.
 
+Training attends through :func:`flash_attention_train`, an
+``autograd.Function`` of two hand-written kernels: the bf16 forward
+writing each row's logsumexp (``lse``), and ``csrc/flash_bwd_sm90.cu``,
+the bf16 backward, at the head dims of ``TRAIN_HEAD_DIMS``.  On the CPU
+it runs :func:`flash_attention_plain` (with ``return_lse``) and
+:func:`flash_attention_bwd_plain`; a CUDA tensor launches the kernels or
+raises.  :func:`trains_on_kernel` says which calls the kernels take.
+
 Each source is built with ``nvcc`` at first use into ``build/`` next to
-this file and loaded with ``ctypes``.  Every launch adds one to
-``LAUNCH_COUNTS["flash_fwd"]``, and one to the route's own count
-(``"flash_fwd_sm90"`` or ``"flash_fwd_fp32"``); a launch through the
-head-dim route also to ``"flash_fwd_padded"``.  The sources' header notes
-give the designs and the bounds on the card.
+this file and loaded with ``ctypes``.  Every launch of
+:func:`flash_attention_cuda` adds one to ``LAUNCH_COUNTS["flash_fwd"]``,
+and one to the route's own count (``"flash_fwd_sm90"`` or
+``"flash_fwd_fp32"``); a launch through the head-dim route also to
+``"flash_fwd_padded"``.  The training forward counts under
+``"flash_fwd_train"``, its backward under ``"flash_bwd"`` and
+``"flash_bwd_sm90"`` (one a backward: its three kernels, Delta, dK / dV
+and dQ, in one call).  The sources' header notes give the designs and the
+bounds on the card.
 """
 from __future__ import annotations
 
@@ -54,19 +66,26 @@ NEG_INF = -1e30
 #: the head dims each dtype's kernel is instantiated for
 HEAD_DIMS = {torch.bfloat16: (64, 80, 96, 128, 256),
              torch.float32: (64, 128, 256)}
+#: the head dims the bf16 backward is instantiated for: training on CUDA
+#: attends through the kernels at these (D 256 trains through ``_sdpa``)
+TRAIN_HEAD_DIMS = (64, 80, 96, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 
-#: kernel launches: "flash_fwd" counts every launch, "flash_fwd_sm90" and
-#: "flash_fwd_fp32" those of each kernel, "flash_fwd_padded" those through
-#: the head-dim route; a count rises only where the wrapper launches a CUDA
-#: kernel (never on the plain path)
+#: kernel launches: "flash_fwd" counts every launch of
+#: :func:`flash_attention_cuda`, "flash_fwd_sm90" and "flash_fwd_fp32" those
+#: of each kernel, "flash_fwd_padded" those through the head-dim route;
+#: "flash_fwd_train" the training forward's (bf16, with ``lse``),
+#: "flash_bwd" and "flash_bwd_sm90" its backward's; a count rises only
+#: where the wrapper launches a CUDA kernel (never on the plain path)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 #: the CUDA source of each route, keyed by the C function it exports
 SOURCES = {"flash_fwd": Path(__file__).parent / "csrc" / "flash_fwd.cu",
            "flash_fwd_sm90": Path(__file__).parent / "csrc"
-           / "flash_fwd_sm90.cu"}
+           / "flash_fwd_sm90.cu",
+           "flash_bwd_sm90": Path(__file__).parent / "csrc"
+           / "flash_bwd_sm90.cu"}
 BUILD_DIR = Path(__file__).parent / "build"
 # -Xptxas -v: registers, shared memory and spills per instantiation, kept
 # in the build log
@@ -83,14 +102,22 @@ def build_library(name: str) -> Path:
     return _build.build_library(SOURCES[name], BUILD_DIR, NVCC_FLAGS)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: each C function's arguments: pointers, then B, Lq, Lk, H, KV, D, then
+#: scale, causal, window and the stream
+_ARGTYPES = {"flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+             # q, k, v, o, lse
+             "flash_fwd_sm90": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+             # q, k, v, o, dout, lse, delta, dq, dk, dv
+             "flash_bwd_sm90": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
-    """The C function ``name`` of its built library; both sources export
-    the same signature."""
+    """The C function ``name`` of its built library."""
     fn = getattr(ctypes.CDLL(str(build_library(name))), name)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 4 + [i] * 6 + [f, i, i, p]
-    fn.restype = i
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = _I
     return fn
 
 
@@ -139,10 +166,26 @@ def pad_head_dim(fn, q, k, v, *, causal: bool = True, window: int = 0):
     return out[..., :D].contiguous()
 
 
+def _visible(Lq: int, Lk: int, causal: bool, window: int, device):
+    """(Lq, Lk) True where query i sees key j."""
+    i = torch.arange(Lq, device=device)[:, None]
+    j = torch.arange(Lk, device=device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (j <= i)
+        if window > 0:
+            mask = mask & (j > i - window)
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: float | None = None):
+                          scale: float | None = None,
+                          return_lse: bool = False):
     """Plain PyTorch version of :func:`flash_attention_cuda`; ``scale``
-    defaults to ``1 / sqrt(D)``.
+    defaults to ``1 / sqrt(D)``.  With ``return_lse`` it returns ``(out,
+    lse)``: ``lse`` (B, H, Lq) fp32, each row's logsumexp of its scaled
+    visible scores, ``+inf`` for a row with no visible key (so that
+    ``exp(s - lse)`` is 0 there), as the bf16 kernel writes it.
 
     ``ref.py::attention_ref``'s operations, computed in fp32 whatever the
     storage type (as ``_fa_kernel`` and the fp32 kernel do; the ref rounds
@@ -161,18 +204,55 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         scores = scores / torch.sqrt(torch.tensor(D, dtype=torch.float32))
     else:
         scores = scores * scale
-    i = torch.arange(Lq, device=q.device)[:, None]
-    j = torch.arange(Lk, device=q.device)[None, :]
-    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (j <= i)
-        if window > 0:
-            mask = mask & (j > i - window)
+    mask = _visible(Lq, Lk, causal, window, q.device)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+    seen = mask.any(dim=-1, keepdim=True)
+    probs = torch.where(seen, probs, 0.0)
     out = torch.einsum("bkgij,bjkd->bikgd", probs, v.to(torch.float32))
-    return out.reshape(B, Lq, H, D).to(q.dtype)
+    out = out.reshape(B, Lq, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(seen[..., 0], torch.logsumexp(scores, dim=-1),
+                      math.inf)
+    return out, lse.reshape(B, H, Lq)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0):
+    """Plain PyTorch version of the backward (:func:`flash_attention_bwd_cuda`),
+    in fp32 whatever the storage type: ``(dq, dk, dv)`` in q's dtype.
+
+    ``o`` is the forward's output and ``lse`` its (B, H, Lq) row logsumexp
+    (``flash_attention_plain(..., return_lse=True)``; the kernel's padded
+    rows do too, of which the first Lq are read); ``do`` the gradient of
+    ``o``.  The kernel's arithmetic: ``P = exp(S scale - lse)`` on the
+    visible pairs (0 elsewhere, and on a row whose ``lse`` is ``+inf``),
+    ``Delta = rowsum(dO o)``, ``dS = P (dO V^T - Delta)``; ``dV = P^T
+    dO``, ``dK = scale dS^T Q`` (both summed over the query heads of a kv
+    head's group), ``dQ = scale dS K``; ``scale = 1 / sqrt(D)``.
+    """
+    _check(q, k, v)
+    B, Lq, H, D = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    f32 = lambda t: t.to(torch.float32)
+    qg = f32(q).reshape(B, Lq, KV, G, D)
+    dog = f32(do).reshape(B, Lq, KV, G, D)
+    kf, vf = f32(k), f32(v)
+    s = torch.einsum("bikgd,bjkd->bkgij", qg, kf) * scale
+    mask = _visible(Lq, Lk, causal, window, q.device)
+    rows = f32(lse)[..., :Lq].reshape(B, KV, G, Lq, 1)
+    p = torch.where(mask, torch.exp(s - rows), 0.0)
+    delta = torch.sum(dog * f32(o).reshape(B, Lq, KV, G, D), dim=-1)
+    dp = torch.einsum("bikgd,bjkd->bkgij", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bkgij,bikgd->bjkd", p, dog)
+    dk = torch.einsum("bkgij,bikgd->bjkd", ds, qg) * scale
+    dq = torch.einsum("bkgij,bjkd->bikgd", ds, kf) * scale
+    return (dq.reshape(B, Lq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
@@ -197,8 +277,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def _launch(q, k, v, *, causal: bool, window: int, scale: float,
-            padded: bool = False):
-    """One launch of the kernel of q's dtype at a D of its ``HEAD_DIMS``."""
+            padded: bool = False, lse=None):
+    """One launch of the kernel of q's dtype at a D of its ``HEAD_DIMS``;
+    ``lse`` (bf16 only: fp32 (B, H, :func:`lse_rows` (Lq))) also receives
+    each row's logsumexp, and the launch counts as the training
+    forward's."""
     B, Lq, H, D = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
@@ -214,19 +297,25 @@ def _launch(q, k, v, *, causal: bool, window: int, scale: float,
                              f"exceeds the grid limit {_GRID_LIMIT}")
         fn_name, route = "flash_fwd", "flash_fwd_fp32"
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if Lk == 0:  # no key: every row is 0, nothing to launch
+    if out.numel() == 0 or Lk == 0:
+        # nothing to launch: no row, or no key (every row 0, lse +inf)
+        if lse is not None:
+            lse.fill_(math.inf)
         return out.zero_()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if fn_name == "flash_fwd_sm90":
+        ptrs.append(None if lse is None else lse.data_ptr())
     fn = _kernel(fn_name)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 Lq, Lk, H, KV, D, scale, int(causal), int(window),
+        err = fn(*ptrs, B, Lq, Lk, H, KV, D, scale, int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: error {err} (a CUDA "
                            "error, or 1000 + a CUresult of the TMA "
                            "descriptor)")
+    if lse is not None:
+        LAUNCH_COUNTS["flash_fwd_train"] += 1
+        return out
     LAUNCH_COUNTS["flash_fwd"] += 1
     LAUNCH_COUNTS[route] += 1
     if padded:
@@ -245,3 +334,138 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward with its row logsumexp, and the backward
+# ---------------------------------------------------------------------------
+
+#: the kernels' q tile: ``lse`` and Delta hold this many rows' multiple
+_LSE_TILE = 128
+
+
+def lse_rows(Lq: int) -> int:
+    """Rows of the kernels' ``lse`` and Delta buffers: Lq padded to whole
+    q tiles (the padding holds ``+inf`` and 0)."""
+    return -(-Lq // _LSE_TILE) * _LSE_TILE
+
+
+def trains_on_kernel(q) -> bool:
+    """Whether :func:`flash_attention_train` of this ``q`` launches the
+    kernels: a CUDA tensor in bf16 at a head dim of ``TRAIN_HEAD_DIMS``."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and q.shape[-1] in TRAIN_HEAD_DIMS)
+
+
+def _check_train_cuda(fn: str, q, k, v, *more):
+    _check(q, k, v)
+    if not trains_on_kernel(q):
+        raise ValueError(f"{fn}: the training kernels take CUDA bf16 at D "
+                         f"in {TRAIN_HEAD_DIMS}, not {q.dtype} at D = "
+                         f"{q.shape[-1]} on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), *more):
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, q on "
+                             f"{q.device}")
+        if t.data_ptr() % 16:  # TMA reads from 16-byte aligned addresses
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
+def flash_attention_fwd_train_cuda(q, k, v, *, causal: bool = True,
+                                   window: int = 0):
+    """The bf16 forward kernel with its row logsumexp: ``(out, lse)``,
+    ``lse`` the kernel's fp32 (B, H, :func:`lse_rows` (Lq)) buffer, whose
+    rows past Lq hold ``+inf``; the backward kernel takes it as it is."""
+    _check_train_cuda("flash_attention_fwd_train_cuda", q, k, v)
+    B, Lq, H, D = q.shape
+    lse = torch.empty((B, H, lse_rows(Lq)), dtype=torch.float32,
+                      device=q.device)
+    out = _launch(q, k, v, causal=causal, window=window,
+                  scale=1.0 / math.sqrt(D), lse=lse)
+    return out, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0):
+    """``(dq, dk, dv)`` of the bf16 backward kernel
+    (``csrc/flash_bwd_sm90.cu``: Delta, then dK / dV, then dQ, in one
+    call); ``o`` and ``lse`` (its padded buffer) from
+    :func:`flash_attention_fwd_train_cuda`, ``do`` the gradient of
+    ``o``."""
+    do = do.contiguous()
+    _check_train_cuda("flash_attention_bwd_cuda", q, k, v, ("o", o),
+                      ("do", do), ("lse", lse))
+    if o.shape != q.shape or do.shape != q.shape or not (
+            o.dtype == do.dtype == q.dtype):
+        raise ValueError("flash_attention_bwd_cuda: o and do must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    B, Lq, H, D = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    rows = (B, H, lse_rows(Lq))
+    if lse.shape != rows or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_cuda: lse must be the "
+                         f"forward's fp32 {rows}, not {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or Lk == 0:  # nothing to launch: zero gradients
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty_like(lse)
+    fn = _kernel("flash_bwd_sm90")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H,
+                 KV, D, 1.0 / math.sqrt(D), int(causal), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_sm90 launch failed: error {err} (a "
+                           "CUDA error, or 1000 + a CUresult of the TMA "
+                           "descriptor)")
+    LAUNCH_COUNTS["flash_bwd"] += 1
+    LAUNCH_COUNTS["flash_bwd_sm90"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """Attention whose backward recomputes the probabilities from the
+    forward's row logsumexp: the kernels on CUDA, the plain versions on
+    the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cuda":
+            out, lse = flash_attention_fwd_train_cuda(q, k, v, causal=causal,
+                                                      window=window)
+        else:
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd_cuda if q.device.type == "cuda"
+               else flash_attention_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, out, lse, do, causal=ctx.causal,
+                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
+    """Differentiable attention for training: q (B, Lq, H, D); k, v
+    (B, Lk, KV, D) -> (B, Lq, H, D).
+
+    On CUDA the bf16 kernels at a D of ``TRAIN_HEAD_DIMS`` (anything else
+    raises); on the CPU :func:`flash_attention_plain` forward and
+    :func:`flash_attention_bwd_plain` backward; any other device raises.
+    Under remat the recompute runs the forward again, ``lse`` included.
+    """
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention_train: no kernel for device "
+                         f"{q.device}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return _FlashAttentionTrain.apply(q, k, v, causal, int(window))

@@ -11,10 +11,21 @@ attention).  The bf16 kernel runs D 64, 80, 96, 128 and 256 at their
 true width (zamba2's 80 and phi-3's 96 included); a head dim that the
 kernel of the dtype is not instantiated for (``HEAD_DIMS``: fp32 32, 80,
 96; bf16 32) goes through the kernel's head-dim route, zero padding along
-D.  ``attention_train`` keeps the reference's
-``use_flash=False`` default.  Decode attention (one query against the
-cache) stays plain torch ops, as the reference computes it outside any
-kernel.
+D.  Decode attention (one query against the cache) stays plain torch ops,
+as the reference computes it outside any kernel.
+
+Training (:func:`attention_train`) chooses its route from what the call
+shows (``use_flash=None``, the default): CUDA tensors in bf16 at a head
+dim of ``TRAIN_HEAD_DIMS`` attend through
+:func:`~repro_torch.kernels.flash_attention.kernel.flash_attention_train`,
+the bf16 forward with its row logsumexp and the hand-written backward, so
+that no L x L score tensor is held in the forward, the remat recompute or
+the backward; everything else (the CPU, fp32, D 256) computes the
+reference's ``_sdpa``, and on CUDA each such call counts in
+``DISPATCH_COUNTS["train_sdpa"]``.  ``use_flash=False`` forces ``_sdpa``
+(the CPU parity tests' path, bit for bit the reference's), ``True`` the
+kernels.  Without grad (serving's enc-dec prefill step) a flash call runs
+the forward kernel alone.
 
 The encoder-decoder family adds two non-causal uses of the same kernel:
 :func:`attention_bidir` (the encoder's self-attention, ``Lq = Lk``) and
@@ -37,14 +48,21 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention,
+    flash_attention_train,
+    trains_on_kernel,
+)
 from repro_torch.models.common import Initializer, apply_rope, cast, rms_norm
 
 NEG_INF = -1e30
 
-#: calls that asked for the kernel but compute ``_sdpa`` because the kernel
-#: does not compute their mask: "bidir_window_sdpa" counts encoder calls
-#: under a symmetric window narrower than the sequence
+#: calls that compute ``_sdpa`` where a kernel was asked for or chosen on
+#: the card: "bidir_window_sdpa" counts encoder calls under a symmetric
+#: window narrower than the sequence (no kernel computes that mask);
+#: "train_sdpa" counts :func:`attention_train` calls on CUDA whose route is
+#: chosen (``use_flash=None``) and is not the kernels (fp32, or a head dim
+#: without a backward instantiation)
 DISPATCH_COUNTS: collections.Counter = collections.Counter()
 
 
@@ -112,13 +130,24 @@ def causal_mask(L: int, window: int = 0, device=None):
 
 
 def attention_train(params, x, cfg: ModelConfig, *, window: int = 0,
-                    use_flash: bool = False):
-    """Full-sequence causal attention. x: (B, L, d)."""
+                    use_flash: bool | None = None):
+    """Full-sequence causal attention. x: (B, L, d).
+
+    ``use_flash``: None chooses the route (the kernels where
+    ``trains_on_kernel``, else ``_sdpa``; see the module docstring), True
+    forces the kernels, False ``_sdpa``.
+    """
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)
     w = window or cfg.sliding_window
-    if use_flash:
+    if use_flash is None:
+        use_flash = trains_on_kernel(q)
+        if not use_flash and q.device.type == "cuda":
+            DISPATCH_COUNTS["train_sdpa"] += 1
+    if use_flash and torch.is_grad_enabled():
+        out = flash_attention_train(q, k, v, causal=True, window=w)
+    elif use_flash:
         out = flash_attention(q, k, v, causal=True, window=w)
     else:
         mask = causal_mask(L, w, device=x.device)[None]

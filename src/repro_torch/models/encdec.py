@@ -15,9 +15,13 @@ As in :mod:`~repro_torch.models.transformer`, the reference's stacked
 Python loop; with ``cfg.remat`` a training forward checkpoints each block,
 as the reference's scan bodies do.  ``use_flash`` runs the encoder's and
 the decoder's attention through the flash kernel (non-causal for the
-encoder and the cross-attention, causal for the decoder's self-attention);
-the training forward keeps the reference's plain default, since the kernel
-has no backward.  Decode feeds one token against the decoder's per-layer
+encoder and the cross-attention, causal for the decoder's self-attention).
+The training forward's default, ``None``, lets the decoder's causal
+self-attention choose its route as every decoder family's does
+(:func:`~repro_torch.models.attention.attention_train`: the training
+kernels on the card in bf16, ``_sdpa`` elsewhere, counted on the card);
+the encoder and the cross-attention then compute ``_sdpa``, since the
+non-causal kernel has no backward.  Decode feeds one token against the decoder's per-layer
 KV caches and the fixed memory: its self-attention is the plain ring-cache
 path, its cross-attention the kernel (``Lq = 1`` against the memory's
 ``S`` rows), the memory's keys and values projected anew every step as the
@@ -95,11 +99,11 @@ def _cross_and_mlp(params, h, memory, cfg: ModelConfig, use_flash: bool):
 
 
 def dec_block_train(params, h, memory, cfg: ModelConfig, *,
-                    use_flash: bool = False):
+                    use_flash: bool | None = None):
     h = h + attn.attention_train(params["self_attn"],
                                  rms_norm(h, params["ln1"]["scale"]), cfg,
                                  use_flash=use_flash)
-    return _cross_and_mlp(params, h, memory, cfg, use_flash)
+    return _cross_and_mlp(params, h, memory, cfg, bool(use_flash))
 
 
 def dec_block_decode(params, h, memory, cache: attn.KVCache,
@@ -180,13 +184,14 @@ class EncDec(nn.Module):
         return rms_norm(x, self.enc_norm["scale"])
 
     def forward_train(self, batch: dict, *, window: int = 0, memory=None,
-                      use_flash: bool = False):
+                      use_flash: bool | None = None):
         """batch: {"frames": (B, S, d), "tokens": (B, L)} -> (decoder
         logits, aux); ``memory`` given skips the encoder (``frames`` then
-        unused); ``window`` is the encoder's."""
+        unused); ``window`` is the encoder's; ``use_flash`` None chooses
+        the decoder self-attention's route (see the module docstring)."""
         if memory is None:
             memory = self.encode(batch["frames"], window=window,
-                                 use_flash=use_flash)
+                                 use_flash=bool(use_flash))
         x = embed(self.embed, batch["tokens"]).to(self.cfg.torch_dtype)
         body = maybe_checkpoint(dec_block_train, self.cfg)
         for blk in self.decoder:

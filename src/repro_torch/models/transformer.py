@@ -73,8 +73,10 @@ def _ffn(params, x, cfg: ModelConfig):
 
 
 def block_train(params, x, cfg: ModelConfig, *, window: int = 0,
-                use_flash: bool = False):
-    """Returns (x, router aux loss: 0.0 for a dense block)."""
+                use_flash: bool | None = None):
+    """Returns (x, router aux loss: 0.0 for a dense block).  ``use_flash``
+    as :func:`~repro_torch.models.attention.attention_train` takes it
+    (None: the route is chosen there)."""
     h = trace.layer("attention", attn.attention_train, params["attn"],
                     rms_norm(x, params["ln1"]["scale"]), cfg, window=window,
                     use_flash=use_flash)
@@ -172,7 +174,7 @@ class Transformer(nn.Module):
         return x @ self.lm_head["w"]
 
     def forward_train(self, batch: dict, *, window: int = 0,
-                      use_flash: bool = False):
+                      use_flash: bool | None = None):
         """Full causal forward.  Returns (logits, aux_losses dict):
         ``moe_aux`` is the router loss's mean over layers (0.0 when dense)."""
         x = self._embed_inputs(batch)

@@ -393,3 +393,215 @@ def test_fp32_kernel_walk_matches_plain(Lq, Lk, D, causal, window):
         _fp32_model(q, k, v, causal, window),
         fk.flash_attention_plain(q, k, v, causal=causal, window=window),
         **F32)
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward's row logsumexp and the backward
+# ---------------------------------------------------------------------------
+
+# (B, Lq, Lk, H, KV, D, causal, window): every backward head dim, GQA
+# groups 1 / 2 / 4, windows narrower than L, lengths that are no tile
+# multiple, Lq != Lk, non-causal, and rows with no visible key (causal,
+# Lq > Lk + window - 1)
+TRAIN_CASES = [
+    (2, 37, 37, 4, 4, 64, True, 0), (1, 70, 70, 4, 2, 80, True, 16),
+    (2, 45, 45, 8, 2, 96, True, 0), (1, 130, 130, 4, 1, 128, True, 32),
+    (1, 50, 29, 4, 2, 64, True, 8), (2, 33, 47, 2, 1, 128, True, 0),
+    (1, 20, 52, 6, 3, 96, False, 0), (1, 61, 61, 2, 2, 80, True, 0),
+]
+
+
+def _dead_rows(Lq, Lk, causal, window):
+    """Rows that see no key."""
+    return [i for i in range(Lq)
+            if not any(j <= i and (window == 0 or j > i - window)
+                       for j in range(Lk))] if causal else []
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,KV,D,causal,window", TRAIN_CASES)
+def test_plain_backward_matches_autograd(B, Lq, Lk, H, KV, D, causal,
+                                         window):
+    """``flash_attention_bwd_plain`` (from the forward's ``lse``) against
+    ``torch.autograd`` through ``flash_attention_plain``, fp32, at atol =
+    rtol = 2e-5: the same gradient summed in another order (autograd's
+    softmax backward takes rowsum(P dP), the plain backward rowsum(dO o),
+    equal in exact arithmetic).  A row with no visible key gets zero
+    gradient in both."""
+    q, k, v = _t(*_qkv(Lq * 7 + Lk + D, B, Lq, H, KV, D, Lk=Lk))
+    do = torch.from_numpy(np.random.default_rng(D + Lq).standard_normal(
+        (B, Lq, H, D)).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fk.flash_attention_plain(*leaves, causal=causal, window=window)
+    want = torch.autograd.grad(out, leaves, do)
+    o, lse = fk.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    assert torch.equal(o, out.detach())
+    got = fk.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F32)
+    dead = _dead_rows(Lq, Lk, causal, window)
+    assert (len(dead) > 0) == ((Lq, Lk, window) == (50, 29, 8))
+    if dead:
+        assert torch.count_nonzero(got[0][:, dead]) == 0
+        assert torch.isinf(lse[..., dead]).all() and (lse[..., dead] > 0).all()
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,KV,D,causal,window", TRAIN_CASES[::2]
+                         + [TRAIN_CASES[4]])
+def test_plain_lse_is_the_logsumexp_of_the_scaled_masked_scores(
+        B, Lq, Lk, H, KV, D, causal, window):
+    """``return_lse``: the same output, and per row ``torch.logsumexp`` of
+    the scores times 1 / sqrt(D) over the visible keys (query head h =
+    kv * group + g), within 1e-5; +inf where no key is visible (where
+    ``torch.logsumexp`` gives -inf)."""
+    q, k, v = _t(*_qkv(Lq + 3 * Lk, B, Lq, H, KV, D, Lk=Lk))
+    out, lse = fk.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    assert torch.equal(out, fk.flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window))
+    kk = k.repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bihd,bjhd->bhij", q, kk) / math.sqrt(D)
+    mask = torch.ones(Lq, Lk, dtype=torch.bool)
+    if causal:
+        i, j = torch.arange(Lq)[:, None], torch.arange(Lk)[None, :]
+        mask = (j <= i) & ((j > i - window) if window else True)
+    want = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    assert lse.shape == (B, H, Lq) and lse.dtype == torch.float32
+    seen = torch.isfinite(want)
+    torch.testing.assert_close(lse[seen], want[seen], atol=1e-5, rtol=1e-5)
+    assert torch.equal(lse[~seen], torch.full_like(lse[~seen], math.inf))
+    assert bool((~seen).any()) == bool(_dead_rows(Lq, Lk, causal, window))
+
+
+def test_backward_switch_cases_equal_the_train_head_dims():
+    """The head dims ``flash_bwd_sm90.cu``'s C switch instantiates, read
+    from its text, are ``TRAIN_HEAD_DIMS``, each a bf16 forward dim."""
+    import re
+    text = fk.SOURCES["flash_bwd_sm90"].read_text()
+    cases = [int(d) for d, t in re.findall(
+        r"case (\d+): return launch<(\d+)>", text) if d == t]
+    assert len(cases) == len(re.findall(r"case \d+:", text))
+    assert tuple(cases) == fk.TRAIN_HEAD_DIMS
+    assert set(cases) <= set(fk.HEAD_DIMS[torch.bfloat16])
+
+
+def test_library_tag_hashes_the_headers_a_source_includes(tmp_path):
+    """A library's tag covers its source and the headers beside it that
+    the source includes, transitively: the sm90 kernels take
+    ``sm90_common.cuh``, the fp32 kernel none; an unrelated header does
+    not move a tag."""
+    from repro_torch.kernels import _build
+    src = fk.SOURCES
+    common = src["flash_fwd_sm90"].parent / "sm90_common.cuh"
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        assert list(_build._sources(src[name], {})) == [src[name], common]
+    assert list(_build._sources(src["flash_fwd"], {})) == [src["flash_fwd"]]
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "b.cuh").write_text('  #  include "c.cuh"\n')
+    (tmp_path / "c.cuh").write_text("// c\n")
+    (tmp_path / "d.cuh").write_text("// not included\n")
+    got = _build._sources(tmp_path / "a.cu", {})
+    assert [p.name for p in got] == ["a.cu", "b.cuh", "c.cuh"]
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 32)])
+def test_attention_train_route_on_the_cpu(dtype, D):
+    """On the CPU the chosen route (``use_flash=None``, the default) is
+    ``_sdpa``: ``torch.equal`` to ``use_flash=False``, forward and
+    gradients, with nothing counted (no dispatch, no launch)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.common import Initializer, split_params
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", reduced=True),
+                              head_dim=D, dtype=str(dtype).split(".")[-1])
+    params, _ = split_params(tattn.init_attention(
+        Initializer(torch.Generator().manual_seed(D), dtype), cfg))
+    x = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32)).to(dtype)
+    tattn.DISPATCH_COUNTS.clear()
+    fk.reset_launch_counts()
+    got = {}
+    for use_flash in (None, False):
+        leaves = {n: p.clone().requires_grad_() for n, p in params.items()}
+        out = tattn.attention_train(leaves, x, cfg, use_flash=use_flash)
+        got[use_flash] = (out, torch.autograd.grad(out.float().sum(),
+                                                   list(leaves.values())))
+    assert torch.equal(got[None][0], got[False][0])
+    for a, b in zip(got[None][1], got[False][1]):
+        assert torch.equal(a, b)
+    assert not tattn.DISPATCH_COUNTS and not +fk.LAUNCH_COUNTS
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_flash_attention_train_under_remat(policy):
+    """``flash_attention_train`` inside ``maybe_checkpoint`` (the
+    recompute runs its forward again, ``lse`` included) gives the
+    gradients of the same block without remat, bit for bit, on the CPU;
+    and those match ``_sdpa``'s at the fp32 tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.common import maybe_checkpoint
+
+    base = get_config("qwen3-1.7b", reduced=True)
+    H, KV, D = 4, 2, 64
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((2, 48, 32)).astype(np.float32))
+    ws = [torch.from_numpy((rng.standard_normal(s) / math.sqrt(s[0]))
+                           .astype(np.float32))
+          for s in ((32, H * D), (32, KV * D), (32, KV * D), (H * D, 32))]
+
+    def block(x, wq, wk, wv, wo, *, route):
+        q = (x @ wq).reshape(2, 48, H, D)
+        k = (x @ wk).reshape(2, 48, KV, D)
+        v = (x @ wv).reshape(2, 48, KV, D)
+        if route == "flash":
+            o = fk.flash_attention_train(q, k, v, causal=True, window=20)
+        else:
+            o = tattn._sdpa(q, k, v, tattn.causal_mask(48, 20)[None], base)
+        return torch.tanh(o.reshape(2, 48, H * D) @ wo)
+
+    def grads(remat, route):
+        cfg = dataclasses.replace(base, remat=remat, remat_policy=policy)
+        leaves = [t.clone().requires_grad_() for t in (x, *ws)]
+        out = maybe_checkpoint(block, cfg)(*leaves, route=route)
+        return torch.autograd.grad(out.square().sum(), leaves)
+
+    fk.reset_launch_counts()
+    plain = grads(False, "flash")
+    for a, b in zip(grads(True, "flash"), plain):
+        assert torch.equal(a, b)
+    for a, b in zip(grads(False, "sdpa"), plain):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert not +fk.LAUNCH_COUNTS
+
+
+@pytest.mark.parametrize("Lq", [1, 128, 200])
+def test_backward_takes_lse_as_the_kernels_padded_rows(Lq):
+    """``lse`` as the training forward's kernel writes it, (B, H,
+    ``lse_rows(Lq)``) with ``+inf`` past Lq: whole q tiles of 128 rows,
+    and the plain backward given those rows computes what it computes
+    from the (B, H, Lq) ``lse``, bit for bit; on the CPU the backward
+    kernel's wrapper raises before it reads any of it."""
+    B, H, KV, D = 1, 4, 2, 64
+    pad = fk.lse_rows(Lq)
+    assert pad % 128 == 0 and Lq <= pad < Lq + 128
+    q, k, v = _t(*_qkv(Lq + 11, B, Lq, H, KV, D))
+    do = torch.from_numpy(np.random.default_rng(Lq).standard_normal(
+        (B, Lq, H, D)).astype(np.float32))
+    o, lse = fk.flash_attention_plain(q, k, v, return_lse=True)
+    rows = torch.full((B, H, pad), math.inf)
+    rows[..., :Lq] = lse
+    want = fk.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    got = fk.flash_attention_bwd_plain(q, k, v, o, rows, do)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="training kernels take CUDA"):
+        fk.flash_attention_bwd_cuda(q, k, v, o, rows, do)

@@ -16,7 +16,13 @@ bf16 D 80 and 96 at their true width too; the head-dim route (fp32 D 32,
 80, 96 and bf16 D 32, on zero-padded operands) at the same two, and so
 are the encoder-decoder's shapes (non-causal, and causal, ``Lq != Lk``:
 cross-attention of 1 or 16 queries against 1024 or a ragged 1000 memory
-rows).  The reduced enc-dec (fp32) on the card
+rows).  The bf16 training kernels (the forward with its row logsumexp,
+the backward) against their plain versions: the forward's output bit for
+bit with and without ``lse``, ``lse`` within 1e-4, dq / dk / dv within
+``FLASH_BWD_REL`` (relative L2 and largest error over largest value); a
+reduced bf16 step of qwen3 (D 64) and zamba2 (D 80) through the kernels
+against the ``_sdpa`` route per leaf within ``FLASH_STEP_REL``.  The
+reduced enc-dec (fp32) on the card
 against the CPU: prefill-step logits and memory at 1e-4, greedy tokens
 identical.  The sweep rounds hold fused against unfused bit for
 bit, and the card against the CPU at rtol 1e-4 / atol 1e-6 (products
@@ -1147,3 +1153,142 @@ def test_table3_cell_and_its_telemetry_on_the_card():
         assert torch.equal(v, cell["x"][k]), k
     assert tel.host_copies == 1
     assert [tel.memory_sink.rounds(s) for s in range(3)] == [[1, 2]] * 3
+
+
+# (B, Lq, Lk, H, KV, D, causal, window): tests/test_torch_flash.py's
+# TRAIN_CASES (held there on the CPU, plain backward against autograd) and
+# the benchmark cells' shape
+FLASH_TRAIN_CASES = [
+    (2, 37, 37, 4, 4, 64, True, 0), (1, 70, 70, 4, 2, 80, True, 16),
+    (2, 45, 45, 8, 2, 96, True, 0), (1, 130, 130, 4, 1, 128, True, 32),
+    (1, 50, 29, 4, 2, 64, True, 8), (2, 33, 47, 2, 1, 128, True, 0),
+    (1, 20, 52, 6, 3, 96, False, 0), (1, 61, 61, 2, 2, 80, True, 0),
+    (2, 2048, 2048, 16, 8, 128, True, 0),
+]
+#: the bf16 backward against its plain version on the same bf16 inputs,
+#: per gradient: relative L2 error, and largest error over largest value.
+#: The kernel rounds P and dS to bf16 as wgmma operands and writes bf16;
+#: on an H100 its readings are 0.0022-0.0024 and 0.0011-0.0045 here
+FLASH_BWD_REL = 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Lq,Lk,H,KV,D,causal,window", FLASH_TRAIN_CASES)
+def test_flash_backward_kernel_matches_plain_version(B, Lq, Lk, H, KV, D,
+                                                     causal, window):
+    """The training forward (bf16, with ``lse``) gives the inference
+    kernel's output bit for bit and the plain version's ``lse`` within
+    1e-4 (+inf on the same rows; its rows past Lq, to whole q tiles, hold
+    +inf); the backward kernel's dq, dk, dv match
+    ``flash_attention_bwd_plain`` in fp32 on the same bf16 inputs within
+    ``FLASH_BWD_REL``; rows with no visible key get zero dq; one count a
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device="cuda").manual_seed(Lq + Lk + D)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q, k, v, do = rnd(B, Lq, H, D), rnd(B, Lk, KV, D), rnd(B, Lk, KV, D), \
+        rnd(B, Lq, H, D)
+    fk.reset_launch_counts()
+    o, lse = fk.flash_attention_fwd_train_cuda(q, k, v, causal=causal,
+                                               window=window)
+    assert torch.equal(o, fk.flash_attention_cuda(q, k, v, causal=causal,
+                                                  window=window))
+    f32 = [t.float() for t in (q, k, v)]
+    _, plse = fk.flash_attention_plain(*f32, causal=causal, window=window,
+                                       return_lse=True)
+    assert lse.shape == (B, H, fk.lse_rows(Lq))
+    assert bool(torch.isinf(lse[..., Lq:]).all() and (lse[..., Lq:] > 0).all())
+    seen = torch.isfinite(plse)
+    assert torch.equal(torch.isfinite(lse[..., :Lq]), seen)
+    torch.testing.assert_close(lse[..., :Lq][seen], plse[seen], atol=1e-4,
+                               rtol=0)
+    got = fk.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    want = fk.flash_attention_bwd_plain(*f32, o.float(), plse, do.float(),
+                                        causal=causal, window=window)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = a.float() - b
+        rel = float(err.norm() / b.norm())
+        top = float(err.abs().max() / b.abs().max())
+        assert rel <= FLASH_BWD_REL and top <= FLASH_BWD_REL, (name, rel, top)
+    dead = (~seen).all(dim=1)[0]  # (Lq,): rows no head sees a key from
+    if dead.any():
+        assert torch.count_nonzero(got[0][:, dead]) == 0
+    assert (fk.LAUNCH_COUNTS["flash_fwd_train"], fk.LAUNCH_COUNTS["flash_bwd"],
+            fk.LAUNCH_COUNTS["flash_bwd_sm90"]) == (1, 1, 1)
+
+
+#: per-leaf first gradients of a reduced bf16 training step through the
+#: kernels against the same step through ``_sdpa``: |g - g_sdpa| over the
+#: larger of |g_sdpa| and the median leaf's norm (as the benchmark's
+#: ``grad1``), worst leaf and client.  Both routes round to bf16, at other
+#: places (``_sdpa`` its bf16 scores, dP and dS; the kernels P and dS as
+#: wgmma operands)
+FLASH_STEP_REL = 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,D", [("qwen3-1.7b", 64), ("zamba2-2.7b", 80),
+                                    ("seamless-m4t-medium", 64)])
+def test_reduced_bf16_step_through_the_flash_kernels(arch, D, monkeypatch):
+    """A reduced bf16 step with remat ("full") of 2 clients through the
+    trainer's gradient function: on the card the chosen route launches the
+    training forward twice (forward and recompute) and the backward once
+    an attention layer and client, counts no ``_sdpa`` dispatch, and its
+    per-leaf gradients match the ``_sdpa`` route's within
+    ``FLASH_STEP_REL``.  qwen3 at D 64 through ``block_train``; zamba2's
+    shared block (the hybrid) at D 80; the enc-dec's decoder
+    self-attention at D 64 (16 stub frames a sample; its encoder and
+    cross-attention compute ``_sdpa`` on both routes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import train
+    from repro_torch.models import attention as attn
+    from repro_torch.models.hybrid import group_shape
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), head_dim=D,
+                              dtype="bfloat16", remat=True,
+                              remat_policy="full")
+    monkeypatch.setattr(train, "get_config", lambda *a, **kw: cfg)
+    clients = 2
+    args = train.parse_args(["--arch", arch, "--reduced", "--clients",
+                             str(clients), "--batch", "2", "--seq", "64",
+                             "--t0", "1", "--seed", "3"])
+    trainer, _, state, it = train.build(args)
+    batch = {k: v[0] for k, v in next(it).items()}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        batch["frames"] = torch.randn(
+            tuple(batch["tokens"].shape[:2]) + (16, cfg.d_model),
+            generator=gen, device="cuda").to(torch.bfloat16)
+    layers = (group_shape(cfg)[0] if cfg.family == "hybrid"
+              else cfg.n_layers)
+    fk.reset_launch_counts()
+    attn.DISPATCH_COUNTS.clear()
+    g_kernel, _ = trainer._grad_fn(state.x, batch)
+    torch.cuda.synchronize()
+    assert fk.LAUNCH_COUNTS["flash_bwd"] == layers * clients
+    assert fk.LAUNCH_COUNTS["flash_fwd_train"] == 2 * layers * clients
+    assert not attn.DISPATCH_COUNTS
+    monkeypatch.setattr(attn, "trains_on_kernel", lambda q: False)
+    g_sdpa, _ = trainer._grad_fn(state.x, batch)
+    torch.cuda.synchronize()
+    assert attn.DISPATCH_COUNTS["train_sdpa"] == 2 * layers * clients
+    assert fk.LAUNCH_COUNTS["flash_bwd"] == layers * clients
+    norms = {k: v.float().reshape(clients, -1).norm(dim=1)
+             for k, v in g_sdpa.items()}
+    median = torch.stack(list(norms.values())).median(dim=0).values
+    worst = max(
+        (float(((g_kernel[k].float() - v.float()).reshape(clients, -1)
+                .norm(dim=1) / torch.maximum(norms[k], median)).max()), k)
+        for k, v in g_sdpa.items())
+    print(f"{arch} D {D}: worst leaf {worst[1]} at {worst[0]:.3g}")
+    assert worst[0] <= FLASH_STEP_REL, worst
