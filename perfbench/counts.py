@@ -1,17 +1,13 @@
 """Operations and bytes of the measured work, from a configuration's
 logical shapes and dtypes alone (no implementation is read).
 
-FLOPs (training, a token):
-
-* every matrix product of the model counts 6 FLOPs a weight a token: 2
-  forward, 4 backward (input and weight gradients).  The LM head counts
-  over the published vocabulary (the program's padding rows are not the
-  model's), also where it is tied to the embedding; the input embedding
-  is a lookup and counts nothing.
-  Recomputation under remat is not counted.
-* causal attention: Q K^T and P V over the L (L + 1) / 2 pairs the mask
-  keeps, 2 FLOPs a multiply-add: 2 x 2 x H x D x (L + 1) / 2 a token
-  forward, x 3 for training.
+FLOPs (training, a token) are a family's own: ``perfbench/work/<family>.py``
+gives ``flops_per_token(m, L)``, the whole model's, and
+``attention_flops_per_token(m, L)``, its attention's, each of the
+configuration's ``model`` block at sequence length L.  Causal attention,
+the same in every family that has it: Q K^T and P V over the L (L + 1) / 2
+pairs the mask keeps, 2 FLOPs a multiply-add: 2 x 2 x H x D x (L + 1) / 2 a
+token forward, x 3 for training (the backward's four products).
 
 Bytes: the state is DEPOSITUM's trees of one leaf a parameter and a row a
 client, in the configuration's dtype.  The sweep pair reads x, y, nu and
@@ -21,6 +17,7 @@ the mixed x and y: 4 passes.
 """
 from __future__ import annotations
 
+import importlib
 import math
 
 #: NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
@@ -38,19 +35,28 @@ def attention_flops(H: int, D: int, L: int) -> float:
     return 3 * 2 * 2 * H * D * (L + 1) / 2
 
 
-def dense_flops_per_token(m: dict, L: int) -> float:
-    d, H, KV, D, ff = (m["d_model"], m["n_heads"], m["n_kv_heads"],
-                       m["head_dim"], m["d_ff"])
-    layer = d * H * D + 2 * d * KV * D + H * D * d + 3 * d * ff
-    weights = m["n_layers"] * layer + d * m["vocab_size"]
-    return 6 * weights + m["n_layers"] * attention_flops(H, D, L)
-
-
-FLOPS_PER_TOKEN = {"dense": dense_flops_per_token}
+def work(family: str):
+    """The family's work module, ``perfbench/work/<family>.py``."""
+    name = f"perfbench.work.{family}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ModuleNotFoundError(
+            f"family {family!r} has no work counts: add perfbench/work/"
+            f"{family}.py with flops_per_token(m, L) and "
+            "attention_flops_per_token(m, L)", name=name) from None
 
 
 def flops_per_token(family: str, m: dict, L: int) -> float:
-    return FLOPS_PER_TOKEN[family](m, L)
+    """Training FLOPs a token of the whole model (no recomputation)."""
+    return work(family).flops_per_token(m, L)
+
+
+def attention_flops_per_token(family: str, m: dict, L: int) -> float:
+    """Training FLOPs a token of the model's attention."""
+    return work(family).attention_flops_per_token(m, L)
 
 
 def param_count(specs) -> int:

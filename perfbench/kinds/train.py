@@ -96,8 +96,9 @@ class Recorder:
                 "dx": {t: host(d) for t, d in self.dx.items()}}
 
 
-def build_program(cfg: dict, traffic: dict, seed: int, device):
-    """(trainer, state, the weights' host copy, leaf specs)."""
+def build_program(cfg: dict, traffic: dict, seed: int, device, specs: list):
+    """(trainer, state, the weights' host copy) from the family's leaf
+    ``specs``."""
     from repro_torch.configs import get_config
     from repro_torch.core import DepositumConfig
     from repro_torch.models import build_model
@@ -106,7 +107,6 @@ def build_program(cfg: dict, traffic: dict, seed: int, device):
     port = cfg["port"]
     pcfg = dataclasses.replace(get_config(port["arch"]), **port["fields"])
     cls = getattr(importlib.import_module(port["module"]), port["class"])
-    specs = reference.family(cfg["family"]).leaf_specs(cfg["model"])
     weights = make_weights(specs, seed, device, cfg["model"]["dtype"])
     pin = torch.device(device).type == "cuda"
     x0_host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pin).copy_(v)
@@ -130,7 +130,20 @@ def build_program(cfg: dict, traffic: dict, seed: int, device):
                                device=device)
     state = trainer.state_from_params(module)
     del module, weights
-    return trainer, state, x0_host, specs
+    return trainer, state, x0_host
+
+
+def work_counts(cfg: dict, traffic: dict, specs: list) -> dict:
+    """The operations and bytes of the cell's work (``perfbench.counts``),
+    from the configuration, traffic and leaf ``specs`` alone; raises at
+    once where the family lacks its work module."""
+    fam, m, L, n = cfg["family"], cfg["model"], traffic["seq_len"], traffic["clients"]
+    out = {"flops_per_token": counts.flops_per_token(fam, m, L),
+           "attention_flops_per_token": counts.attention_flops_per_token(fam, m, L),
+           "tokens_per_client_step": traffic["batch"] * L}
+    out["sweep_bytes"] = counts.sweep_pair_bytes(specs, m["dtype"], n)
+    out["gossip_bytes"] = counts.gossip_bytes(specs, m["dtype"], n)
+    return out
 
 
 def run(cfg: dict, traffic: dict, limits: dict, seed: int, seconds: float,
@@ -140,6 +153,8 @@ def run(cfg: dict, traffic: dict, limits: dict, seed: int, seconds: float,
     steps and the check (no window).  ``program_hook(trainer)``, where
     given, plants a change in the program before the first step and
     returns its undo (the benchmark's own runs pass none)."""
+    specs = reference.family(cfg["family"]).leaf_specs(cfg["model"])
+    work = work_counts(cfg, traffic, specs)
     device = torch.device(device)
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -149,7 +164,7 @@ def run(cfg: dict, traffic: dict, limits: dict, seed: int, seconds: float,
     tokens_a_round = T0 * n * traffic["batch"] * traffic["seq_len"]
     feed = TokenFeed(traffic, cfg["model"]["vocab_size"], seed)
 
-    trainer, state, x0_host, specs = build_program(cfg, traffic, seed, device)
+    trainer, state, x0_host = build_program(cfg, traffic, seed, device, specs)
     built_s = time.perf_counter() - t_start
     undo = program_hook(trainer) if program_hook else None
     rec = Recorder(trainer._grad_fn, traffic["check"], x0_host, n)
@@ -210,16 +225,11 @@ def run(cfg: dict, traffic: dict, limits: dict, seed: int, seconds: float,
     numbers = check.compare(prog, ref)
     ok = (check.verdict(numbers, limits) and failed == 0
           and (attempted > 0 or seconds is None))
-    dtype = cfg["model"]["dtype"]
     return {
         "correct": ok, "attempted": attempted, "failed": failed,
         "numbers": numbers, "setup_s": setup_s, "peak_bytes": peak,
         "window": window, "trace": tr, "reference_s": time.perf_counter() - t_ref,
-        "counts": {
-            "flops_per_token": counts.flops_per_token(
-                cfg["family"], cfg["model"], traffic["seq_len"]),
-            "sweep_bytes": counts.sweep_pair_bytes(specs, dtype, n),
-            "gossip_bytes": counts.gossip_bytes(specs, dtype, n)},
+        "counts": work,
         "round_s": walls, "prog": prog, "ref": ref,
         "setup_parts": {"to_built": built_s, "first_steps": setup_s - built_s},
     }

@@ -89,8 +89,16 @@ def prepare_environment():
             sys.path.insert(0, p)
 
 
-def result_line(cell: dict, out: dict, traced: bool, device: dict) -> dict:
+def context(cfg: dict, traffic: dict, out: dict) -> dict:
+    """What a metric reader reads: the run's window, trace, counts
+    (``kinds.train.work_counts``), set-up time and peak, and the cell's
+    ``model`` block and traffic."""
     ctx = {k: out[k] for k in ("window", "trace", "counts", "setup_s", "peak_bytes")}
+    return {**ctx, "model": cfg["model"], "traffic": traffic}
+
+
+def result_line(cell: dict, out: dict, traced: bool, device: dict) -> dict:
+    ctx = context(cell["cfg"], cell["traffic"], out)
     metrics = read_metrics(cell["per_layer"] if traced else cell["end_to_end"], ctx)
     line = {"correct": bool(out["correct"]), "attempted": out["attempted"],
             "failed": out["failed"], "metrics": metrics, "device": device}

@@ -1,5 +1,7 @@
-"""``perfbench/counts.py`` against hand counts at reduced sizes, and the
-state it reckons against the program's dry run and parameters."""
+"""``perfbench/counts.py`` and the dense family's work counts
+(``perfbench/work/dense.py``) against hand counts at reduced sizes and
+the flagship's pinned count, and the state it reckons against the
+program's dry run and parameters."""
 from __future__ import annotations
 
 import pytest
@@ -17,7 +19,18 @@ def test_dense_flops_by_hand():
     layer = 4096 + 2048 + 2048 + 4096 + 3 * 8192
     weights = 2 * layer + 64 * 500                  # + the tied LM head, published vocab
     attn = 3 * 2 * 2 * 4 * 16 * (L + 1) / 2         # a layer, a token
-    assert counts.dense_flops_per_token(DENSE, L) == 6 * weights + 2 * attn
+    assert counts.flops_per_token("dense", DENSE, L) == 6 * weights + 2 * attn
+    assert counts.attention_flops_per_token("dense", DENSE, L) == 2 * attn
+
+
+def test_flagship_counts_are_pinned():
+    """qwen3-1.7b at L 2048: the count every run of both cells reads, and
+    its attention's (28 layers x 12 x 16 heads x 128 x 2049 / 2)."""
+    import json
+
+    m = json.loads((reduced.HERE / "configs" / "qwen3-1.7b.json").read_text())["model"]
+    assert counts.flops_per_token("dense", m, 2048) == 11027693568.0
+    assert counts.attention_flops_per_token("dense", m, 2048) == 704987136.0
 
 
 def test_bytes_by_hand():

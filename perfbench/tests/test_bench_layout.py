@@ -60,15 +60,18 @@ def test_every_metric_reader_reads_nothing_from_nothing():
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert run.read_metrics([m], {"window": None, "trace": None,
                                       "counts": {}, "setup_s": None,
-                                      "peak_bytes": None}) == {}
+                                      "peak_bytes": None, "model": None,
+                                      "traffic": None}) == {}
 
 
 def _out(traced):
     trace = {"wall_s": 2.0, "busy_s": 1.5, "rounds": 1, "steps": 4,
              "client_steps": 8, "comm_steps": 1, "counts": {"kernel": 4000},
-             "device_s": {"model": 1.2, "gossip": 0.1, "unlinked": 0.09},
+             "device_s": {"model": 1.2, "gossip": 0.1, "unlinked": 0.144},
              "by_name": {"void fused_update_kernel<__nv_bfloat16, 0, false>(Tab)": 0.05,
-                         "void tracking_kernel<__nv_bfloat16, false>(Tab)": 0.04},
+                         "void tracking_kernel<__nv_bfloat16, false>(Tab)": 0.04,
+                         "void flash_fwd_sm90_kernel<128>(CUtensorMap)": 0.018,
+                         "void flash_bwd_dq_kernel<128>(CUtensorMap)": 0.036},
              "device_ops": [["k", 0.5]], "idle_gaps": [["aten::mm", 0.1]]}
     return {"correct": True, "attempted": 10, "failed": 0,
             "numbers": {"loss": (1e-5, "step 1[0]"), "grad1": (0.01, "a[0]")},
@@ -77,7 +80,8 @@ def _out(traced):
                        "steps": 40, "client_steps": 80},
             "trace": trace if traced else None,
             "counts": {"flops_per_token": 1.1e10, "sweep_bytes": 7.3e10,
-                       "gossip_bytes": 3.25e10}}
+                       "gossip_bytes": 3.25e10, "attention_flops_per_token": 7.0e8,
+                       "tokens_per_client_step": 4096}}
 
 
 @pytest.mark.parametrize("traced", [False, True])
@@ -96,6 +100,8 @@ def test_result_line_shape(traced):
     if traced:
         assert line["device"]["busy_s"] == 1.5 and line["device"]["window_s"] == 2.0
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+        assert line["metrics"]["attention_roofline_pct"]["value"] == pytest.approx(
+            100 * 7.0e8 * 4096 * 8 / 989e12 / 0.054)
     assert line["checks"]["loss"] == {"value": 1e-5, "limit": 1e-3, "at": "step 1[0]"}
 
 

@@ -38,8 +38,7 @@ def traced():
         tr = reduced.traffic("train-l2048-t1", 16)
         out = train.run(cfg, tr, {}, 2147483999, 0.0, True, "cpu",
                         time.perf_counter())
-        ctx = {k: out[k] for k in ("window", "trace", "counts", "setup_s",
-                                   "peak_bytes")}
+        ctx = run.context(cfg, tr, out)
         yield ctx, run.read_metrics(_specs(), ctx), trace.STORE.summary()
     finally:
         torch.set_num_threads(n)
