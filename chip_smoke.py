@@ -46,7 +46,13 @@ final line):
      route, each such launch counted under ``flash_fwd_padded`` too; and
      ``Lq != Lk`` at D 64, 80 and 96 (``FLASH_CROSS_PAIRS``: decode's one
      query and a prompt's 16 against 1024 or a ragged 1000 keys, short
-     ragged pairs both ways), groups 1 / 2, non-causal and causal;
+     ragged pairs both ways), groups 1 / 2, non-causal and causal; the
+     training forward (with ``lse``) and backward at each
+     ``TRAIN_DV_PAIRS`` (D 192, DV 128) at an explicit scale, groups
+     1 / 2, L = 17 / 200 / 1024, three masks, and at the
+     ``deepseek-v2-lite`` cell's attention (``FLASH_MLA_SHAPE``, causal,
+     the configuration's softmax scale), against the plain pair within
+     ``FLASH_BWD_REL``;
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
@@ -192,6 +198,16 @@ final line):
      ``launch.serve --ckpt`` (restored = saved bit for bit, tokens = the
      consensus served directly), seamless's through the prefill step (36
      launches) and ``BatchedServer`` (12 a decode step);
+   * ``train_mla``: the (192, 128) flash kernels on their main path:
+     ``deepseek-v2-lite``'s share at the benchmark cell's widths, batch
+     and length (``MLA_TRAIN``: 16 heads, 8 of 64 experts, 12,800
+     vocabulary rows, B 2 x L 4096, T0 4, 2 clients) at ``MLA_LAYERS`` of
+     its 17 layers, one warm-up round and ``MLA_ROUNDS`` timed rounds: the
+     backward once a layer, client and step, the forward with ``lse``
+     twice, no ``_sdpa``, every loss finite; then the two kernels alone
+     at the cell's attention (``FLASH_MLA_SHAPE``) in turns with the
+     plain backward, against their bounds (2 (D + DV) and 2 (3 D + 2 DV)
+     flops a visible pair and head);
    * ``train_ckpt``: reduced fp32, ``launch.train --ckpt`` then
      ``launch.serve --ckpt`` on the card: the restored params bit-equal to
      the saved consensus, the served tokens equal to serving it directly;
@@ -314,7 +330,9 @@ through the head-dim route (bf16: 0, every served D is native; fp32: the
 reduced configs' D 32); the bf16 entry adds ``flash_fwd_train``, the
 training forward's launches in ``train_llm``'s (6a) timed rounds, and the
 ``flash_attention_bwd`` entry (the backward, which replaces no TPU
-kernel) counts its launches there.  Prints JSON lines per
+kernel) counts its launches there; the ``flash_attention_mla_fwd`` and
+``flash_attention_mla_bwd`` entries (D 192 / DV 128) count theirs in
+``train_mla``'s timed rounds.  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -324,6 +342,7 @@ beside the script.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -366,7 +385,7 @@ FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 # the flash kernels' instantiations that must not spill, and (bf16) must
 # hold the wgmma of Q K^T and of P V in their SASS: the served head dims
 # (bf16 D 80, 96 and 128; the card-vs-CPU path's fp32 D 128)
-FLASH_SM90_CHECKED = (80, 96, 128)
+FLASH_SM90_CHECKED = (80, 96, 128, 192)
 FP32_NO_SPILL = "flash_fwd_fp32_kernelILi128E"
 # flash kernel vs plain: blockwise online softmax sums in another order
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -378,6 +397,9 @@ FLASH_BWD_REL = 1e-2
 # the training forward's row logsumexp against the plain version's (fp32 on
 # the same bf16 inputs), largest absolute difference
 FLASH_LSE_ATOL = 1e-4
+# the deepseek-v2-lite cell's attention (B, L, H, D, DV), causal, every
+# head its own key and value
+FLASH_MLA_SHAPE = (2, 4096, 16, 192, 128)
 # full-width prefill, flash vs plain attention: both compute the attention
 # in fp32 and round it to bf16, so an element may differ by one bf16 ulp
 # (2^-8 relative); 28 bf16 layers carry that into the logits (std ~1)
@@ -487,6 +509,14 @@ TRAIN_PEAK_GB = (57.0, 66.0)
 # (telemetry=True, every round) and one not: round wall and peak memory
 TRAIN_TEL_PAIRS = 2
 TRAIN_SERVE = {"batch": 2, "prompt": 64, "new": 8, "cache": 128}
+# DeepSeek-V2-Lite's share as the benchmark cell runs it (8 of 64 experts,
+# 12,800 vocabulary rows, B 2 x L 4096, T0 4, 2 bf16 clients), cut to
+# MLA_LAYERS of its 17 layers (the dense one and two MoE layers) for time
+MLA_TRAIN = ["--arch", "deepseek-v2-lite", "--clients", "2", "--topology",
+             "complete", "--batch", "2", "--seq", "4096", "--t0", "4",
+             "--seed", "0"]
+MLA_LAYERS = 3
+MLA_ROUNDS = 2
 # the reduced fp32 trainer: launch.train --ckpt then launch.serve --ckpt,
 # and 2 rounds on the card against the CPU from one state
 TRAIN_REDUCED = ["--arch", "qwen3-1.7b", "--reduced", "--clients", "4",
@@ -690,7 +720,8 @@ def _sass_wgmma(lib) -> dict:
 def phase_build() -> dict:
     """The four nvcc runs started together (one thread each), then loaded;
     the flash kernels' ptxas reports, and their spill checks (the bf16
-    backward's dK / dV and dQ kernels at every ``TRAIN_HEAD_DIMS``); the
+    backward's dK / dV and dQ kernels at every ``TRAIN_HEAD_DIMS`` and at
+    D 192 of ``TRAIN_DV_PAIRS``); the
     sweep source's report (registers and spills of each instantiation of
     the update, tracking and prox kernels), printed."""
     from concurrent.futures import ThreadPoolExecutor
@@ -714,7 +745,9 @@ def phase_build() -> dict:
     checked = [("bf16", sm90, f"flash_fwd_sm90_kernelILi{D}E")
                for D in FLASH_SM90_CHECKED] + [("fp32", fp32, FP32_NO_SPILL)] \
         + [("bf16 backward", bwd, f"flash_bwd_{part}_kernelILi{D}E")
-           for D in flash.TRAIN_HEAD_DIMS for part in ("dkdv", "dq")]
+           for D in flash.TRAIN_HEAD_DIMS + tuple(
+               d for d, _ in flash.TRAIN_DV_PAIRS)
+           for part in ("dkdv", "dq")]
     for label, report, key in checked:
         spilling = [name for name, p in report.items() if key in name
                     and (p["spill_store_bytes"] or p["spill_load_bytes"])]
@@ -1175,7 +1208,11 @@ def phase_check_flash() -> dict:
     its dtype's kernel is not instantiated for (fp32 32, 80, 96; bf16 32)
     through the head-dim route, each such launch counted under
     ``flash_fwd_padded`` too, and bf16 D 80 / 96 never; and ``Lq != Lk`` at
-    D 64, 80 and 96 (``FLASH_CROSS_PAIRS``), non-causal and causal."""
+    D 64, 80 and 96 (``FLASH_CROSS_PAIRS``), non-causal and causal; and
+    the training forward and backward at each ``TRAIN_DV_PAIRS`` (D 192,
+    DV 128), and at the deepseek-v2-lite cell's attention
+    (``FLASH_MLA_SHAPE``, its softmax scale), against the plain pair
+    within ``FLASH_BWD_REL``."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as F
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -1232,9 +1269,74 @@ def phase_check_flash() -> dict:
         held(q32, k32, v32, f"D={D} group={group} Lq={Lq} Lk={Lk}",
              ((False, 0), (True, 0)))
     n["cross"] = n["cases"] - before
+    # the training kernels where v's head dim differs (multi-head latent
+    # attention's 192 / 128): forward with lse and backward against the
+    # plain pair at an explicit scale, within FLASH_BWD_REL
+    dv_worst = 0.0
+    for D, DV in F.TRAIN_DV_PAIRS:
+        for group in (1, 2):
+            # not L 1: one visible key gives dS = 0 but for rounding, so dq
+            # and dk are rounding alone there
+            for L in (17, 200, 1024):
+                q, k = (torch.randn((2, L, H // (group if i else 1), D),
+                                    generator=g, device="cuda").bfloat16()
+                        for i in range(2))
+                v = torch.randn((2, L, H // group, DV), generator=g,
+                                device="cuda").bfloat16()
+                do = torch.randn((2, L, H, DV), generator=g,
+                                 device="cuda").bfloat16()
+                for causal, window in ((True, 0), (True, 128), (False, 0)):
+                    scale = 1.5896 / math.sqrt(D)
+                    o, lse = F.flash_attention_fwd_train_cuda(
+                        q, k, v, causal=causal, window=window, scale=scale)
+                    got = (o, *F.flash_attention_bwd_cuda(
+                        q, k, v, o, lse, do, causal=causal, window=window,
+                        scale=scale))
+                    po, plse = F.flash_attention_plain(
+                        q, k, v, causal=causal, window=window, scale=scale,
+                        return_lse=True)
+                    want = (po, *F.flash_attention_bwd_plain(
+                        q, k, v, po, plse, do, causal=causal, window=window,
+                        scale=scale))
+                    for a, b in zip(got, want):
+                        rel = float((a.float() - b.float()).norm()
+                                    / b.float().norm().clamp_min(1e-30))
+                        if rel > FLASH_BWD_REL:
+                            raise AssertionError(
+                                f"flash D={D} DV={DV} group={group} L={L} "
+                                f"causal={causal} window={window}: relative "
+                                f"L2 {rel}")
+                        dv_worst = max(dv_worst, rel)
+                    n["cases"] += 1
+    # the same at the deepseek-v2-lite cell's attention and scale
+    B, L, Hm, D, DV = FLASH_MLA_SHAPE
+    scale = _mla_config().softmax_scale
+    q, k = (torch.randn((B, L, Hm, D), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn((B, L, Hm, DV), generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    o, lse = F.flash_attention_fwd_train_cuda(q, k, v, causal=True,
+                                              scale=scale)
+    got = (o, *F.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                          scale=scale))
+    po, plse = F.flash_attention_plain(q, k, v, causal=True, scale=scale,
+                                       return_lse=True)
+    want = (po, *F.flash_attention_bwd_plain(q, k, v, po, plse, do,
+                                             causal=True, scale=scale))
+    mla_rel = {}
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        mla_rel[name] = float((a.float() - b.float()).norm()
+                              / b.float().norm().clamp_min(1e-30))
+        if mla_rel[name] > FLASH_BWD_REL:
+            raise AssertionError(f"flash at the MLA cell's shape {name}: "
+                                 f"relative L2 {mla_rel[name]}")
+    n["cases"] += 1
+    del q, k, v, do, o, lse, got, po, plse, want
+    torch.cuda.empty_cache()
     return {"phase": "check_flash", "cases": n["cases"],
             "padded_cases": n["padded"], "cross_cases": n["cross"],
             "max_abs_err": worst, "tol": FLASH_TOL,
+            "dv_pairs_max_rel_l2": dv_worst, "mla_cell_rel_l2": mla_rel,
             "launches": read_counts()}
 
 
@@ -3663,6 +3765,92 @@ def _serve_trained_encdec(cfg, model, mean) -> tuple[dict, dict]:
                       "drift": drift, "sample": toks[0].tolist()}
 
 
+def _mla_config():
+    """``deepseek-v2-lite`` as the benchmark cell holds it (8 of 64
+    experts, 12,800 vocabulary rows) at ``MLA_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v2-lite"),
+                               n_layers=MLA_LAYERS, experts_held=8,
+                               vocab_size=12800)
+
+
+def phase_train_mla() -> dict:
+    """The (192, 128) flash kernels on their main path, then alone at the
+    cell's attention; see ``train_mla`` in the module docstring."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cut = _mla_config()
+    args = train.parse_args(MLA_TRAIN + ["--rounds", "1"])
+    get_config = train.get_config
+    train.get_config = lambda arch, reduced=False: cut
+    try:
+        trainer, cfg, state, it = train.build(args)
+    finally:
+        train.get_config = get_config
+    state, hist = trainer.run(state, it, 1, donate=True)      # warm-up
+    torch.cuda.synchronize()
+    losses = [hist[-1]["loss"]]
+    reset_counts()
+    walls = []
+    for _ in range(MLA_ROUNDS):
+        t0 = time.perf_counter()
+        state, hist = trainer.run(state, it, 1, donate=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(hist[-1]["loss"])
+    launches = expect_train_flash(
+        "train_mla", cfg.n_layers * args.clients * args.t0 * MLA_ROUNDS)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_mla: losses {losses}")
+    peak_gb = _gb(torch.cuda.max_memory_allocated() - base)
+    del trainer, state, it, hist
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    B, L, H, D, DV = FLASH_MLA_SHAPE
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(
+        torch.bfloat16)
+    q, k, v, do = rnd(B, L, H, D), rnd(B, L, H, D), rnd(B, L, H, DV), \
+        rnd(B, L, H, DV)
+    scale = cut.softmax_scale
+    fwd = lambda: F.flash_attention_fwd_train_cuda(q, k, v, causal=True,
+                                                   scale=scale)
+    o, lse = fwd()
+    bwd = lambda: F.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                             causal=True, scale=scale)
+    plain = lambda: F.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=True, scale=scale)
+    times = {"fwd_ms": [], "bwd_ms": [], "plain_bwd_ms": []}
+    for name, fn in (("plain_bwd_ms", plain), ("bwd_ms", bwd),
+                     ("fwd_ms", fwd), ("fwd_ms", fwd), ("bwd_ms", bwd),
+                     ("plain_bwd_ms", plain)):
+        slow = name == "plain_bwd_ms"
+        times[name].append(time_ms(fn, iters=3 if slow else 20,
+                                   warmup=1 if slow else 3))
+    pairs = B * H * L * (L + 1) / 2
+    peak = hw()["peak_flops_bf16"]
+    bound = {"fwd_ms": 2 * (D + DV) * pairs / peak * 1e3,
+             "bwd_ms": 2 * (3 * D + 2 * DV) * pairs / peak * 1e3}
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return {"phase": "train_mla", "layers": cfg.n_layers,
+            "clients": args.clients, "batch": args.batch, "seq": args.seq,
+            "t0": args.t0, "rounds": MLA_ROUNDS, "round_ms": walls,
+            "losses": losses, "peak_gb": peak_gb, "launches": launches,
+            "shape": {"B": B, "L": L, "H": H, "D": D, "DV": DV,
+                      "causal": True, "scale": scale},
+            "fwd_ms": min(times["fwd_ms"]), "bwd_ms": min(times["bwd_ms"]),
+            "plain_bwd_ms": min(times["plain_bwd_ms"]), "all_ms": times,
+            "bound_ms": bound, "bound_by": "operations",
+            "share_of_bound": {n: bound[n] / min(times[n]) for n in bound}}
+
+
 def phase_train_zoo() -> tuple[dict, dict]:
     """The TRAIN_ZOO archs trained at full width on 2 bf16 clients, one at
     a time, each consensus then served; returns (launches summed over
@@ -4728,6 +4916,8 @@ def main() -> int:
     emit(train_zoo)
     train_paths.append(train_zoo_launches)
     torch.cuda.empty_cache()
+    train_mla = phase_train_mla()
+    emit(train_mla)
     for phase in (phase_train_ckpt, phase_train_card_vs_cpu,
                   phase_train_zoo_card_vs_cpu):
         path_launches, line = phase()
@@ -4831,6 +5021,22 @@ def main() -> int:
         "max_rel_l2": max(t["err"][g]["rel_l2"] for g in ("dq", "dk", "dv")),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # D 192 / DV 128 (multi-head latent attention): the training forward
+    # with lse and the backward, launched in train_mla's timed rounds
+    t = train_mla
+    for name, key, launches in (
+            ("flash_attention_mla_fwd", "fwd_ms",
+             t["launches"]["flash_fwd_train"]),
+            ("flash_attention_mla_bwd", "bwd_ms", t["launches"]["flash_bwd"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": FLASH_SOURCES["bfloat16"] if key == "fwd_ms"
+            else FLASH_BWD_SOURCE, "replaces": None, "launches": launches,
+            "max_rel_l2": max(check_flash["dv_pairs_max_rel_l2"],
+                              *check_flash["mla_cell_rel_l2"].values()),
+            "ms": t[key], "plain_ms": t["plain_bwd_ms"] if key == "bwd_ms"
+            else None, "bound_ms": t["bound_ms"][key],
+            "bound_by": t["bound_by"], "library_ms": None})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

@@ -7,11 +7,16 @@ layers in a Python loop).  Each architecture file registers the published
 config plus a ``reduced()`` variant for CPU tests, ``source`` included.
 ``param_count`` / ``active_param_count`` copy the reference's formulas for
 every family.  :func:`get_config` serves all ten architectures of the
-reference's zoo, the enc-dec ``seamless-m4t-medium`` included.
+reference's zoo, the enc-dec ``seamless-m4t-medium`` included, and the
+port's own architectures, which the reference has no counterpart of:
+``deepseek-v2-lite`` (:class:`MlaMoeConfig`, family ``mla_moe``), which
+:func:`list_archs` leaves out.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import torch
 
@@ -135,7 +140,115 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN RoPE scaling, as DeepSeek-V2's ``rope_scaling`` of type
+    "yarn" gives it."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: 0.1 mscale ln(scale) + 1 (1 at
+    no scaling)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaMoeConfig(ModelConfig):
+    """DeepSeek-V2's block (family ``mla_moe``): multi-head latent
+    attention (no q LoRA), DeepSeekMoE with shared experts after
+    ``first_k_dense`` dense layers, YaRN RoPE on the RoPE part of the
+    heads.  A port-only configuration: the reference has no such family.
+
+    ``head_dim`` is the query/key head (``qk_nope_head_dim +
+    qk_rope_head_dim``); ``d_ff`` the dense layers' width, ``moe_d_ff`` an
+    expert's.  ``n_experts`` is the router's width; the layer holds
+    ``experts_held`` of them (0: all), experts ``expert_offset`` onwards, as
+    one chip of an expert-parallel deployment does, and computes their
+    part of the output alone.  ``router_aux_weight`` is the balance loss's
+    alpha, summed over the MoE layers (DeepSeek's ``seq_aux``)."""
+
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    yarn: Optional[Yarn] = None
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    def __post_init__(self):
+        # DeepSeek-V2 scales cos and sin by mscale(factor, mscale) /
+        # mscale(factor, mscale_all_dim): 1 where the two are equal, as
+        # the port's RoPE takes them
+        y = self.yarn
+        if y is not None and y.mscale != y.mscale_all_dim:
+            raise ValueError(f"{self.name}: YaRN mscale {y.mscale} != "
+                             f"mscale_all_dim {y.mscale_all_dim}")
+
+    @property
+    def held(self) -> int:
+        """Routed experts this layer holds."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def softmax_scale(self) -> float:
+        """``1 / sqrt(q/k head dim)``, times ``mscale(factor,
+        mscale_all_dim)^2`` under YaRN (DeepSeek-V2's attention)."""
+        s = 1.0 / math.sqrt(self.qk_nope_head_dim + self.qk_rope_head_dim)
+        if self.yarn is not None and self.yarn.mscale_all_dim:
+            m = yarn_mscale(self.yarn.factor, self.yarn.mscale_all_dim)
+            s = s * m * m
+        return s
+
+    def is_moe_layer(self, i: int) -> bool:
+        return i >= self.first_k_dense
+
+    def _mla_params(self) -> int:
+        d, H, r = self.d_model, self.n_heads, self.kv_lora_rank
+        dn, dr, dv = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                      self.v_head_dim)
+        return (d * H * (dn + dr) + d * (r + dr) + r + r * H * (dn + dv)
+                + H * dv * d)
+
+    def _expert_params(self) -> int:
+        return 3 * self.d_model * self.moe_d_ff
+
+    def param_count(self) -> int:
+        """Stored parameters: the held experts only, the untied head and
+        the embedding over the (unpadded) vocabulary."""
+        d = self.d_model
+        dense = 3 * d * self.d_ff
+        moe = (d * self.n_experts + self.held * self._expert_params()
+               + self.n_shared_experts * self._expert_params())
+        n_moe = self.n_layers - self.first_k_dense
+        total = self.n_layers * (self._mla_params() + 2 * d)
+        total += self.first_k_dense * dense + n_moe * moe
+        return total + 2 * self.vocab_size * d + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: its ``experts_per_token`` routed
+        experts (all held) in place of the held ones."""
+        n_moe = self.n_layers - self.first_k_dense
+        return self.param_count() - n_moe * (
+            self.held - self.experts_per_token) * self._expert_params()
+
+
 _REGISTRY: dict[str, "ArchEntry"] = {}
+#: the port's own architectures (no counterpart in the reference's zoo)
+_PORT_REGISTRY: dict[str, "ArchEntry"] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,22 +257,26 @@ class ArchEntry:
     reduced: ModelConfig
 
 
-def register(full: ModelConfig, reduced: ModelConfig) -> ArchEntry:
+def register(full: ModelConfig, reduced: ModelConfig, *,
+             port: bool = False) -> ArchEntry:
+    """Register an architecture; ``port`` for one of the port's own."""
     entry = ArchEntry(full=full, reduced=reduced)
-    _REGISTRY[full.name] = entry
+    (_PORT_REGISTRY if port else _REGISTRY)[full.name] = entry
     return entry
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     _ensure_loaded()
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
-    e = _REGISTRY[name]
+    e = _REGISTRY.get(name) or _PORT_REGISTRY.get(name)
+    if e is None:
+        raise KeyError(f"unknown arch {name!r}; have "
+                       f"{sorted(_REGISTRY) + sorted(_PORT_REGISTRY)}")
     return e.reduced if reduced else e.full
 
 
 def list_archs() -> list[str]:
-    """The architectures :func:`get_config` serves: every registered one."""
+    """The reference zoo's architectures :func:`get_config` serves (the
+    port's own are left out: no reference compares them)."""
     _ensure_loaded()
     return sorted(_REGISTRY)
 
@@ -174,6 +291,7 @@ def _ensure_loaded():
     _LOADED = True
     # import every arch module for its register() side effect
     from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_lite,
         grok_1_314b,
         mamba2_130m,
         minitron_4b,

@@ -112,6 +112,24 @@ def fed_state_to_numpy(state: FedState) -> dict:
     return out
 
 
+def _shape_tree(tree):
+    if isinstance(tree, Mapping):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shape_tree(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def uniform(trees) -> bool:
+    """Whether a list of per-layer trees has one structure and one shape a
+    leaf, so that the reference's layout stacks it on a leading axis.  A
+    list whose layers differ (the ``mla_moe`` family's dense first layer
+    and MoE layers) is kept apart instead: a dict ``"0"``, ``"1"``, ... of
+    the layers, each in the layout of its own kind."""
+    first = _shape_tree(trees[0])
+    return all(_shape_tree(t) == first for t in trees[1:])
+
+
 def _init_fn(cfg):
     """The port's ``init_params`` of ``cfg``'s family."""
     from repro_torch.models import encdec, hybrid, ssm, transformer
@@ -147,6 +165,13 @@ def model_params_from_numpy(tree: Mapping, cfg, *, device="cuda") -> dict:
 
     def walk(path, src, ref, stacked):
         """``stacked``: (index, count) of each list above ``ref``."""
+        if isinstance(ref, list) and not uniform(ref):
+            if not isinstance(src, Mapping) or set(src) != {
+                    str(i) for i in range(len(ref))}:
+                raise ValueError(f"{path}: expected its {len(ref)} layers "
+                                 "apart, keyed 0, 1, ...")
+            return [walk(f"{path}/{i}", src[str(i)], r, stacked)
+                    for i, r in enumerate(ref)]
         if isinstance(ref, list):
             return [walk(path, src, r, stacked + ((i, len(ref)),))
                     for i, r in enumerate(ref)]
@@ -210,8 +235,9 @@ def model_params_to_numpy(params) -> dict:
     """The port's params of any zoo family (its module, or its params tree
     with per-layer lists) -> the reference's layout: a nested dict of
     float32 numpy arrays (bf16 upcast losslessly), every list of per-layer
-    trees stacked on a leading axis (a list of lists on two).  The inverse
-    of :func:`model_params_from_numpy`."""
+    trees stacked on a leading axis (a list of lists on two), or kept
+    apart where its layers differ (:func:`uniform`).  The inverse of
+    :func:`model_params_from_numpy`."""
     if isinstance(params, torch.nn.Module):
         params = _module_tree(params)
 
@@ -224,7 +250,10 @@ def model_params_to_numpy(params) -> dict:
         if isinstance(tree, Mapping):
             return {k: walk(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return stack([walk(t) for t in tree])
+            parts = [walk(t) for t in tree]
+            if not uniform(parts):
+                return {str(i): part for i, part in enumerate(parts)}
+            return stack(parts)
         return _numpy32(tree)
 
     return walk(params)

@@ -10,14 +10,17 @@
 // when causal, rows and columns both from 0, any Lq and Lk; a row with no
 // visible key has zero gradient.
 //
-// Layout: q, o, dO and dQ are contiguous (B, Lq, H, D) bfloat16; k, v, dK
-// and dV (B, Lk, KV, D); D is a template parameter (64, 80, 96 or 128).
+// Layout: q and dQ are contiguous (B, Lq, H, D) bfloat16, o and dO
+// (B, Lq, H, DV); k and dK (B, Lk, KV, D), v and dV (B, Lk, KV, DV); D and
+// DV are template parameters: D = DV at 64, 80, 96 or 128, and (D 192, DV
+// 128), multi-head latent attention's query/key and value heads.
 // lse (the forward's row logsumexp of the scaled scores, natural log, +inf
 // past Lq and for a row with no visible key) and Delta are fp32 (B, H,
 // lq_pad), lq_pad = ceil(Lq / 128) * 128.
 //
-// Bound on an H100 SXM: 10 D flops per visible (query, key) pair and head
-// (the five products Q K^T, dO V^T, P^T dO, dS^T Q, dS K) against 989
+// Bound on an H100 SXM: 2 (3 D + 2 DV) flops per visible (query, key) pair
+// and head (the five products Q K^T, dO V^T, P^T dO, dS^T Q, dS K: 10 D at
+// D = DV) against 989
 // TFLOP/s bf16 on the tensor cores; the bytes of q, k, v, o, dO and the
 // three gradients against 3.35 TB/s bound it only at short lengths.
 //
@@ -50,6 +53,10 @@
 //      return dQ is summed in a fixed order (the gradients are
 //      deterministic) and every product has the shape the forward already
 //      uses.
+//   At (192, 128) dkdv walks q tiles of 32 rows (S^T and dP^T by m64n32k16,
+//   dK += dS^T Q by m64n192k16), so that dK (96 floats a thread), dV (64),
+//   S^T, dP^T and their fragments fit 255 registers; dq keeps its tiles
+//   and runs dQ += dS K by m64n192k16.
 // Both main kernels are 256 threads with no producer warpgroup: thread 0
 // issues the TMA loads, refilling a stage once every thread has arrived on
 // its "empty" mbarrier, so each thread may hold up to 255 registers.  Only
@@ -76,36 +83,42 @@ constexpr int kThreads = 256;  // two consumer warpgroups
 constexpr int kStages = 2;     // ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-// dkdv: 128 keys a CTA, 64 query rows a step
-template <int D>
+// dkdv: 128 keys a CTA, 64 query rows a step (32 at D 192)
+template <int D, int DV>
 struct DkdvTile {
   static constexpr int KN = 128;
-  static constexpr int QM = 64;
+  static constexpr int QM = D <= 128 ? 64 : 32;
   static constexpr int kBoxes = (D + 63) / 64;
-  static constexpr uint32_t kKBytes = KN * kBoxes * 128;  // the K or V tile
-  static constexpr uint32_t kQBytes = QM * kBoxes * 128;  // a Q or dO stage
-  static constexpr uint32_t kRowBytes = QM * 4;           // lse or Delta rows
+  static constexpr int kBoxesV = (DV + 63) / 64;
+  static constexpr uint32_t kKBytes = KN * kBoxes * 128;    // the K tile
+  static constexpr uint32_t kVBytes = KN * kBoxesV * 128;   // the V tile
+  static constexpr uint32_t kQBytes = QM * kBoxes * 128;    // a Q stage
+  static constexpr uint32_t kDOBytes = QM * kBoxesV * 128;  // a dO stage
+  static constexpr uint32_t kRowBytes = QM * 4;             // lse or Delta rows
   static constexpr uint32_t kOffV = kKBytes;
-  static constexpr uint32_t kOffQ = 2 * kKBytes;
+  static constexpr uint32_t kOffQ = kOffV + kVBytes;
   static constexpr uint32_t kOffDO = kOffQ + kStages * kQBytes;
-  static constexpr uint32_t kOffRows = kOffDO + kStages * kQBytes;  // lse, Delta a stage
+  static constexpr uint32_t kOffRows = kOffDO + kStages * kDOBytes;  // lse, Delta a stage
   static constexpr uint32_t kOffBar = kOffRows + kStages * 2 * kRowBytes;
   // full_kv, full[kStages], empty[kStages]
   static constexpr uint32_t kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
 // dq: 128 query rows a CTA, 64 keys a step
-template <int D>
+template <int D, int DV>
 struct DqTile {
   static constexpr int QM = 128;
   static constexpr int KN = 64;
   static constexpr int kBoxes = (D + 63) / 64;
-  static constexpr uint32_t kQBytes = QM * kBoxes * 128;  // Q or dO
-  static constexpr uint32_t kKBytes = KN * kBoxes * 128;  // a K or V stage
+  static constexpr int kBoxesV = (DV + 63) / 64;
+  static constexpr uint32_t kQBytes = QM * kBoxes * 128;    // Q
+  static constexpr uint32_t kDOBytes = QM * kBoxesV * 128;  // dO
+  static constexpr uint32_t kKBytes = KN * kBoxes * 128;    // a K stage
+  static constexpr uint32_t kVBytes = KN * kBoxesV * 128;   // a V stage
   static constexpr uint32_t kOffDO = kQBytes;
-  static constexpr uint32_t kOffK = 2 * kQBytes;
+  static constexpr uint32_t kOffK = kOffDO + kDOBytes;
   static constexpr uint32_t kOffV = kOffK + kStages * kKBytes;
-  static constexpr uint32_t kOffBar = kOffV + kStages * kKBytes;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kVBytes;
   // full_q, full[kStages], empty[kStages]
   static constexpr uint32_t kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;
 };
@@ -140,7 +153,7 @@ flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
   if (lane == 0) delta[r] = acc;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -150,14 +163,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                       int Lq, int Lk, int H, int KV, int B, int lq_pad, float scale,
                       float scale_log2, int causal, int window) {
-  using T = DkdvTile<D>;
+  using T = DkdvTile<D, DV>;
   constexpr int KN = T::KN, QM = T::QM;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sK = base, sV = base + T::kOffV;
   auto sQ = [&](int s) { return base + T::kOffQ + s * T::kQBytes; };
-  auto sDO = [&](int s) { return base + T::kOffDO + s * T::kQBytes; };
+  auto sDO = [&](int s) { return base + T::kOffDO + s * T::kDOBytes; };
   auto sRows = [&](int s) { return base + T::kOffRows + s * 2 * T::kRowBytes; };
   const uint32_t bar_kv = base + T::kOffBar;
   auto bar_f = [&](int s) { return bar_kv + 8u * (1 + s); };
@@ -203,30 +216,33 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int s = it % kStages;
     const int h = kvh * G + it / nq;
     const int q0 = (qt_begin + it % nq) * QM;
-    mbar_expect_tx(bar_f(s), 2 * T::kQBytes + 2 * T::kRowBytes);
-    for (int x = 0; x < T::kBoxes; ++x) {
+    mbar_expect_tx(bar_f(s), T::kQBytes + T::kDOBytes + 2 * T::kRowBytes);
+    for (int x = 0; x < T::kBoxes; ++x)
       tma_load_4d(sQ(s) + x * QM * 128, map_q, bar_f(s), 64 * x, h, q0, b);
+    for (int x = 0; x < T::kBoxesV; ++x)
       tma_load_4d(sDO(s) + x * QM * 128, map_do, bar_f(s), 64 * x, h, q0, b);
-    }
     const long long row = (static_cast<long long>(b) * H + h) * lq_pad + q0;
     bulk_load(sRows(s), lse + row, T::kRowBytes, bar_f(s));
     bulk_load(sRows(s) + T::kRowBytes, delta + row, T::kRowBytes, bar_f(s));
   };
   if (threadIdx.x == 0 && n_it > 0) {
-    mbar_expect_tx(bar_kv, 2 * T::kKBytes);
-    for (int x = 0; x < T::kBoxes; ++x) {
+    mbar_expect_tx(bar_kv, T::kKBytes + T::kVBytes);
+    for (int x = 0; x < T::kBoxes; ++x)
       tma_load_4d(sK + x * KN * 128, &tm_k, bar_kv, 64 * x, kvh, k0, b);
+    for (int x = 0; x < T::kBoxesV; ++x)
       tma_load_4d(sV + x * KN * 128, &tm_v, bar_kv, 64 * x, kvh, k0, b);
-    }
     for (int it = 0; it < min(kStages, n_it); ++it) issue(it);
   }
   __syncwarp();
 
-  constexpr int kA = D / 2;   // dK or dV accumulator floats per thread
-  constexpr int kS = QM / 2;  // S^T or dP^T accumulator floats per thread
-  float dk_acc[kA], dv_acc[kA];
+  constexpr int kA = D / 2;    // dK accumulator floats per thread
+  constexpr int kAV = DV / 2;  // dV accumulator floats per thread
+  constexpr int kS = QM / 2;   // S^T or dP^T accumulator floats per thread
+  float dk_acc[kA], dv_acc[kAV];
 #pragma unroll
-  for (int i = 0; i < kA; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kA; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kAV; ++i) dv_acc[i] = 0.f;
   const int key_wg = k0 + 64 * wg;                  // first key of the warpgroup
   const int key0 = key_wg + 16 * warp + lane / 4;   // this thread's keys: key0, key0 + 8
   const int col0 = 2 * (lane % 4);                  // its first q row of each 8
@@ -252,7 +268,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                  sw128_desc(sQ(s) + (kk / 4) * QM * 128 + col, 16), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;
       mma_ss<QM>(dpt, sw128_desc(sVw + (kk / 4) * KN * 128 + col, 16),
                  sw128_desc(sDO(s) + (kk / 4) * QM * 128 + col, 16), kk > 0);
@@ -302,13 +318,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QM / 16; ++kk)
-      mma_rs<D>(dv_acc, pa[kk], sw128_desc(sDO(s) + kk * 16 * 128, QM * 128));
+      mma_rs<DV>(dv_acc, pa[kk], sw128_desc(sDO(s) + kk * 16 * 128, QM * 128));
 #pragma unroll
     for (int kk = 0; kk < QM / 16; ++kk)
       mma_rs<D>(dk_acc, da[kk], sw128_desc(sQ(s) + kk * 16 * 128, QM * 128));
     wgmma_commit();
     wgmma_wait_all();
-    reg_fence<kA>(dv_acc);
+    reg_fence<kAV>(dv_acc);
     reg_fence<kA>(dk_acc);
 
     mbar_arrive(bar_e(s));  // this stage is free once every thread is here
@@ -324,18 +340,19 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int j = key0 + 8 * r;
     if (j >= Lk) continue;
-    const long long off = ((static_cast<long long>(b) * Lk + j) * KV + kvh) * D + col0;
+    const long long row = (static_cast<long long>(b) * Lk + j) * KV + kvh;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dk + row * D + col0 + 8 * i) =
           pack_bf16(dk_acc[4 * i + 2 * r] * scale, dk_acc[4 * i + 2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dv + row * DV + col0 + 8 * i) =
           pack_bf16(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
-    }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -345,13 +362,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int H, int KV,
                     int B, int n_qt, float scale, float scale_log2, int causal,
                     int window) {
-  using T = DqTile<D>;
+  using T = DqTile<D, DV>;
   constexpr int QM = T::QM, KN = T::KN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sDO = base + T::kOffDO;
   auto sK = [&](int s) { return base + T::kOffK + s * T::kKBytes; };
-  auto sV = [&](int s) { return base + T::kOffV + s * T::kKBytes; };
+  auto sV = [&](int s) { return base + T::kOffV + s * T::kVBytes; };
   const uint32_t bar_q = base + T::kOffBar;
   auto bar_f = [&](int s) { return bar_q + 8u * (1 + s); };
   auto bar_e = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
@@ -393,18 +410,18 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto issue = [&](int it) {
     const int s = it % kStages;
     const int k0 = (kt_begin + it) * KN;
-    mbar_expect_tx(bar_f(s), 2 * T::kKBytes);
-    for (int x = 0; x < T::kBoxes; ++x) {
+    mbar_expect_tx(bar_f(s), T::kKBytes + T::kVBytes);
+    for (int x = 0; x < T::kBoxes; ++x)
       tma_load_4d(sK(s) + x * KN * 128, map_k, bar_f(s), 64 * x, kvh, k0, b);
+    for (int x = 0; x < T::kBoxesV; ++x)
       tma_load_4d(sV(s) + x * KN * 128, map_v, bar_f(s), 64 * x, kvh, k0, b);
-    }
   };
   if (threadIdx.x == 0 && n_tiles > 0) {
-    mbar_expect_tx(bar_q, 2 * T::kQBytes);
-    for (int x = 0; x < T::kBoxes; ++x) {
+    mbar_expect_tx(bar_q, T::kQBytes + T::kDOBytes);
+    for (int x = 0; x < T::kBoxes; ++x)
       tma_load_4d(sQ + x * QM * 128, &tm_q, bar_q, 64 * x, h, q0, b);
+    for (int x = 0; x < T::kBoxesV; ++x)
       tma_load_4d(sDO + x * QM * 128, &tm_do, bar_q, 64 * x, h, q0, b);
-    }
     for (int it = 0; it < min(kStages, n_tiles); ++it) issue(it);
   }
   __syncwarp();
@@ -443,7 +460,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                  sw128_desc(sK(s) + (kk / 4) * KN * 128 + col, 16), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DV / 16; ++kk) {
       const uint32_t col = (kk % 4) * 32;
       mma_ss<KN>(dp, sw128_desc(sDOw + (kk / 4) * QM * 128 + col, 16),
                  sw128_desc(sV(s) + (kk / 4) * KN * 128 + col, 16), kk > 0);
@@ -514,13 +531,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* delta, void* dq, void* dk,
-           void* dv, int B, int Lq, int Lk, int H, int KV, float scale, int causal,
-           int window, cudaStream_t stream) {
-  using A = DkdvTile<D>;
-  using Q = DqTile<D>;
+template <int D, int DV>
+int launch_dv(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* delta, void* dq, void* dk,
+              void* dv, int B, int Lq, int Lk, int H, int KV, float scale, int causal,
+              int window, cudaStream_t stream) {
+  using A = DkdvTile<D, DV>;
+  using Q = DqTile<D, DV>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const long long n_qt = (Lq + Q::QM - 1) / Q::QM;
@@ -537,21 +554,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
   flash_bwd_delta_kernel<<<static_cast<unsigned>(delta_blocks), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-      delta, Lq, H, D, static_cast<int>(lq_pad), rows);
+      delta, Lq, H, DV, static_cast<int>(lq_pad), rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
   CUtensorMap tq, tk, tv, tdo;
   int err = make_map(encode, &tq, q, D, H, Lq, B, A::QM);
-  if (!err) err = make_map(encode, &tdo, dout, D, H, Lq, B, A::QM);
+  if (!err) err = make_map(encode, &tdo, dout, DV, H, Lq, B, A::QM);
   if (!err) err = make_map(encode, &tk, k, D, KV, Lk, B, A::KN);
-  if (!err) err = make_map(encode, &tv, v, D, KV, Lk, B, A::KN);
+  if (!err) err = make_map(encode, &tv, v, DV, KV, Lk, B, A::KN);
   if (err) return err;
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(A::kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_kernel<D><<<static_cast<unsigned>(dkdv_blocks), kThreads, A::kSmem, stream>>>(
+  flash_bwd_dkdv_kernel<D, DV><<<static_cast<unsigned>(dkdv_blocks), kThreads, A::kSmem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Lq, Lk, H, KV, B, static_cast<int>(lq_pad), scale,
       scale_log2, causal, window);
@@ -559,18 +576,28 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
 
   err = make_map(encode, &tq, q, D, H, Lq, B, Q::QM);
-  if (!err) err = make_map(encode, &tdo, dout, D, H, Lq, B, Q::QM);
+  if (!err) err = make_map(encode, &tdo, dout, DV, H, Lq, B, Q::QM);
   if (!err) err = make_map(encode, &tk, k, D, KV, Lk, B, Q::KN);
-  if (!err) err = make_map(encode, &tv, v, D, KV, Lk, B, Q::KN);
+  if (!err) err = make_map(encode, &tv, v, DV, KV, Lk, B, Q::KN);
   if (err) return err;
-  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(Q::kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<D><<<static_cast<unsigned>(dq_blocks), kThreads, Q::kSmem, stream>>>(
+  flash_bwd_dq_kernel<D, DV><<<static_cast<unsigned>(dq_blocks), kThreads, Q::kSmem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), Lq, Lk, H, KV, B,
       static_cast<int>(n_qt), scale, scale_log2, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D = DV, the switch's instantiations
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq, void* dk,
+           void* dv, int B, int Lq, int Lk, int H, int KV, float scale, int causal,
+           int window, cudaStream_t stream) {
+  return launch_dv<D, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, KV,
+                         scale, causal, window, stream);
 }
 
 }  // namespace
@@ -580,12 +607,19 @@ extern "C" {
 // bf16 only.  The wrapper checks shapes, H % KV == 0, contiguity and
 // 16-byte alignment of q, k, v, dout, lse and delta (TMA's rule), passes B,
 // Lq, Lk, H >= 1 (a tensor map has no empty dimension), and allocates dq,
-// dk, dv and the Delta scratch (B, H, lq_pad).
+// dk, dv and the Delta scratch (B, H, lq_pad).  DV is v's, o's and dO's
+// head dim: D, or 128 at D 192.
 int flash_bwd_sm90(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq,
                    void* dk, void* dv, int B, int Lq, int Lk, int H, int KV, int D,
-                   float scale, int causal, int window, void* stream) {
+                   int DV, float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (DV != D) {
+    if (D == 192 && DV == 128)
+      return launch_dv<192, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H,
+                                 KV, scale, causal, window, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (D) {
     case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, KV, scale, causal, window, st);
     case 80: return launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Lq, Lk, H, KV, scale, causal, window, st);

@@ -8,13 +8,15 @@
 // inputs go to flash_fwd.cu beside this file.  On request it also writes
 // each row's logsumexp, which its backward (flash_bwd_sm90.cu) reads.
 //
-// Layout: q and o are contiguous (B, Lq, H, D) bfloat16, k and v
-// (B, Lk, KV, D); D is a template parameter (64, 80, 96, 128 or 256).  Rows
-// and columns both index from 0, as in the reference.  Lq and Lk are
-// arbitrary: no divisibility rule.
+// Layout: q is contiguous (B, Lq, H, D) bfloat16, k (B, Lk, KV, D), v
+// (B, Lk, KV, DV) and o (B, Lq, H, DV); D and DV are template parameters:
+// D = DV at 64, 80, 96, 128 or 256, and (D 192, DV 128), the query/key and
+// value heads of multi-head latent attention (128 + 64 RoPE columns against
+// 128).  Rows and columns both index from 0, as in the reference.  Lq and Lk
+// are arbitrary: no divisibility rule.
 //
-// Bound on an H100 SXM: 4 D flops per visible (query, key) pair and head
-// (Q K^T and P V) against 989 TFLOP/s bf16 on the tensor cores; the bytes
+// Bound on an H100 SXM: 2 (D + DV) flops per visible (query, key) pair and
+// head (Q K^T and P V) against 989 TFLOP/s bf16 on the tensor cores; the bytes
 // of q, k, v and o against 3.35 TB/s bound it only at short lengths.
 //
 // Design.  One CTA per (q tile of 128 rows, head, batch), three
@@ -55,8 +57,10 @@
 //         of the canonical MN-major 128-byte-swizzled layout gives its
 //         first 16 or 32 columns.  Q K^T runs D / 16 k-steps, so neither
 //         product reads the zero-filled columns.
-//     BN = 128 keys a tile for D <= 128 and 64 for D = 256, so S, O and P
-//     fit the 232 registers.
+//     BN = 128 keys a tile for DV <= 128 and 64 for DV = 256, so S, O and
+//     P fit the 232 registers.  At (192, 128) a Q or K tile is three boxes
+//     and a V tile two; Q K^T runs 12 k-steps over the three, and the
+//     registers are D 128's (O is DV wide).
 // Only K tiles that meet the causal / window band are loaded, and only the
 // tiles a band edge (or the ragged end of Lk) crosses are masked.  The grid
 // is one dimension with the q tile slowest and reversed, so the CTAs with
@@ -90,17 +94,19 @@ constexpr int kStages = 2;                        // K/V ring depth
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-template <int D>
+template <int D, int DV>
 struct Tile {
-  static constexpr int BN = D <= 128 ? 128 : 64;  // keys per K/V tile
-  static constexpr int kBoxes = (D + 63) / 64;    // 64-column swizzle boxes
+  static constexpr int BN = DV <= 128 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kBoxes = (D + 63) / 64;     // 64-column swizzle boxes
+  static constexpr int kBoxesV = (DV + 63) / 64;   // of a V tile
   // bytes of a tile as TMA writes it: whole boxes, the zero fill past D
   // included (also the transaction count of its loads)
   static constexpr uint32_t kQBytes = kBM * kBoxes * 128;
-  static constexpr uint32_t kKVBytes = BN * kBoxes * 128;  // one K or V tile
+  static constexpr uint32_t kKBytes = BN * kBoxes * 128;   // one K tile
+  static constexpr uint32_t kVBytes = BN * kBoxesV * 128;  // one V tile
   static constexpr uint32_t kOffK = kQBytes;
-  static constexpr uint32_t kOffV = kOffK + kStages * kKVBytes;
-  static constexpr uint32_t kOffBar = kOffV + kStages * kKVBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kKBytes;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kVBytes;
   // full_q, full_k[kStages], full_v[kStages], empty[kStages]
   static constexpr uint32_t kBars = 1 + 3 * kStages;
   // + slack to align the base to the 1024 bytes of a swizzle atom; and at
@@ -110,7 +116,7 @@ struct Tile {
   static constexpr uint32_t kSmem = kNeed > 116 * 1024 ? kNeed : 116 * 1024;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -118,7 +124,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                       int Lq, int Lk, int H, int KV, int B, int n_qt,
                       float scale_log2, int causal, int window) {
-  using T = Tile<D>;
+  using T = Tile<D, DV>;
   constexpr int BN = T::BN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -172,12 +178,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t ph = (it / kStages) & 1;
         const int k0 = (kt_begin + it) * BN;
         mbar_wait(bar_e(s), ph ^ 1);  // the stage's last readers are done
-        const uint32_t dk = sK + s * T::kKVBytes, dv = sV + s * T::kKVBytes;
-        mbar_expect_tx(bar_k(s), T::kKVBytes);
+        const uint32_t dk = sK + s * T::kKBytes, dv = sV + s * T::kVBytes;
+        mbar_expect_tx(bar_k(s), T::kKBytes);
         for (int x = 0; x < T::kBoxes; ++x)
           tma_load_4d(dk + x * BN * 128, &tm_k, bar_k(s), 64 * x, kvh, k0, b);
-        mbar_expect_tx(bar_v(s), T::kKVBytes);
-        for (int x = 0; x < T::kBoxes; ++x)
+        mbar_expect_tx(bar_v(s), T::kVBytes);
+        for (int x = 0; x < T::kBoxesV; ++x)
           tma_load_4d(dv + x * BN * 128, &tm_v, bar_v(s), 64 * x, kvh, k0, b);
       }
     }
@@ -185,7 +191,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- consumers: 64 query rows per warpgroup ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     constexpr int kS = BN / 2;  // S accumulator floats per thread
-    constexpr int kO = D / 2;   // O accumulator floats per thread
+    constexpr int kO = DV / 2;  // O accumulator floats per thread
     const int cw = wg - 1;
     const int warp = tid / 32, lane = tid % 32;
     const int row_wg = q0 + 64 * cw;                  // first row of the warpgroup
@@ -207,7 +213,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // S = Q K^T
       float sc[kS];
-      const uint32_t sKs = sK + s * T::kKVBytes;
+      const uint32_t sKs = sK + s * T::kKBytes;
       mbar_wait(bar_k(s), ph);
       wgmma_fence();
 #pragma unroll
@@ -278,7 +284,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         acc[4 * i] *= alpha[0];
         acc[4 * i + 1] *= alpha[0];
         acc[4 * i + 2] *= alpha[1];
@@ -286,12 +292,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // O += P V
-      const uint32_t sVs = sV + s * T::kKVBytes;
+      const uint32_t sVs = sV + s * T::kVBytes;
       mbar_wait(bar_v(s), ph);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        mma_rs<D>(acc, pa[kk], sw128_desc(sVs + kk * 16 * 128, BN * 128));
+        mma_rs<DV>(acc, pa[kk], sw128_desc(sVs + kk * 16 * 128, BN * 128));
       wgmma_commit();
       wgmma_wait_all();
       reg_fence<kO>(acc);
@@ -314,9 +320,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (row >= Lq) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       __nv_bfloat16* orow =
-          o + ((static_cast<long long>(b) * Lq + row) * H + h) * D + col0;
+          o + ((static_cast<long long>(b) * Lq + row) * H + h) * DV + col0;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
         *reinterpret_cast<uint32_t*>(orow + 8 * i) =
             pack_bf16(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
     }
@@ -324,29 +330,37 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-           int Lq, int Lk, int H, int KV, float scale, int causal, int window,
-           cudaStream_t stream) {
-  using T = Tile<D>;
+template <int D, int DV>
+int launch_dv(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+              int Lq, int Lk, int H, int KV, float scale, int causal, int window,
+              cudaStream_t stream) {
+  using T = Tile<D, DV>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tq, tk, tv;
   int err = make_map(encode, &tq, q, D, H, Lq, B, kBM);
   if (!err) err = make_map(encode, &tk, k, D, KV, Lk, B, T::BN);
-  if (!err) err = make_map(encode, &tv, v, D, KV, Lk, B, T::BN);
+  if (!err) err = make_map(encode, &tv, v, DV, KV, Lk, B, T::BN);
   if (err) return err;
   const long long n_qt = (Lq + kBM - 1) / kBM;
   const long long blocks = n_qt * B * H;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(T::kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_sm90_kernel<D><<<static_cast<unsigned>(blocks), kThreads, T::kSmem, stream>>>(
+  flash_fwd_sm90_kernel<D, DV><<<static_cast<unsigned>(blocks), kThreads, T::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Lq, Lk, H, KV, B,
       static_cast<int>(n_qt), scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D = DV, the switch's instantiations
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Lq, int Lk, int H, int KV, float scale, int causal, int window,
+           cudaStream_t stream) {
+  return launch_dv<D, D>(q, k, v, o, lse, B, Lq, Lk, H, KV, scale, causal, window, stream);
 }
 
 }  // namespace
@@ -356,11 +370,17 @@ extern "C" {
 // bf16 only.  The wrapper checks shapes, H % KV == 0, contiguity and
 // 16-byte alignment of q, k, v (TMA's rule), and passes B, Lq, Lk, H >= 1
 // (a tensor map has no empty dimension).  lse is null (no logsumexp) or
-// fp32 (B, H, ceil(Lq / 128) * 128), the rows padded to whole q tiles.
+// fp32 (B, H, ceil(Lq / 128) * 128), the rows padded to whole q tiles.  DV
+// is v's and o's head dim: D, or 128 at D 192.
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int B, int Lq, int Lk, int H, int KV, int D, float scale,
+                   int B, int Lq, int Lk, int H, int KV, int D, int DV, float scale,
                    int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (DV != D) {
+    if (D == 192 && DV == 128)
+      return launch_dv<192, 128>(q, k, v, o, lse, B, Lq, Lk, H, KV, scale, causal, window, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (D) {
     case 64: return launch<64>(q, k, v, o, lse, B, Lq, Lk, H, KV, scale, causal, window, st);
     case 80: return launch<80>(q, k, v, o, lse, B, Lq, Lk, H, KV, scale, causal, window, st);

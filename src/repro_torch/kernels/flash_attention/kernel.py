@@ -34,7 +34,11 @@ from one route to another:
 Training attends through :func:`flash_attention_train`, an
 ``autograd.Function`` of two hand-written kernels: the bf16 forward
 writing each row's logsumexp (``lse``), and ``csrc/flash_bwd_sm90.cu``,
-the bf16 backward, at the head dims of ``TRAIN_HEAD_DIMS``.  On the CPU
+the bf16 backward, at the head dims of ``TRAIN_HEAD_DIMS`` and at the
+(query/key, value) head dims of ``TRAIN_DV_PAIRS``: v's head dim may
+differ from q's and k's (multi-head latent attention's 192 against 128),
+and the output then has v's.  It takes a softmax ``scale`` (default
+``1 / sqrt(D)`` of q's D).  On the CPU
 it runs :func:`flash_attention_plain` (with ``return_lse``) and
 :func:`flash_attention_bwd_plain`; a CUDA tensor launches the kernels or
 raises.  :func:`trains_on_kernel` says which calls the kernels take.
@@ -69,6 +73,9 @@ HEAD_DIMS = {torch.bfloat16: (64, 80, 96, 128, 256),
 #: the head dims the bf16 backward is instantiated for: training on CUDA
 #: attends through the kernels at these (D 256 trains through ``_sdpa``)
 TRAIN_HEAD_DIMS = (64, 80, 96, 128)
+#: the (q / k, v) head dims that differ and that the bf16 forward and
+#: backward are instantiated for: multi-head latent attention's
+TRAIN_DV_PAIRS = ((192, 128),)
 _DTYPES = (torch.float32, torch.bfloat16)
 _GRID_LIMIT = 65535  # gridDim.y (heads) and gridDim.z (batch)
 
@@ -103,13 +110,13 @@ def build_library(name: str) -> Path:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: each C function's arguments: pointers, then B, Lq, Lk, H, KV, D, then
-#: scale, causal, window and the stream
+#: each C function's arguments: pointers, then B, Lq, Lk, H, KV, D (and
+#: v's DV for the bf16 kernels), then scale, causal, window and the stream
 _ARGTYPES = {"flash_fwd": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
              # q, k, v, o, lse
-             "flash_fwd_sm90": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+             "flash_fwd_sm90": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
              # q, k, v, o, dout, lse, delta, dq, dk, dv
-             "flash_bwd_sm90": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]}
+             "flash_bwd_sm90": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,10 +132,10 @@ def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k, v must be (B, L, heads, D)")
     B, Lq, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be (B, Lk, KV, D) with q's "
-                         f"B = {B} and D = {D}")
+                         f"{tuple(v.shape)} must be (B, Lk, KV, D) and "
+                         f"(B, Lk, KV, DV) with q's B = {B} and D = {D}")
     KV = k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention: {H} query heads do not group "
@@ -182,7 +189,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: float | None = None,
                           return_lse: bool = False):
     """Plain PyTorch version of :func:`flash_attention_cuda`; ``scale``
-    defaults to ``1 / sqrt(D)``.  With ``return_lse`` it returns ``(out,
+    defaults to ``1 / sqrt(D)``.  v's head dim may differ from q's and k's
+    D: the output has v's.  With ``return_lse`` it returns ``(out,
     lse)``: ``lse`` (B, H, Lq) fp32, each row's logsumexp of its scaled
     visible scores, ``+inf`` for a row with no visible key (so that
     ``exp(s - lse)`` is 0 there), as the bf16 kernel writes it.
@@ -210,7 +218,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     seen = mask.any(dim=-1, keepdim=True)
     probs = torch.where(seen, probs, 0.0)
     out = torch.einsum("bkgij,bjkd->bikgd", probs, v.to(torch.float32))
-    out = out.reshape(B, Lq, H, D).to(q.dtype)
+    out = out.reshape(B, Lq, H, v.shape[3]).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.where(seen[..., 0], torch.logsumexp(scores, dim=-1),
@@ -219,7 +227,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: int = 0):
+                              window: int = 0, scale: float | None = None):
     """Plain PyTorch version of the backward (:func:`flash_attention_bwd_cuda`),
     in fp32 whatever the storage type: ``(dq, dk, dv)`` in q's dtype.
 
@@ -230,22 +238,24 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     visible pairs (0 elsewhere, and on a row whose ``lse`` is ``+inf``),
     ``Delta = rowsum(dO o)``, ``dS = P (dO V^T - Delta)``; ``dV = P^T
     dO``, ``dK = scale dS^T Q`` (both summed over the query heads of a kv
-    head's group), ``dQ = scale dS K``; ``scale = 1 / sqrt(D)``.
+    head's group), ``dQ = scale dS K``; ``scale`` defaults to ``1 /
+    sqrt(D)``.  o and do have v's head dim DV, which may differ from q's.
     """
     _check(q, k, v)
     B, Lq, H, D = q.shape
-    Lk, KV = k.shape[1], k.shape[2]
+    Lk, KV, DV = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     f32 = lambda t: t.to(torch.float32)
     qg = f32(q).reshape(B, Lq, KV, G, D)
-    dog = f32(do).reshape(B, Lq, KV, G, D)
+    dog = f32(do).reshape(B, Lq, KV, G, DV)
     kf, vf = f32(k), f32(v)
     s = torch.einsum("bikgd,bjkd->bkgij", qg, kf) * scale
     mask = _visible(Lq, Lk, causal, window, q.device)
     rows = f32(lse)[..., :Lq].reshape(B, KV, G, Lq, 1)
     p = torch.where(mask, torch.exp(s - rows), 0.0)
-    delta = torch.sum(dog * f32(o).reshape(B, Lq, KV, G, D), dim=-1)
+    delta = torch.sum(dog * f32(o).reshape(B, Lq, KV, G, DV), dim=-1)
     dp = torch.einsum("bikgd,bjkd->bkgij", dog, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     dv = torch.einsum("bkgij,bikgd->bjkd", p, dog)
@@ -259,7 +269,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     """The CUDA kernel of q's dtype on contiguous CUDA tensors: bf16 runs
     ``flash_fwd_sm90.cu`` (tensor cores), fp32 ``flash_fwd.cu``.  A head
     dim not in ``HEAD_DIMS`` of the dtype (up to 256) takes the head-dim
-    route."""
+    route.  v's head dim is q's (it differs only in training)."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: tensors on {q.device}, "
@@ -269,6 +279,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             raise ValueError(f"flash_attention_cuda: {name} must be "
                              "contiguous")
     D = q.shape[3]
+    if v.shape[3] != D:
+        raise ValueError(f"flash_attention_cuda: v's head dim {v.shape[3]} "
+                         f"differs from q's {D}: only the training kernels "
+                         f"take that ({TRAIN_DV_PAIRS})")
     if D in HEAD_DIMS[q.dtype]:
         return _launch(q, k, v, causal=causal, window=window,
                        scale=1.0 / math.sqrt(D))
@@ -283,7 +297,7 @@ def _launch(q, k, v, *, causal: bool, window: int, scale: float,
     each row's logsumexp, and the launch counts as the training
     forward's."""
     B, Lq, H, D = q.shape
-    Lk, KV = k.shape[1], k.shape[2]
+    Lk, KV, DV = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype == torch.bfloat16:
         # TMA reads from 16-byte aligned addresses only
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -296,18 +310,20 @@ def _launch(q, k, v, *, causal: bool, window: int, scale: float,
             raise ValueError(f"flash_attention_cuda: B = {B} or H = {H} "
                              f"exceeds the grid limit {_GRID_LIMIT}")
         fn_name, route = "flash_fwd", "flash_fwd_fp32"
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Lq, H, DV))
     if out.numel() == 0 or Lk == 0:
         # nothing to launch: no row, or no key (every row 0, lse +inf)
         if lse is not None:
             lse.fill_(math.inf)
         return out.zero_()
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    dims = [B, Lq, Lk, H, KV, D]
     if fn_name == "flash_fwd_sm90":
         ptrs.append(None if lse is None else lse.data_ptr())
+        dims.append(DV)
     fn = _kernel(fn_name)
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, B, Lq, Lk, H, KV, D, scale, int(causal), int(window),
+        err = fn(*ptrs, *dims, scale, int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: error {err} (a CUDA "
@@ -350,19 +366,25 @@ def lse_rows(Lq: int) -> int:
     return -(-Lq // _LSE_TILE) * _LSE_TILE
 
 
-def trains_on_kernel(q) -> bool:
-    """Whether :func:`flash_attention_train` of this ``q`` launches the
-    kernels: a CUDA tensor in bf16 at a head dim of ``TRAIN_HEAD_DIMS``."""
-    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
-            and q.shape[-1] in TRAIN_HEAD_DIMS)
+def trains_on_kernel(q, v=None) -> bool:
+    """Whether :func:`flash_attention_train` of this ``q`` (and ``v``,
+    where its head dim differs) launches the kernels: a CUDA tensor in bf16
+    at a head dim of ``TRAIN_HEAD_DIMS``, or at a (q, v) pair of
+    ``TRAIN_DV_PAIRS``."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        return False
+    if v is not None and v.shape[-1] != q.shape[-1]:
+        return (q.shape[-1], v.shape[-1]) in TRAIN_DV_PAIRS
+    return q.shape[-1] in TRAIN_HEAD_DIMS
 
 
 def _check_train_cuda(fn: str, q, k, v, *more):
     _check(q, k, v)
-    if not trains_on_kernel(q):
+    if not trains_on_kernel(q, v):
         raise ValueError(f"{fn}: the training kernels take CUDA bf16 at D "
-                         f"in {TRAIN_HEAD_DIMS}, not {q.dtype} at D = "
-                         f"{q.shape[-1]} on {q.device}")
+                         f"in {TRAIN_HEAD_DIMS} or (D, DV) in "
+                         f"{TRAIN_DV_PAIRS}, not {q.dtype} at D = "
+                         f"{q.shape[-1]}, DV = {v.shape[-1]} on {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v), *more):
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
@@ -374,35 +396,38 @@ def _check_train_cuda(fn: str, q, k, v, *more):
 
 
 def flash_attention_fwd_train_cuda(q, k, v, *, causal: bool = True,
-                                   window: int = 0):
+                                   window: int = 0,
+                                   scale: float | None = None):
     """The bf16 forward kernel with its row logsumexp: ``(out, lse)``,
     ``lse`` the kernel's fp32 (B, H, :func:`lse_rows` (Lq)) buffer, whose
-    rows past Lq hold ``+inf``; the backward kernel takes it as it is."""
+    rows past Lq hold ``+inf``; the backward kernel takes it as it is.
+    ``scale`` defaults to ``1 / sqrt(D)``."""
     _check_train_cuda("flash_attention_fwd_train_cuda", q, k, v)
     B, Lq, H, D = q.shape
     lse = torch.empty((B, H, lse_rows(Lq)), dtype=torch.float32,
                       device=q.device)
     out = _launch(q, k, v, causal=causal, window=window,
-                  scale=1.0 / math.sqrt(D), lse=lse)
+                  scale=1.0 / math.sqrt(D) if scale is None else scale,
+                  lse=lse)
     return out, lse
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, scale: float | None = None):
     """``(dq, dk, dv)`` of the bf16 backward kernel
     (``csrc/flash_bwd_sm90.cu``: Delta, then dK / dV, then dQ, in one
     call); ``o`` and ``lse`` (its padded buffer) from
     :func:`flash_attention_fwd_train_cuda`, ``do`` the gradient of
-    ``o``."""
+    ``o``; ``scale`` as the forward's (default ``1 / sqrt(D)``)."""
     do = do.contiguous()
     _check_train_cuda("flash_attention_bwd_cuda", q, k, v, ("o", o),
                       ("do", do), ("lse", lse))
-    if o.shape != q.shape or do.shape != q.shape or not (
-            o.dtype == do.dtype == q.dtype):
-        raise ValueError("flash_attention_bwd_cuda: o and do must match q "
-                         f"{tuple(q.shape)} {q.dtype}")
     B, Lq, H, D = q.shape
-    Lk, KV = k.shape[1], k.shape[2]
+    Lk, KV, DV = k.shape[1], k.shape[2], v.shape[3]
+    if o.shape != (B, Lq, H, DV) or do.shape != o.shape or not (
+            o.dtype == do.dtype == q.dtype):
+        raise ValueError("flash_attention_bwd_cuda: o and do must be "
+                         f"{(B, Lq, H, DV)} {q.dtype}")
     rows = (B, H, lse_rows(Lq))
     if lse.shape != rows or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd_cuda: lse must be the "
@@ -417,7 +442,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, H,
-                 KV, D, 1.0 / math.sqrt(D), int(causal), int(window),
+                 KV, D, DV, 1.0 / math.sqrt(D) if scale is None else scale,
+                 int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_sm90 launch failed: error {err} (a "
@@ -434,15 +460,16 @@ class _FlashAttentionTrain(torch.autograd.Function):
     the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, scale):
         if q.device.type == "cuda":
-            out, lse = flash_attention_fwd_train_cuda(q, k, v, causal=causal,
-                                                      window=window)
+            out, lse = flash_attention_fwd_train_cuda(
+                q, k, v, causal=causal, window=window, scale=scale)
         else:
             out, lse = flash_attention_plain(q, k, v, causal=causal,
-                                             window=window, return_lse=True)
+                                             window=window, scale=scale,
+                                             return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
@@ -451,16 +478,19 @@ class _FlashAttentionTrain(torch.autograd.Function):
         bwd = (flash_attention_bwd_cuda if q.device.type == "cuda"
                else flash_attention_bwd_plain)
         dq, dk, dv = bwd(q, k, v, out, lse, do, causal=ctx.causal,
-                         window=ctx.window)
-        return dq, dk, dv, None, None
+                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
-    """Differentiable attention for training: q (B, Lq, H, D); k, v
-    (B, Lk, KV, D) -> (B, Lq, H, D).
+def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: float | None = None):
+    """Differentiable attention for training: q (B, Lq, H, D); k
+    (B, Lk, KV, D), v (B, Lk, KV, DV) -> (B, Lq, H, DV), softmax over the
+    scores times ``scale`` (default ``1 / sqrt(D)``).
 
-    On CUDA the bf16 kernels at a D of ``TRAIN_HEAD_DIMS`` (anything else
-    raises); on the CPU :func:`flash_attention_plain` forward and
+    On CUDA the bf16 kernels at a D of ``TRAIN_HEAD_DIMS`` or a (D, DV) of
+    ``TRAIN_DV_PAIRS`` (anything else raises); on the CPU
+    :func:`flash_attention_plain` forward and
     :func:`flash_attention_bwd_plain` backward; any other device raises.
     Under remat the recompute runs the forward again, ``lse`` included.
     """
@@ -468,4 +498,4 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention_train: no kernel for device "
                          f"{q.device}")
     q, k, v = (t.contiguous() for t in (q, k, v))
-    return _FlashAttentionTrain.apply(q, k, v, causal, int(window))
+    return _FlashAttentionTrain.apply(q, k, v, causal, int(window), scale)

@@ -32,7 +32,17 @@ The encoder-decoder family adds two non-causal uses of the same kernel:
 :func:`cross_attention` (decoder queries against the encoder's memory,
 ``Lq != Lk``; memory and queries get no RoPE), both through the kernel
 with ``causal=False`` when ``use_flash`` is set: the reference's ``_sdpa``
-with ``mask=None``.  An encoder window ``0 < window < L`` masks
+with ``mask=None``.
+
+The ``mla_moe`` family (DeepSeek-V2) attends through :func:`mla_train`,
+multi-head latent attention: q from ``wq``; a compressed KV row ``c``
+(``kv_lora_rank`` wide) and one RoPE key head shared by every head from
+``wkv_a``; ``rms(c) wkv_b`` gives each head's no-RoPE key and its value;
+YaRN RoPE on the RoPE parts; scores over the 192-wide q / k heads against
+128-wide values, scaled by ``cfg.softmax_scale``.  It trains through the
+kernels at their (192, 128) instantiation (``TRAIN_DV_PAIRS``) by the same
+route rule as :func:`attention_train`.  Serving it (a latent KV cache) is
+not ported.  An encoder window ``0 < window < L`` masks
 ``|i - j| < window``, a symmetric band that neither the reference's
 Pallas kernel nor the port's computes, so that call computes ``_sdpa``
 under the mask on every device, as the reference does: a dispatch on
@@ -43,6 +53,7 @@ this module's ``flash_attention`` name, which ``serve_drift`` swaps.
 from __future__ import annotations
 
 import collections
+import math
 from typing import NamedTuple
 
 import torch
@@ -53,7 +64,14 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_train,
     trains_on_kernel,
 )
-from repro_torch.models.common import Initializer, apply_rope, cast, rms_norm
+from repro_torch.models.common import (
+    Initializer,
+    apply_rope,
+    cast,
+    rms_norm,
+    yarn_inv_freq,
+)
+from repro_torch.obs import trace
 
 NEG_INF = -1e30
 
@@ -104,19 +122,22 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, cfg: ModelConfig):
-    """q: (B,L,H,hd) k/v: (B,S,KV,hd); GQA via head grouping."""
+def _sdpa(q, k, v, mask, cfg: ModelConfig, *, scale: float | None = None):
+    """q: (B,L,H,hd) k: (B,S,KV,hd) v: (B,S,KV,dv); GQA via head
+    grouping.  The scores are divided by ``sqrt(hd)`` (a Python float: the
+    same fp32 divisor as the reference's ``jnp.sqrt(hd)``), or multiplied by
+    ``scale`` where given."""
     B, L, H, hd = q.shape
     KV = k.shape[2]
     group = H // KV
     qg = q.reshape(B, L, KV, group, hd)
     scores = cast(torch.einsum("blkgh,bskh->bklgs", qg, k), torch.float32)
-    scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     if mask is not None:
         scores = torch.where(mask[:, None, :, None, :], scores, NEG_INF)
     probs = cast(torch.softmax(scores, dim=-1), v.dtype)
     out = torch.einsum("bklgs,bskh->blkgh", probs, v)
-    return out.reshape(B, L, H, hd)
+    return out.reshape(B, L, H, v.shape[-1])
 
 
 def causal_mask(L: int, window: int = 0, device=None):
@@ -154,6 +175,65 @@ def attention_train(params, x, cfg: ModelConfig, *, window: int = 0,
         out = _sdpa(q, k, v, mask, cfg)
     out = out.reshape(B, L, cfg.n_heads * cfg.hd)
     return out @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (the mla_moe family), training only
+# ---------------------------------------------------------------------------
+
+def init_mla(ini: Initializer, cfg: ModelConfig):
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": ini.normal((d, H * (dn + dr)), ("embed", "qkv")),
+        "wkv_a": ini.normal((d, r + dr), ("embed", None)),
+        "kv_norm": ini.zeros((r,), (None,)),
+        "wkv_b": ini.normal((r, H * (dn + dv)), (None, "qkv")),
+        "wo": ini.normal((H * dv, d), ("heads", "embed")),
+    }
+
+
+def _mla_qkv(params, x, cfg: ModelConfig):
+    """q (B, L, H, dn + dr), k (B, L, H, dn + dr), v (B, L, H, dv): the
+    latent projections and YaRN RoPE on the RoPE parts."""
+    B, L, _ = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    positions = torch.arange(L, device=x.device)[None, :]
+    inv = yarn_inv_freq(dr, cfg.rope_theta, cfg.yarn, device=x.device)
+    q = (x @ params["wq"]).reshape(B, L, H, dn + dr)
+    q_nope, q_pe = torch.split(q, [dn, dr], dim=-1)
+    c, k_pe = torch.split(x @ params["wkv_a"], [r, dr], dim=-1)
+    kv = (rms_norm(c, params["kv_norm"]) @ params["wkv_b"]).reshape(
+        B, L, H, dn + dv)
+    k_nope, v = torch.split(kv, [dn, dv], dim=-1)
+    q_pe = apply_rope(q_pe, positions, inv_freq=inv)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, inv_freq=inv)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(B, L, H, dr)], dim=-1)
+    return q, k, v.contiguous()
+
+
+def mla_train(params, x, cfg: ModelConfig, *, window: int = 0,
+              use_flash: bool | None = None):
+    """Causal multi-head latent attention.  x: (B, L, d).  ``use_flash``
+    as :func:`attention_train` takes it, with the route chosen from q's and
+    v's head dims (``trains_on_kernel(q, v)``)."""
+    B, L, _ = x.shape
+    q, k, v = trace.layer("mla", _mla_qkv, params, x, cfg)
+    w = window or cfg.sliding_window
+    scale = cfg.softmax_scale
+    if use_flash is None:
+        use_flash = trains_on_kernel(q, v)
+        if not use_flash and q.device.type == "cuda":
+            DISPATCH_COUNTS["train_sdpa"] += 1
+    if use_flash:
+        out = flash_attention_train(q, k, v, causal=True, window=w,
+                                    scale=scale)
+    else:
+        mask = causal_mask(L, w, device=x.device)[None]
+        out = _sdpa(q, k, v, mask, cfg, scale=scale)
+    return out.reshape(B, L, cfg.n_heads * cfg.v_head_dim) @ params["wo"]
 
 
 def attention_bidir(params, x, cfg: ModelConfig, *, window: int = 0,

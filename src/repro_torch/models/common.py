@@ -121,6 +121,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
     def tensors(self) -> dict:
         """The tree as nested dicts of the tensors its attributes hold now
         (under ``torch.func.functional_call``, the substituted ones)."""
@@ -217,13 +220,51 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (float(theta) ** exps)
 
 
-def apply_rope(x, positions, theta: float = 1e4):
+def yarn_correction_range(yarn, dim: int, theta: float) -> tuple[int, int]:
+    """DeepSeek-V2's ``yarn_find_correction_range``: the rotary dims
+    between ``beta_fast`` and ``beta_slow`` rotations over the original
+    context, floored and ceiled, clipped to [0, dim - 1]."""
+    def at(rotations):
+        return (dim * math.log(yarn.original_max_position_embeddings
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(at(yarn.beta_fast)), 0),
+            min(math.ceil(at(yarn.beta_slow)), dim - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_inv_freq(dim: int, theta: float, yarn, device) -> torch.Tensor:
+    powers = theta ** (torch.arange(0, dim, 2, dtype=torch.float32) / dim)
+    extra, inter = 1.0 / powers, 1.0 / (yarn.factor * powers)
+    low, high = yarn_correction_range(yarn, dim, theta)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32) - low)
+                       / (high - low), 0, 1)
+    mask = 1.0 - ramp           # DeepSeek's inv_freq_mask, in its order
+    return (inter * (1 - mask) + extra * mask).to(device)
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """(dim / 2,) fp32 inverse frequencies of YaRN RoPE, as DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding`` computes them: ``extra = theta^(-2i /
+    dim)``, ``inter = extra / factor``, ``ramp`` linear from 0 to 1 over
+    :func:`yarn_correction_range`, ``inter ramp + extra (1 - ramp)``.
+    Computed once a (dim, theta, yarn, device) on the host and kept there."""
+    return _yarn_inv_freq(dim, float(theta), yarn, torch.device(
+        device if device is not None else "cpu"))
+
+
+def apply_rope(x, positions, theta: float = 1e4, *, inv_freq=None):
     """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq).
 
-    Split halves (not interleaved), computed in fp32.
+    Split halves (not interleaved), computed in fp32.  ``inv_freq``
+    ((head_dim / 2,), on x's device) replaces ``theta``'s frequencies
+    (YaRN's, :func:`yarn_inv_freq`).
     """
     head_dim = x.shape[-1]
-    freqs = rope_frequencies(head_dim, theta, device=x.device)  # (hd/2,)
+    freqs = (rope_frequencies(head_dim, theta, device=x.device)
+             if inv_freq is None else inv_freq)                 # (hd/2,)
     angles = positions[..., None].to(torch.float32) * freqs     # (..., seq, hd/2)
     angles = angles[..., None, :]                                # (..., seq, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

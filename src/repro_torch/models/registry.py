@@ -3,7 +3,8 @@
 The port's ``params`` is the model itself, an ``nn.Module`` holding the
 weights: ``model.init(seed)`` returns ``(module, axes)`` and every callable
 takes the module where the reference takes its params pytree.  Every
-family of the zoo builds: dense, MoE and VLM on
+family of the zoo builds: dense, MoE, VLM and the port's own ``mla_moe``
+(DeepSeek-V2, training only) on
 :class:`~repro_torch.models.transformer.Transformer`, SSM on
 :class:`~repro_torch.models.ssm.SSM`, hybrid on
 :class:`~repro_torch.models.hybrid.Hybrid`, and the encoder-decoder on
@@ -68,6 +69,7 @@ _BACKBONES = {
     "dense": (transformer, transformer.Transformer),
     "moe": (transformer, transformer.Transformer),
     "vlm": (transformer, transformer.Transformer),
+    "mla_moe": (transformer, transformer.Transformer),
     "ssm": (ssm, ssm.SSM),
     "hybrid": (hybrid, hybrid.Hybrid),
     "encdec": (encdec, encdec.EncDec),

@@ -11,7 +11,14 @@ each block (:func:`~repro_torch.models.common.maybe_checkpoint`, the
 reference's per-layer ``jax.checkpoint``); serving runs without grad and
 never recomputes.  A MoE block holds ``moe`` (:func:`~repro_torch.models.
 mlp.moe`) where a dense one holds ``mlp``, and the forward returns the
-mean of its router losses over the layers as ``moe_aux``.  A VLM prepends
+mean of its router losses over the layers as ``moe_aux``.  The ``mla_moe``
+family (DeepSeek-V2) chooses a block kind per layer: multi-head latent
+attention (:func:`~repro_torch.models.attention.mla_train`) in every
+layer, a dense SwiGLU of ``d_ff`` in the first ``first_k_dense`` layers and
+a DeepSeekMoE expert share (:func:`~repro_torch.models.mlp.expert_share`)
+after them, and its ``moe_aux`` is the sum of the MoE layers' balance
+losses, as DeepSeek adds each layer's; it trains only (prefill and decode
+through a latent cache are not ported and raise).  A VLM prepends
 the batch's ``vision_embeds`` (B, n_vision_tokens, d) to the token
 embeddings in the training forward and in prefill; decode feeds tokens.
 """
@@ -34,11 +41,18 @@ from repro_torch.models.common import (
     rms_norm,
     split_params,
 )
-from repro_torch.models.mlp import init_mlp, init_moe, mlp, moe
+from repro_torch.models.mlp import (
+    expert_share,
+    init_expert_share,
+    init_mlp,
+    init_moe,
+    mlp,
+    moe,
+)
 from repro_torch.obs import trace
 
 #: the families this backbone runs
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "vlm", "mla_moe")
 
 
 def _require_transformer(cfg: ModelConfig):
@@ -51,13 +65,18 @@ def _require_transformer(cfg: ModelConfig):
 # One decoder block
 # ---------------------------------------------------------------------------
 
-def init_block(ini: Initializer, cfg: ModelConfig):
+def init_block(ini: Initializer, cfg: ModelConfig, i: int = 0):
+    """Layer ``i``'s parameters (its kind depends on ``i`` in the
+    ``mla_moe`` family)."""
+    mla = cfg.family == "mla_moe"
     p = {
         "ln1": init_rms_norm(ini, cfg.d_model),
-        "attn": attn.init_attention(ini, cfg),
+        "attn": (attn.init_mla if mla else attn.init_attention)(ini, cfg),
         "ln2": init_rms_norm(ini, cfg.d_model),
     }
-    if cfg.family == "moe":
+    if mla and cfg.is_moe_layer(i):
+        p["moe"] = init_expert_share(ini, cfg)
+    elif cfg.family == "moe":
         p["moe"] = init_moe(ini, cfg)
     else:
         p["mlp"] = init_mlp(ini, cfg)
@@ -65,11 +84,14 @@ def init_block(ini: Initializer, cfg: ModelConfig):
 
 
 def _ffn(params, x, cfg: ModelConfig):
-    """The block's feed-forward half: (out, router aux loss)."""
+    """The block's feed-forward half: (out, router aux loss); the kind
+    is read from the block's parameters."""
     normed = rms_norm(x, params["ln2"]["scale"])
-    if cfg.family == "moe":
-        return moe(params["moe"], normed, cfg)
-    return trace.layer("mlp", mlp, params["mlp"], normed, cfg), 0.0
+    if "mlp" in params:
+        return trace.layer("mlp", mlp, params["mlp"], normed, cfg), 0.0
+    if cfg.family == "mla_moe":
+        return expert_share(params["moe"], normed, cfg)
+    return moe(params["moe"], normed, cfg)
 
 
 def block_train(params, x, cfg: ModelConfig, *, window: int = 0,
@@ -77,7 +99,8 @@ def block_train(params, x, cfg: ModelConfig, *, window: int = 0,
     """Returns (x, router aux loss: 0.0 for a dense block).  ``use_flash``
     as :func:`~repro_torch.models.attention.attention_train` takes it
     (None: the route is chosen there)."""
-    h = trace.layer("attention", attn.attention_train, params["attn"],
+    fn = attn.mla_train if cfg.family == "mla_moe" else attn.attention_train
+    h = trace.layer("attention", fn, params["attn"],
                     rms_norm(x, params["ln1"]["scale"]), cfg, window=window,
                     use_flash=use_flash)
     x = x + h
@@ -125,7 +148,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     _require_transformer(cfg)
     ini = initializer(cfg, seed, device)
     V = pad_vocab(cfg.vocab_size)
-    tree = {"blocks": [init_block(ini, cfg) for _ in range(cfg.n_layers)],
+    tree = {"blocks": [init_block(ini, cfg, i) for i in range(cfg.n_layers)],
             "embed": init_embedding(ini, V, cfg.d_model),
             "final_norm": init_rms_norm(ini, cfg.d_model)}
     if not cfg.tie_embeddings:
@@ -184,8 +207,9 @@ class Transformer(nn.Module):
             x, a = trace.layer("block", body, blk.tensors(), x, self.cfg,
                                window=window, use_flash=use_flash)
             moe_aux = moe_aux + a
-        return (trace.layer("loss_head", self._logits, x),
-                {"moe_aux": moe_aux / max(self.cfg.n_layers, 1)})
+        if self.cfg.family != "mla_moe":
+            moe_aux = moe_aux / max(self.cfg.n_layers, 1)
+        return trace.layer("loss_head", self._logits, x), {"moe_aux": moe_aux}
 
     forward = forward_train
 
@@ -193,8 +217,15 @@ class Transformer(nn.Module):
         return init_decode_cache(self.cfg, batch, capacity,
                                  device=self.embed["table"].device)
 
+    def _serves(self):
+        if self.cfg.family == "mla_moe":
+            raise NotImplementedError(
+                f"{self.cfg.name}: serving the mla_moe family (prefill and "
+                "decode through a latent KV cache) is not ported; it trains")
+
     def forward_decode(self, batch: dict, caches):
         """One-token decode. batch: {"tokens": (B, 1)}; caches: per layer."""
+        self._serves()
         x = self._embed(batch["tokens"])
         new = []
         for blk, cache in zip(self.blocks, caches):
@@ -205,6 +236,7 @@ class Transformer(nn.Module):
     def forward_prefill(self, batch: dict, capacity: int):
         """Full forward + cache materialisation; logits of the last position
         only (the final norm is per row, so it is applied to that row)."""
+        self._serves()
         x = self._embed_inputs(batch)
         caches = []
         for blk in self.blocks:

@@ -63,6 +63,17 @@ SPANS = {
     "attention": "a decoder block's attention_train: QKV projections, "
                  "qk-norm, RoPE, the scores or flash, the output projection",
     "mlp": "the feed-forward mlp() of a dense block",
+    "mla": "multi-head latent attention's projections inside attention: "
+           "q, the compressed KV and its norm, the per-head keys and "
+           "values, YaRN RoPE on the RoPE parts",
+    "moe": "the routed half of a DeepSeekMoE layer (expert_share): route, "
+           "dispatch, the held experts, combine",
+    "moe.route": "the fp32 router over all experts and the greedy top-k",
+    "moe.dispatch": "the (token, expert) rows sorted by held expert on the "
+                    "device, the group offsets, the rows' inputs gathered",
+    "moe.experts": "the held experts' three grouped products and SwiGLU",
+    "moe.combine": "the rows weighted by their gates and summed per token",
+    "shared_expert": "a DeepSeekMoE layer's shared experts (one SwiGLU)",
     "loss_head": "the transformer's final norm and the head's logits",
     "ce": "the fp32 cross-entropy of the logits (every family)",
     "local_step": "the unfused momentum / prox / tracking updates",

@@ -34,6 +34,7 @@ from repro_torch.convert import (
     _init_fn,
     model_params_from_numpy,
     model_params_to_numpy,
+    uniform,
 )
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
@@ -115,8 +116,12 @@ def _checked(data, key: str, shape) -> np.ndarray:
 
 def _stacked_shapes(tree, prefix: str = "", lead: tuple = ()):
     """(path, shape) of every leaf of a port params tree in the reference's
-    layout: each list of per-layer trees stacked on a leading axis."""
-    if isinstance(tree, list):
+    layout: each list of per-layer trees stacked on a leading axis, or
+    kept apart where its layers differ (``convert.uniform``)."""
+    if isinstance(tree, list) and not uniform(tree):
+        for i, t in enumerate(tree):
+            yield from _stacked_shapes(t, f"{prefix}{i}/", lead)
+    elif isinstance(tree, list):
         yield from _stacked_shapes(tree[0], prefix, lead + (len(tree),))
     elif isinstance(tree, Mapping):
         for k in sorted(tree):
