@@ -9,8 +9,9 @@ final line):
 1. build the CUDA kernels from the repo's sources with ``nvcc`` (into
    each kernel's ``build/``): ``kernels/prox/csrc/prox_sweep.cu``,
    ``kernels/flash_attention/csrc/flash_fwd.cu`` (fp32),
-   ``kernels/flash_attention/csrc/flash_fwd_sm90.cu`` (bf16), the three
-   ``nvcc`` runs started together; print what ``-Xptxas
+   ``kernels/flash_attention/csrc/flash_fwd_sm90.cu`` (bf16), its
+   backward ``flash_bwd_sm90.cu`` and ``kernels/rms_norm/csrc/rms_norm.cu``,
+   the ``nvcc`` runs started together; print what ``-Xptxas
    -v`` says of both flash kernels per D (registers, shared memory,
    spills) and of every sweep-kernel instantiation (registers, spills),
    and fail if the bf16 D = 80 / 96 / 128 or the fp32 D = 128
@@ -53,6 +54,14 @@ final line):
      ``deepseek-v2-lite`` cell's attention (``FLASH_MLA_SHAPE``, causal,
      the configuration's softmax scale), against the plain pair within
      ``FLASH_BWD_REL``;
+   * the RMSNorm pair (``check_norm``): forward and backward at the
+     cells' rows (``NORM_SHAPES``, bf16, DeepSeek's latent rows strided)
+     and at odd widths, rows and views in fp32 and bf16, against the plain
+     pair: the bf16 forward within one ulp, fp32 within ``NORM_FP32_REL``,
+     dx and dw within ``NORM_BWD_REL`` relative L2 of the fp32 plain
+     backward, dw the same bits twice; then both kernels timed at qwen's
+     two shapes (``NORM_TIMED``) in turns with the plain forward and its
+     autograd backward, against their byte bounds;
 3. the DEPOSITUM path: ``ROUNDS`` rounds of the paper's Fig. 4 MLP (123 ->
    64 -> 32 -> 10, 10 clients on a ring, T0 = 10, MCP prox) through
    ``repro_torch.quickstart.run_depositum`` with ``fused="require"``; each
@@ -332,7 +341,10 @@ training forward's launches in ``train_llm``'s (6a) timed rounds, and the
 ``flash_attention_bwd`` entry (the backward, which replaces no TPU
 kernel) counts its launches there; the ``flash_attention_mla_fwd`` and
 ``flash_attention_mla_bwd`` entries (D 192 / DV 128) count theirs in
-``train_mla``'s timed rounds.  Prints JSON lines per
+``train_mla``'s timed rounds; ``rms_norm_fwd`` and ``rms_norm_bwd`` count
+theirs in ``train_llm``'s and ``train_mla``'s timed rounds together
+(``launches_by_path`` splits them), each held there to the norms of the
+models' layers (``expect_train_norms``).  Prints JSON lines per
 phase, then the card's name and power limit (from ``nvidia-smi``), then
 one ``{"kernels": [...]}`` line, then as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero
@@ -341,9 +353,11 @@ beside the script.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -400,6 +414,19 @@ FLASH_LSE_ATOL = 1e-4
 # the deepseek-v2-lite cell's attention (B, L, H, D, DV), causal, every
 # head its own key and value
 FLASH_MLA_SHAPE = (2, 4096, 16, 192, 128)
+# the RMSNorm pair at the cells' rows (rows, d, row stride): qwen's ln and
+# qk-norm rows at B 2 x L 2048 and 4096, DeepSeek's latent c (512 of a
+# 576-column row); timed at qwen's two.  The kernels sum a row in another
+# order than the plain path: the bf16 forward within one ulp, fp32 within
+# NORM_FP32_REL; dx and dw (rounded once to bf16) within NORM_BWD_REL
+# relative L2 of the fp32 plain backward
+NORM_SHAPES = ((4096, 2048, 2048), (65536, 128, 128), (32768, 128, 128),
+               (8192, 2048, 2048), (8192, 512, 576))
+NORM_ODD = ((37, 127), (1001, 2047), (4097, 2048), (33, 6144))
+NORM_TIMED = ((4096, 2048), (65536, 128))
+NORM_BWD_REL = 3e-3
+NORM_FP32_REL = 1e-5
+NORM_COLD_BYTES = 600_000_000
 # full-width prefill, flash vs plain attention: both compute the attention
 # in fp32 and round it to bf16, so an element may differ by one bf16 ulp
 # (2^-8 relative); 28 bf16 layers carry that into the logits (std ~1)
@@ -727,13 +754,16 @@ def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.prox import kernel as prox
+    from repro_torch.kernels.rms_norm import kernel as norm
     t0 = time.perf_counter()
     jobs = (prox.build_library, lambda: flash.build_library("flash_fwd"),
             lambda: flash.build_library("flash_fwd_sm90"),
-            lambda: flash.build_library("flash_bwd_sm90"))
+            lambda: flash.build_library("flash_bwd_sm90"),
+            norm.build_library)
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: job(), jobs))
     prox._lib()
+    norm._lib()
     for name in flash.SOURCES:
         flash._kernel(name)
     sweep = _ptxas(paths[0].with_suffix(".log").read_text())
@@ -742,6 +772,7 @@ def phase_build() -> dict:
     sm90 = _ptxas(paths[2].with_suffix(".log").read_text())
     fp32 = _ptxas(paths[1].with_suffix(".log").read_text())
     bwd = _ptxas(paths[3].with_suffix(".log").read_text())
+    norm_ptxas = _ptxas(paths[4].with_suffix(".log").read_text())
     checked = [("bf16", sm90, f"flash_fwd_sm90_kernelILi{D}E")
                for D in FLASH_SM90_CHECKED] + [("fp32", fp32, FP32_NO_SPILL)] \
         + [("bf16 backward", bwd, f"flash_bwd_{part}_kernelILi{D}E")
@@ -766,7 +797,10 @@ def phase_build() -> dict:
             "seconds": time.perf_counter() - t0, "flash_sm90_wgmma": wgmma,
             "flash_sm90_ptxas": sm90, "flash_fp32_ptxas": fp32,
             "flash_bwd_ptxas": bwd,
-            "sweep_ptxas": sweep,
+            "sweep_ptxas": sweep, "norm_ptxas": norm_ptxas,
+            "norm_spilling": sorted(n for n, p in norm_ptxas.items()
+                                    if p.get("spill_store_bytes")
+                                    or p.get("spill_load_bytes")),
             "sweep_spilling": sorted(n for n, p in sweep.items()
                                      if p.get("spill_store_bytes")
                                      or p.get("spill_load_bytes"))}
@@ -775,7 +809,14 @@ def phase_build() -> dict:
 def _modules():
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.prox import kernel as prox
-    return prox, flash
+    from repro_torch.kernels.rms_norm import kernel as norm
+    return prox, flash, norm
+
+
+#: the RMSNorm pair's entries of ``read_counts``: every model path runs
+#: the norms, so ``expect_counts`` holds them only where ``want`` names
+#: them (the training paths' timed rounds, ``expect_train_norms``)
+NORM_COUNTS = ("rms_norm_fwd", "rms_norm_bwd")
 
 
 def reset_counts() -> None:
@@ -787,7 +828,7 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launch count, under the names of the kernels line."""
-    prox, flash = _modules()
+    prox, flash, norm = _modules()
     return {"fused_update_sweep": prox.LAUNCH_COUNTS["fused_sweep"],
             "fused_tracking_sweep": prox.LAUNCH_COUNTS["tracking_sweep"],
             "prox": prox.LAUNCH_COUNTS["prox"],
@@ -795,20 +836,23 @@ def read_counts() -> dict:
             "flash_attention": flash.LAUNCH_COUNTS["flash_fwd_sm90"],
             "flash_attention_fp32": flash.LAUNCH_COUNTS["flash_fwd_fp32"],
             # of both kernels' launches, those through the head-dim route
-            "flash_fwd_padded": flash.LAUNCH_COUNTS["flash_fwd_padded"]}
+            "flash_fwd_padded": flash.LAUNCH_COUNTS["flash_fwd_padded"],
+            **{name: norm.LAUNCH_COUNTS[name] for name in NORM_COUNTS}}
 
 
 def expect_counts(path: str, counts: dict, want: dict) -> None:
     """Each kernel launched exactly ``want[name]`` times (0 if absent; the
-    head-dim route's count too), and the flash wrapper's total is the sum
-    of its two kernels'."""
-    _, flash = _modules()
+    head-dim route's count too; the RMSNorm pair only where named), and
+    the flash wrapper's total is the sum of its two kernels'."""
+    _, flash, _ = _modules()
     total = counts["flash_attention"] + counts["flash_attention_fp32"]
     if flash.LAUNCH_COUNTS["flash_fwd"] != total:
         raise AssertionError(f"{path}: flash_fwd counted "
                              f"{flash.LAUNCH_COUNTS['flash_fwd']} launches, "
                              f"its routes {total}")
     for name, n in counts.items():
+        if name in NORM_COUNTS and name not in want:
+            continue
         if n != want.get(name, 0):
             raise AssertionError(f"{path}: {name} launched {n} times, want "
                                  f"{want.get(name, 0)}")
@@ -820,7 +864,7 @@ def expect_train_flash(path: str, passes: int) -> dict:
     forward twice (remat "full": forward and recompute), and no call fell
     through to ``_sdpa``; returns the three counts."""
     from repro_torch.models import attention
-    _, flash = _modules()
+    _, flash, _ = _modules()
     got = {"flash_bwd": flash.LAUNCH_COUNTS["flash_bwd"],
            "flash_fwd_train": flash.LAUNCH_COUNTS["flash_fwd_train"],
            "train_sdpa": attention.DISPATCH_COUNTS["train_sdpa"]}
@@ -828,6 +872,22 @@ def expect_train_flash(path: str, passes: int) -> dict:
             "train_sdpa": 0}
     if got != want:
         raise AssertionError(f"{path}: training attention launched {got}, "
+                             f"want {want}")
+    return got
+
+
+def expect_train_norms(path: str, cfg, per_layer: int, steps: int) -> dict:
+    """Training normalised through the RMSNorm pair: in ``steps``
+    client-steps of ``cfg`` with ``per_layer`` norms a layer, each norm's
+    forward launched once a step, twice under remat (forward and
+    recompute), and its backward once; the final norm once each.  Returns
+    the two counts."""
+    n = per_layer * cfg.n_layers
+    want = {"rms_norm_fwd": ((2 if cfg.remat else 1) * n + 1) * steps,
+            "rms_norm_bwd": (n + 1) * steps}
+    got = {name: read_counts()[name] for name in NORM_COUNTS}
+    if got != want:
+        raise AssertionError(f"{path}: the RMSNorm pair launched {got}, "
                              f"want {want}")
     return got
 
@@ -1338,6 +1398,130 @@ def phase_check_flash() -> dict:
             "max_abs_err": worst, "tol": FLASH_TOL,
             "dv_pairs_max_rel_l2": dv_worst, "mla_cell_rel_l2": mla_rel,
             "launches": read_counts()}
+
+
+def _norm_inputs(rows, d, stride, dtype, seed, offset=0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn((rows, stride + offset), generator=g, device="cuda")
+    x = (base * 2).to(dtype)[:, offset:offset + d]
+    w = (torch.randn(d, generator=g, device="cuda") * 0.1).to(dtype)
+    dy = torch.randn((rows, d), generator=g, device="cuda").to(dtype)
+    return x, w, dy
+
+
+def _hold_norm(x, w, dy) -> dict:
+    """The RMSNorm pair on one input against the plain pair (see
+    ``NORM_*``); its errors."""
+    import torch
+    from repro_torch.kernels.rms_norm import kernel as N
+    from repro_torch.kernels.rms_norm import ref
+    from repro_torch.models.common import rms_norm_plain
+    y = N.rms_norm_fwd_cuda(x, w)
+    dx, dw = N.rms_norm_bwd_cuda(x, w, dy)
+    _, dw2 = N.rms_norm_bwd_cuda(x, w, dy)
+    plain = rms_norm_plain(x, w)
+    rdx, rdw = ref.rms_norm_bwd_ref(x.float(), w.float(), dy.float())
+    torch.cuda.synchronize()
+    rel = lambda a, b: float((a.float() - b).norm() / b.norm())
+    out = {"dx_rel_l2": rel(dx, rdx), "dw_rel_l2": rel(dw, rdw),
+           "dw_repeats": bits_equal(dw, dw2)}
+    if x.dtype == torch.bfloat16:
+        out["y_ulps"] = int(bf16_ulps(y, plain).max())
+        fails = out["y_ulps"] > 1 or max(out["dx_rel_l2"],
+                                         out["dw_rel_l2"]) > NORM_BWD_REL
+    else:
+        out["y_rel"] = float(((y - plain).abs() / plain.abs().clamp_min(
+            NORM_FP32_REL)).max())
+        out["dx_rel_max"] = float((dx - rdx).abs().max() / rdx.abs().max())
+        fails = max(out["y_rel"], out["dx_rel_max"],
+                    out["dw_rel_l2"]) > NORM_FP32_REL
+    if fails or not out["dw_repeats"]:
+        raise AssertionError(f"rms_norm pair at {tuple(x.shape)} "
+                             f"{x.dtype}: {out}")
+    return out
+
+
+def phase_check_norm() -> dict:
+    """The RMSNorm pair against the plain pair (``NORM_SHAPES`` bf16,
+    ``NORM_ODD`` and a view one element into its rows in both dtypes),
+    then timed at ``NORM_TIMED`` in three turns (the median of each):
+    the forward against the plain forward and a copy of x (the forward's
+    bytes), the backward against autograd through the plain forward, by
+    device time (``torch.profiler``); each kernel against its byte bound (x
+    read and y written; x and dy read and dx written); ``call_ms``: the
+    host's time a call, back to back."""
+    import torch
+    from repro_torch.kernels.rms_norm import kernel as N
+    from repro_torch.models.common import rms_norm_plain
+    checks = {}
+    for i, (rows, d, stride) in enumerate(NORM_SHAPES):
+        x, w, dy = _norm_inputs(rows, d, stride, torch.bfloat16, i)
+        checks[f"{rows}x{d}/{stride}"] = _hold_norm(x, w, dy)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (rows, d) in enumerate(NORM_ODD):
+            x, w, dy = _norm_inputs(rows, d, d, dtype, 100 + i)
+            checks[f"{rows}x{d} {dtype}"] = _hold_norm(x, w, dy)
+        x, w, dy = _norm_inputs(257, 64, 64, dtype, 7, offset=1)
+        checks[f"257x64 view {dtype}"] = _hold_norm(x, w, dy)
+    torch.cuda.empty_cache()
+    bw = hw()["hbm_bandwidth"]
+    timed = {}
+    for rows, d in NORM_TIMED:
+        # input sets enough that each call finds its operands cold in the
+        # 50 MB L2 (more than NORM_COLD_BYTES in all), taken in turn, and
+        # each set's outputs kept until its next turn, so no call writes
+        # over lines the last one left in L2
+        sets = [_norm_inputs(rows, d, d, torch.bfloat16, rows + i)
+                for i in range(-(-NORM_COLD_BYTES // (rows * d * 4)))]
+        turn = itertools.cycle(range(len(sets)))
+        graphs = []
+        for x, w, dy in sets:
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            graphs.append((xg, wg, rms_norm_plain(xg, wg), dy))
+
+        def at(fn, data):
+            kept = [None] * len(data)  # outputs live on: no block reused
+
+            def call():
+                i = next(turn)
+                kept[i] = fn(*data[i])
+            return call
+
+        fns = {"fwd": at(N.rms_norm_fwd_cuda, [s[:2] for s in sets]),
+               # a yardstick: the same bytes as the forward, copied
+               "copy": at(lambda x: x.clone(), [s[:1] for s in sets]),
+               "plain_fwd": at(rms_norm_plain, [s[:2] for s in sets]),
+               "bwd": at(N.rms_norm_bwd_cuda, sets),
+               "plain_bwd": at(lambda xg, wg, yp, dy: torch.autograd.grad(
+                   yp, (xg, wg), dy, retain_graph=True), graphs)}
+        ms = {k: [] for k in fns}
+        for k in ("fwd", "plain_fwd", "copy", "bwd", "plain_bwd") * 3:
+            got = _device_ms(fns[k], None if k in ("copy", "plain_fwd",
+                                                   "plain_bwd")
+                             else ["rms_norm"], iters=4 * len(sets))
+            if got is not None:  # a profile that recorded no device time
+                ms[k].append(got)
+        if min(len(v) for v in ms.values()) < 2:
+            raise AssertionError(f"rms_norm timing: the profiler recorded "
+                                 f"too few readings: {ms}")
+        nbytes = rows * d * sets[0][0].element_size()
+        bound = {"fwd": 2 * nbytes / bw * 1e3, "bwd": 3 * nbytes / bw * 1e3}
+        timed[f"{rows}x{d}"] = {
+            **{k: statistics.median(v) for k, v in ms.items()},
+            "all_ms": ms,
+            "bound_ms": bound,
+            "share_of_bound": {k: bound[k] / statistics.median(ms[k])
+                               for k in bound},
+            "call_ms": {k: time_ms(fns[k], iters=100, warmup=10)
+                        for k in fns}}
+        del sets, graphs
+    torch.cuda.empty_cache()
+    return {"phase": "check_norm", "checks": checks, "timed": timed,
+            "bound_by": "bytes",
+            "plan": {f"{rows}x{d} {way}": N.plan(
+                d, torch.bfloat16, True, way == "bwd")._asdict()
+                for rows, d in NORM_TIMED for way in ("fwd", "bwd")}}
 
 
 def phase_main_path():
@@ -2521,7 +2705,7 @@ def phase_round_time() -> dict:
 def _sweep_counts(path: str, want: int, gated: int = 0) -> dict:
     """The sweep kernels launched ``want`` times each and nothing else,
     ``gated`` of them through the gated instantiation."""
-    prox, _ = _modules()
+    prox, _, _ = _modules()
     launches = read_counts()
     expect_counts(path, launches, {"fused_update_sweep": want,
                                    "fused_tracking_sweep": want})
@@ -3247,6 +3431,9 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
         "fused_tracking_sweep": per_step * T0 * TRAIN_ROUNDS})
     attn_launches = expect_train_flash(
         "train_llm", cfg.n_layers * args.clients * T0 * TRAIN_ROUNDS)
+    # ln1, ln2 and the qk-norm's two a layer
+    norm_launches = expect_train_norms("train_llm", cfg, 4,
+                                       args.clients * T0 * TRAIN_ROUNDS)
     tokens = args.clients * args.batch * args.seq * T0
 
     # recorded rounds in turns with unrecorded ones: round wall and peak
@@ -3371,6 +3558,7 @@ def phase_train_llm() -> tuple[dict, dict, dict, dict]:
         "telemetry": tel, "launches_telemetry": tel_launches,
         "launches_per_step": per_step, "allocator_timed": allocator,
         "attention_launches_timed": attn_launches,
+        "norm_launches_timed": norm_launches,
         "profiled_round": profiled, "sweep_step": sweep,
         "serve": {"batch": ts["batch"], "prompt": ts["prompt"],
                   "new_tokens": ts["new"], "generate_s": serve_s,
@@ -3806,6 +3994,9 @@ def phase_train_mla() -> dict:
         losses.append(hist[-1]["loss"])
     launches = expect_train_flash(
         "train_mla", cfg.n_layers * args.clients * args.t0 * MLA_ROUNDS)
+    # ln1, ln2 and the latent's kv_norm a layer
+    norm_launches = expect_train_norms(
+        "train_mla", cfg, 3, args.clients * args.t0 * MLA_ROUNDS)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train_mla: losses {losses}")
     peak_gb = _gb(torch.cuda.max_memory_allocated() - base)
@@ -3843,6 +4034,7 @@ def phase_train_mla() -> dict:
             "clients": args.clients, "batch": args.batch, "seq": args.seq,
             "t0": args.t0, "rounds": MLA_ROUNDS, "round_ms": walls,
             "losses": losses, "peak_gb": peak_gb, "launches": launches,
+            "norm_launches": norm_launches,
             "shape": {"B": B, "L": L, "H": H, "D": D, "DV": DV,
                       "causal": True, "scale": scale},
             "fwd_ms": min(times["fwd_ms"]), "bwd_ms": min(times["bwd_ms"]),
@@ -4876,6 +5068,8 @@ def main() -> int:
     emit(check_prox)
     check_flash = phase_check_flash()
     emit(check_flash)
+    check_norm = phase_check_norm()
+    emit(check_norm)
     emit(phase_graph())
     emit(phase_graph_choco())
     state, launches, main_path = phase_main_path()
@@ -5037,6 +5231,25 @@ def main() -> int:
             "ms": t[key], "plain_ms": t["plain_bwd_ms"] if key == "bwd_ms"
             else None, "bound_ms": t["bound_ms"][key],
             "bound_by": t["bound_by"], "library_ms": None})
+    # the RMSNorm pair: its launches in train_llm's and train_mla's timed
+    # rounds; timed at qwen's two shapes
+    norm_src = "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu"
+    for name, key in (("rms_norm_fwd", "fwd"), ("rms_norm_bwd", "bwd")):
+        t = check_norm["timed"]
+        on_path = {"train_llm": llm["norm_launches_timed"][name],
+                   "train_mla": train_mla["norm_launches"][name]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": norm_src,
+            "replaces": None, "launches": sum(on_path.values()),
+            "launches_by_path": on_path,
+            "max_rel_l2": max(max(c["dx_rel_l2"], c["dw_rel_l2"])
+                              for c in check_norm["checks"].values()),
+            "ms": {shape: r[key] for shape, r in t.items()},
+            "plain_ms": {shape: r[f"plain_{key}"] for shape, r in t.items()},
+            "bound_ms": {shape: r["bound_ms"][key] for shape, r in t.items()},
+            "share_of_bound": {shape: r["share_of_bound"][key]
+                               for shape, r in t.items()},
+            "bound_by": "bytes", "library_ms": None})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": kernels})

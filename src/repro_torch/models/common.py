@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch.kernels.rms_norm.kernel import rms_norm_cuda
 from repro_torch.obs import trace
 
 
@@ -191,7 +192,18 @@ def cast(x, dtype):
 # ---------------------------------------------------------------------------
 
 def rms_norm(x, weight, eps: float = 1e-6):
-    """RMS norm in fp32 with a zero-centred scale (``1 + weight``)."""
+    """RMS norm in fp32 with a zero-centred scale (``1 + weight``).  A CUDA
+    tensor runs the hand-written kernel pair
+    (``kernels/rms_norm/kernel.py::rms_norm_cuda``); elsewhere
+    :func:`rms_norm_plain`."""
+    if x.device.type == "cuda":
+        return rms_norm_cuda(x, weight, eps)
+    return rms_norm_plain(x, weight, eps)
+
+
+def rms_norm_plain(x, weight, eps: float = 1e-6):
+    """:func:`rms_norm` as plain ops on any device: the CPU's path, and the
+    forward the kernels are held to."""
     dtype = x.dtype
     x = cast(x, torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
